@@ -1,0 +1,186 @@
+"""Latent Dirichlet Allocation with the MHW sampler (port of
+``repro.core.lda``), token-sorted layout only.
+
+The dense proposal term α·(n_wk+β)/(n_k+β̄) is built into alias tables by
+kernel 2 (``kernels/alias_build.py``), and each sorted chunk of a sweep is
+one launch of kernel 1 (``kernels/mhw_fused.py``) through
+``core.family.LDAFamily.sweep_sorted``.  The position-scan layout and the
+exact sampler wait for ROADMAP.md queue A.4.
+
+Sufficient statistics: n_dk (D, K) client-local, n_wk (V, K) and n_k (K,)
+shared through the parameter server; all float32 counts, exact below 2²⁴.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.core import alias as alias_mod
+from repro_torch.kernels import ops
+
+
+@dataclass(frozen=True)
+class LDAConfig:
+    """The reference's fields and defaults.
+
+    ``tile_v``/``tile_b``/``tile_k`` size the reference's TPU tiles.  Here
+    ``tile_v`` and ``tile_b`` only shape the sorted layout (its padding to
+    ``tile_b`` fixes the length of the uniform streams; ``tile_v`` sizes
+    the layout's tile-skip fields), and ``tile_k`` has no effect: no CUDA
+    kernel tiles by them.
+    """
+
+    n_topics: int
+    vocab_size: int
+    alpha: float = 0.1
+    beta: float = 0.01
+    mh_steps: int = 2
+    alias_refresh_every: int = 1
+    tile_v: int | None = None
+    tile_b: int = 1024
+    tile_k: int | None = None
+    sorted_chunks: int = 4
+    fused_alias_build: bool = False
+
+    def __post_init__(self):
+        if self.fused_alias_build:
+            raise NotImplementedError(
+                "fused_alias_build=True needs the fused dense-term build "
+                "kernel, not ported yet (ROADMAP.md queue B.6, "
+                "alias_build_fused)")
+
+
+class SharedStats(NamedTuple):
+    n_wk: torch.Tensor  # (V, K) float32
+    n_k: torch.Tensor   # (K,)  float32
+
+
+class LocalState(NamedTuple):
+    z: torch.Tensor     # (D, L) int32 topic assignments (0 where masked)
+    n_dk: torch.Tensor  # (D, K) float32 doc-topic counts
+
+
+def init_state(cfg: LDAConfig, tokens: torch.Tensor, mask: torch.Tensor,
+               key: device_mod.Key) -> tuple[LocalState, SharedStats]:
+    """Random topic init and consistent sufficient statistics."""
+    gen = device_mod.generator(key, tokens.device)
+    z = torch.randint(0, cfg.n_topics, tokens.shape, generator=gen,
+                      device=tokens.device, dtype=torch.int32)
+    z = torch.where(mask, z, 0)
+    n_wk = count_wk(cfg, tokens, z, mask)
+    return (LocalState(z=z, n_dk=count_dk(cfg, z, mask)),
+            SharedStats(n_wk=n_wk, n_k=n_wk.sum(0)))
+
+
+def add_at(mat: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+           vals: torch.Tensor) -> torch.Tensor:
+    """``mat[rows, cols] += vals`` in place, duplicates summed, through
+    ``index_add_`` on the flat view (atomic adds on the card; PyTorch's
+    accumulating ``index_put_`` sorts the indices first, which took most
+    of a training round at the main path's size).  The order of the adds
+    is unspecified, which is exact here: every count is an integer-valued
+    float32 below 2²⁴."""
+    flat = rows.long() * mat.shape[1] + cols.long()
+    mat.view(-1).index_add_(0, flat, vals)
+    return mat
+
+
+def count_dk(cfg: LDAConfig, z: torch.Tensor, mask: torch.Tensor
+             ) -> torch.Tensor:
+    d, l = z.shape
+    docs = torch.arange(d, device=z.device).repeat_interleave(l)
+    return add_at(torch.zeros((d, cfg.n_topics), dtype=torch.float32,
+                              device=z.device),
+                  docs, z.reshape(-1), mask.reshape(-1).to(torch.float32))
+
+
+def count_wk(cfg: LDAConfig, tokens: torch.Tensor, z: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    return add_at(torch.zeros((cfg.vocab_size, cfg.n_topics),
+                              dtype=torch.float32, device=z.device),
+                  tokens.reshape(-1), z.reshape(-1),
+                  mask.reshape(-1).to(torch.float32))
+
+
+def language_model(cfg: LDAConfig, shared: SharedStats) -> torch.Tensor:
+    """p(w|t) rows: (V, K) = (n_wk + β) / (n_k + β̄)."""
+    beta_bar = cfg.beta * cfg.vocab_size
+    return (shared.n_wk + cfg.beta) / (shared.n_k[None, :] + beta_bar)
+
+
+def dense_probs(cfg: LDAConfig, shared: SharedStats) -> torch.Tensor:
+    """The dense proposal term α_t·(n_wt+β)/(n_t+β̄) per token-type row."""
+    return cfg.alpha * language_model(cfg, shared)
+
+
+def build_alias(cfg: LDAConfig, shared: SharedStats
+                ) -> tuple[alias_mod.AliasTable, torch.Tensor]:
+    """Alias tables over the dense term (kernel 2) and the term itself."""
+    dp = dense_probs(cfg, shared)
+    return ops.build_tables(dp, device=dp.device), dp
+
+
+def sweep(cfg: LDAConfig, local: LocalState, shared: SharedStats,
+          tables: alias_mod.AliasTable, stale: torch.Tensor,
+          tokens: torch.Tensor, mask: torch.Tensor, key: device_mod.Key,
+          method: str = "mhw", layout: str = "sorted",
+          sorted_layouts=None, device=None
+          ) -> tuple[LocalState, torch.Tensor, torch.Tensor]:
+    """One Gibbs sweep over a client's shard; returns (local', Δn_wk, Δn_k).
+    ``layout="sorted"`` only."""
+    if layout != "sorted":
+        raise NotImplementedError(
+            f"layout={layout!r} is not ported yet (ROADMAP.md queue A.4, "
+            "the position-scan oracle); use layout='sorted'")
+    if method != "mhw":
+        raise ValueError("layout='sorted' requires method='mhw'")
+    from repro_torch.core import family as family_mod
+    local2, deltas = family_mod.get("lda").sweep_sorted(
+        cfg, local, shared, tables, stale, tokens, mask, key,
+        sorted_layouts, device=device)
+    return local2, deltas["n_wk"], deltas["n_wk"].sum(0)
+
+
+def perplexity(cfg: LDAConfig, shared: SharedStats, tokens: torch.Tensor,
+               mask: torch.Tensor, key: device_mod.Key,
+               n_fold_sweeps: int = 10) -> float:
+    """Held-out perplexity with fold-in estimation of θ_d (paper §6): φ is
+    frozen from the trained statistics, θ_d comes from ``n_fold_sweeps``
+    position-scan Gibbs sweeps on the held-out documents, then
+    π = exp(−Σ log Σ_t θ_dt φ_wt / Σ N_d)."""
+    dev = tokens.device
+    phi = language_model(cfg, shared)
+    d, l = tokens.shape
+    gen = device_mod.generator(key, dev)
+    z = torch.randint(0, cfg.n_topics, (d, l), generator=gen, device=dev)
+    z = torch.where(mask, z, 0)
+    n_dk = count_dk(cfg, z, mask)
+    docs = torch.arange(d, device=dev)
+    log_phi = torch.log(phi + 1e-30)
+    mask_f = mask.to(torch.float32)
+    for _ in range(n_fold_sweeps):
+        for i in range(l):
+            w, m = tokens[:, i].long(), mask_f[:, i]
+            n_dk[docs, z[:, i]] -= m
+            logits = torch.log(n_dk + cfg.alpha) + log_phi[w]
+            u = torch.rand(logits.shape, generator=gen, device=dev)
+            z_new = torch.argmax(logits - torch.log(-torch.log(u + 1e-20)
+                                                    + 1e-20), dim=-1)
+            z[:, i] = torch.where(mask[:, i], z_new, z[:, i])
+            n_dk[docs, z[:, i]] += m
+    theta = (n_dk + cfg.alpha) / (n_dk.sum(-1, keepdim=True)
+                                  + cfg.alpha * cfg.n_topics)
+    pw = torch.einsum("dk,dlk->dl", theta, phi[tokens.long()])
+    logp = torch.where(mask, torch.log(pw + 1e-30), 0.0)
+    return float(torch.exp(-logp.sum() / mask.sum().clamp_min(1)))
+
+
+def topics_per_word(shared: SharedStats, threshold: float = 0.5) -> float:
+    """Average number of non-zero topics across seen token-types."""
+    nz = (shared.n_wk > threshold).sum(-1).to(torch.float32)
+    seen = shared.n_wk.sum(-1) > threshold
+    return float(torch.where(seen, nz, 0.0).sum() / seen.sum().clamp_min(1))

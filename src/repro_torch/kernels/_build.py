@@ -1,0 +1,121 @@
+"""Builds the CUDA sources under ``repro_torch/csrc`` and loads them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+into its own shared library, ``build/kernels/<name>-<hash>.so`` at the
+root of the checkout (the hash is of the source and the flags, so an
+edited source is rebuilt).  All sources compile at once, one ``nvcc``
+process each.  Nothing is built when a module is imported: the first
+kernel launch, or an explicit :func:`build_all`, builds.
+
+The libraries are loaded with ``ctypes``.  Each wrapper passes tensor
+pointers and PyTorch's current stream as ``c_void_p`` and raises if the C
+function returns a non-zero ``cudaGetLastError()``.
+
+``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one only
+where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_long
+F = ctypes.c_float
+SIGNATURES = {
+    "alias_build": ("alias_build", [P, I, I, P, P, P, P]),
+    "alias_build_gather_fused": ("alias_build",
+                                 [P, P, P, P, I, I, F, F, P, P, P, P, P]),
+    "mhw_sweep_fused": ("mhw_fused", [P] * 17 + [I, I, L, I, F, F, P]),
+}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found; the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every source that has no up-to-date library, all at once.
+    Returns the seconds spent."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        out = _target(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        BUILD_LOG[src.stem] = log
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def function(name: str):
+    """The C entry point ``name`` with its argument types declared."""
+    stem, argtypes = SIGNATURES[name]
+    if stem not in _LIBS:
+        out = _target(CSRC / f"{stem}.cu")
+        if not out.exists():
+            build_all()
+        _LIBS[stem] = ctypes.CDLL(str(out))
+    fn = getattr(_LIBS[stem], name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Call a C entry point on PyTorch's current stream; raise on error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = function(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error "
+                           f"{err}")
+    LAUNCHES[name] += 1

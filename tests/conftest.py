@@ -56,3 +56,8 @@ def make_family_cfg(name, *, n_topics, vocab_size, mh_steps=2):
         return hdp.HDPConfig(n_topics=n_topics, vocab_size=vocab_size,
                              b1=2.0, mh_steps=mh_steps)
     raise ValueError(name)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc; skips without one")
