@@ -202,6 +202,7 @@ def main() -> int:
                 print(f"  ptxas[{stem}] {line.strip()}")
     phase("build", t)
 
+    from repro_torch.core import alias as alias_mod
     from repro_torch.core import lda, mhw
     from repro_torch.data import segment
     from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
@@ -237,18 +238,20 @@ def main() -> int:
 
     # Kernel 2: full build.
     prob, alias, mass = kab.alias_build(dp)
-    prob_r, alias_r, mass_r = ref.alias_build_ref(dp)
+    prob_r, alias_r, mass_r = alias_mod.build(dp)
     stats2 = check_tables("alias_build", dp, prob, alias, mass, prob_r,
                           alias_r, mass_r)
     ms2 = time_ms(lambda: kab.alias_build(dp), 5)
-    plain2 = time_ms(lambda: ref.alias_build_ref(dp), 2)
-    b2, by2 = bound(v * k * 4 + v * k * 12 + v * 4, 0)
+    plain2 = time_ms(lambda: alias_mod.build(dp), 2)
+    # Reads p; writes prob and alias (V, K) and mass (V,).
+    bytes2 = v * k * 4 + v * k * 8 + v * 4
+    b2, by2 = bound(bytes2, 0)
     report.append({
         "name": "alias_build", "route": "cuda",
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:186",
         "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
-        "library_ms": None, **stats2})
+        "library_ms": None, "bytes": bytes2, **stats2})
     print(f"KERNEL alias_build {json.dumps(report[-1])}", flush=True)
 
     # Kernel 3: gather build of R rows; its rows must equal the full build's.
@@ -274,13 +277,17 @@ def main() -> int:
     ms3 = time_ms(run3(kab.alias_build_gather_fused), 10)
     plain3 = time_ms(run3(ref.alias_build_gather_fused_ref), 2)
     r = GATHER_ROWS
-    b3, by3 = bound(r * k * 4 + 2 * k * 4 + r * 4 + r * k * 16 + r * 4, 0)
+    # Reads the R gathered n_wk rows, n_k, prior and rows; writes prob,
+    # alias and dense (R, K) and mass (R,).
+    bytes3 = r * k * 4 + 2 * k * 4 + r * 4 + r * k * 12 + r * 4
+    b3, by3 = bound(bytes3, 0)
     report.append({
         "name": "alias_build_gather_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:379",
         "ms": ms3, "plain_ms": plain3, "bound_ms": b3, "bound_by": by3,
-        "library_ms": None, "partial_equals_full": True, **stats3})
+        "library_ms": None, "bytes": bytes3, "partial_equals_full": True,
+        **stats3})
     print(f"KERNEL alias_build_gather_fused {json.dumps(report[-1])}",
           flush=True)
 
@@ -312,15 +319,28 @@ def main() -> int:
                                               beta_bar=beta_bar), 10)
     plain1 = time_ms(lambda: mhw.sorted_chain(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 3)
+    # What the chain must move for this slice: the full n_wk row of each
+    # word and n_dk row of each document it touches; prob and alias at the
+    # distinct (word, slot) entries its draws name; mass once per word;
+    # stale at z0 and at each step's candidate (counted per read, at most
+    # (1 + mh_steps)·4 B a token); rows, z0 and z out for every position;
+    # docs and the five uniform streams for real tokens only (padding
+    # exits before reading them).
     real = rows1 < v
-    u_rows = int(torch.unique(rows1[real]).numel())
+    n_real = int(real.sum())
+    r_real = rows1[real].long()
+    u_rows = int(torch.unique(r_real).numel())
     u_docs = int(torch.unique(docs1[real]).numel())
+    u_slots = int(torch.unique(r_real * k + uni[0][:, real].long()).numel())
     b = SWEEP_SLICE
-    bytes1 = (u_rows * (k * 16 + 4) + 2 * k * 4 + u_docs * k * 4
-              + b * 12 + cfg.mh_steps * b * 20 + b * 4)
-    ops1 = int(real.sum()) * k * 8
+    steps = cfg.mh_steps
+    bytes1 = (u_rows * k * 4 + u_docs * k * 4 + 2 * k * 4 + u_rows * 4
+              + u_slots * 8 + (1 + steps) * n_real * 4
+              + b * 12 + n_real * 4 + steps * n_real * 20)
+    ops1 = n_real * k * 8
     b1, by1 = bound(bytes1, ops1)
     full_b = lay.rows.shape[0]
+    full_real = int((lay.rows < v).sum())
     uni_full = ops._step_uniforms(gen, k, cfg.mh_steps, full_b, dev)
     e_full = segment.sort_values(lay, z_c)
     ms1_full = time_ms(lambda: kmf.mhw_sweep_fused(
@@ -334,7 +354,13 @@ def main() -> int:
         "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
         "library_ms": None, "tokens": b, "mismatch_rate": mismatch,
         "max_abs_err": int((z_kernel - z_plain).abs().max()),
-        "bytes": bytes1, "full_chunk_tokens": full_b,
+        "bytes": bytes1, "bytes_parts": {
+            "n_wk_rows": u_rows * k * 4, "n_dk_rows": u_docs * k * 4,
+            "prob_alias_points": u_slots * 8,
+            "stale_points": (1 + steps) * n_real * 4,
+            "n_k_prior_mass": 2 * k * 4 + u_rows * 4,
+            "streams": b * 12 + n_real * 4 + steps * n_real * 20},
+        "full_chunk_tokens": full_b, "full_chunk_real_tokens": full_real,
         "full_chunk_ms": ms1_full})
     print(f"KERNEL mhw_sweep_fused {json.dumps(report[-1])}", flush=True)
     trainers = {"cadence": tr}

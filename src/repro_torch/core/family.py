@@ -20,7 +20,7 @@ from repro_torch import device as device_mod
 from repro_torch.core import alias as alias_mod
 from repro_torch.core import lda, projection
 from repro_torch.data import segment
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 
 def _rule_names(rule: projection.Rule) -> tuple[str, ...]:
@@ -197,13 +197,6 @@ class _LMFamilyBase(ModelFamily):
 
     def sparse_prior(self, cfg, shared) -> torch.Tensor:
         raise NotImplementedError
-
-    def dense_probs_rows(self, cfg, shared, rows) -> torch.Tensor:
-        """prior·(LM row) for ``rows``, the division grouped first as in
-        ``dense_probs``, so partial and full rebuilds agree bit for bit."""
-        return ref.gather_dense_ref(
-            shared.n_wk, shared.n_k, self.sparse_prior(cfg, shared), rows,
-            beta=cfg.beta, beta_bar=cfg.beta * cfg.vocab_size)
 
     def rebuild_alias_rows(self, cfg, shared, tables, stale, rows, valid,
                            device=None):

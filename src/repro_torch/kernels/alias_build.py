@@ -7,7 +7,8 @@
   the incremental rebuild of the changed rows.
 
 Both take CUDA tensors only and never fall back to the plain versions
-(``kernels/ref.py``); ``kernels/ops.py`` routes CPU tensors there.
+(``core/alias.py::build``, ``kernels/ref.py``); ``kernels/ops.py`` routes
+CPU tensors there.
 """
 
 from __future__ import annotations

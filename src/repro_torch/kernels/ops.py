@@ -3,8 +3,8 @@
 Each wrapper runs on ``device`` (default ``cuda``; see
 :mod:`repro_torch.device`) and its tensors must lie there.  On a CUDA
 device it launches the hand-written kernel; on the CPU it runs the plain
-version in ``kernels/ref.py``, and only there.  A CUDA tensor never
-reaches a plain version.
+version (``core.alias.build``, ``kernels/ref.py``, ``core.mhw.sorted_chain``),
+and only there.  A CUDA tensor never reaches a plain version.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.core import alias as alias_mod
+from repro_torch.core import mhw
 from repro_torch.core.alias import AliasTable
 from repro_torch.kernels import alias_build as _build
 from repro_torch.kernels import mhw_fused as _fused
@@ -30,8 +32,9 @@ def _on(device, *tensors: torch.Tensor) -> bool:
 
 def build_tables(p: torch.Tensor, *, device=None) -> AliasTable:
     """Alias tables of the rows of ``p`` (R, K): kernel 2 on the card."""
-    fn = _build.alias_build if _on(device, p) else ref.alias_build_ref
-    prob, alias, mass = fn(p)
+    if not _on(device, p):
+        return alias_mod.build(p)
+    prob, alias, mass = _build.alias_build(p)
     return AliasTable(prob=prob, alias=alias, mass=mass)
 
 
@@ -74,7 +77,7 @@ def mhw_sweep_sorted(tables: AliasTable, stale, n_wk, n_k, prior, rows, docs,
     if uniforms is None:
         uniforms = _step_uniforms(generator, tables.prob.shape[-1],
                                   mh_steps, rows.shape[0], n_wk.device)
-    fn = _fused.mhw_sweep_fused if on_card else ref.mhw_sweep_sorted_ref
+    fn = _fused.mhw_sweep_fused if on_card else mhw.sorted_chain
     return fn(tables.prob, tables.alias, tables.mass, stale, n_wk, n_k,
               prior, rows, docs, z0, n_dk, *uniforms, beta=beta,
               beta_bar=beta_bar)

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the hand-written kernels (port of
+"""Plain PyTorch version of the gather build, kernel 3 (port of part of
 ``repro.kernels.ref``).
 
-The CPU path of each wrapper runs these; ``chip_smoke.py`` compares each
-kernel with them on the card.  Nothing on the main path calls them when a
-card is present.
+The plain versions of kernels 1 and 2 are ``core.mhw.sorted_chain`` and
+``core.alias.build``; this module holds only what computes something of
+its own.  The CPU path of ``ops.build_tables_gather_fused`` runs it, and
+``chip_smoke.py`` compares the kernel with it on the card.  Nothing on the
+main path calls it when a card is present.
 """
 
 from __future__ import annotations
@@ -11,13 +13,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import alias as alias_mod
-from repro_torch.core import mhw as mhw_mod
-
-
-def alias_build_ref(p: torch.Tensor):
-    """(prob, alias, mass) per row of ``p``: plain version of kernel 2."""
-    t = alias_mod.build(p)
-    return t.prob, t.alias, t.mass
 
 
 def gather_dense_ref(n_wk, n_k, prior, rows, *, beta: float,
@@ -36,13 +31,3 @@ def alias_build_gather_fused_ref(n_wk, n_k, prior, rows, *, beta: float,
                              beta_bar=beta_bar)
     t = alias_mod.build(dense)
     return t.prob, t.alias, t.mass, dense
-
-
-def mhw_sweep_sorted_ref(prob, alias, mass, stale, n_wk, n_k, prior, rows,
-                         docs, z0, n_dk, slot, coin, u_mix, u_sparse, u_acc,
-                         *, beta: float, beta_bar: float) -> torch.Tensor:
-    """Plain version of kernel 1: ``core.mhw.sorted_chain``."""
-    return mhw_mod.sorted_chain(prob, alias, mass, stale, n_wk, n_k, prior,
-                                rows, docs, z0, n_dk, slot, coin, u_mix,
-                                u_sparse, u_acc, beta=beta,
-                                beta_bar=beta_bar)

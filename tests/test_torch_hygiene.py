@@ -19,9 +19,9 @@ import pytest
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core import family, lda
+from repro_torch.core import alias, family, lda, mhw
 from repro_torch.engine import Trainer, TrainerConfig
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, ops
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -152,7 +152,7 @@ def test_cuda_tensors_reach_the_kernels(cuda_device):
 
     tables = ops.build_tables(dp, device=cuda_device)
     assert _build.LAUNCHES["alias_build"] == 1
-    for a, b in zip(tables, ref.alias_build_ref(dp)):
+    for a, b in zip(tables, alias.build(dp)):
         assert torch.equal(a, b)
 
     rows = torch.tensor([3, 0, 511, 42], dtype=torch.int32,
@@ -175,7 +175,7 @@ def test_cuda_tensors_reach_the_kernels(cuda_device):
                              beta_bar=cfg.beta * cfg.vocab_size,
                              uniforms=uni, device=cuda_device)
     assert _build.LAUNCHES["mhw_sweep_fused"] == 1
-    z_ref = ref.mhw_sweep_sorted_ref(
+    z_ref = mhw.sorted_chain(
         *tables[:3], dp, shared.n_wk, shared.n_k, prior, lay.rows, lay.docs,
         z0, local.n_dk, *uni, beta=cfg.beta,
         beta_bar=cfg.beta * cfg.vocab_size)

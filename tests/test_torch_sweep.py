@@ -24,8 +24,8 @@ from repro.core import lda as ref_lda
 from repro.kernels import mhw_fused as ref_fused
 from repro.kernels import ops as ref_ops
 from repro_torch import bridge
-from repro_torch.core import family
-from repro_torch.kernels import ops, ref
+from repro_torch.core import family, mhw
+from repro_torch.kernels import ops
 from tests.conftest import make_synthetic_corpus
 
 
@@ -78,7 +78,7 @@ def test_plain_chain_matches_pallas_kernel(v, k, b, tile_v, tile_b, lo, hi,
     def t(x):
         return torch.tensor(np.asarray(x))
 
-    got = ref.mhw_sweep_sorted_ref(
+    got = mhw.sorted_chain(
         t(tabs.prob), t(tabs.alias), t(tabs.mass), t(stale), t(n_wk),
         t(n_k), t(prior), t(rows), torch.arange(b, dtype=torch.int32),
         t(z0), t(ndk), t(slot), *map(t, uni), beta=beta,
