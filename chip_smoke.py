@@ -9,18 +9,26 @@ Phases; any failure raises and the script exits non-zero:
 
 1. card: name and power limit (nvidia-smi); no CUDA device is a failure.
 2. build: the kernels under src/repro_torch/csrc, one nvcc per source.
-3. kernels against their plain PyTorch versions, on the card, at the main
-   path's shapes, built from the full-size corpus's own statistics:
+3. LDA kernels against their plain PyTorch versions, on the card, at the
+   main path's shapes, built from the full-size corpus's own statistics:
    alias build (V=131072, K=1024), gather build (R=4096 rows) and the
    sweep (a 262,144-token slice of a real chunk), each timed with CUDA
-   events beside its plain version and its memory bound.
-4. training at full size: LDA K=1024 over V=131072 on ~12.6M tokens, two
+   events beside its plain version and its bounds.
+4. LDA training at full size: K=1024 over V=131072 on ~12.6M tokens, two
    clients, BSP, 4 rounds with full alias rebuilds then 3 rounds of
    incremental rebuilds.  After every round: consistency_error() == 0.0,
-   no projection violations; held-out perplexity must fall.  The launch
-   counters are zeroed just before and read just after, and every kernel
-   must have launched.
+   no projection violations; held-out perplexity must fall.
+5. PDP kernels, from the PDP trainer's initial state on the same corpus:
+   the alias build at width 2K on the full (V, 2K) dense term, the
+   compacted-rows build of the R=4096 rows with the largest m_wk+s_wk mass
+   (bit-equal to its plain version and to the full build's rows), and the
+   PDP sweep on a 131,072-token slice of client 0's first chunk.
+6. PDP training at full size: PDPConfig(n_topics=1024, vocab_size=131072)
+   at its defaults, two clients, BSP, 3 cadence rounds then 3 incremental
+   rounds, with the checks of phase 4 under the PDP rules.
 
+Each training path is driven with the launch counters zeroed just before
+it and read just after, and every kernel of the path must have launched.
 The last lines are the kernels JSON, the card, and the result JSON.
 """
 
@@ -42,9 +50,19 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor-core fp32
 SWEEP_SLICE = 262_144
+PDP_SWEEP_SLICE = 131_072
 GATHER_ROWS = 4096
 SWEEP_MISMATCH_TOL = 1e-3      # share of chains that may differ (see below)
 DIST_ABS, DIST_REL = 2e-6, 1e-4  # encoded distribution vs p/Σp
+# Operations per (real token, topic) of the PDP sweep, each log and exp
+# counted as one (which understates them: CUDA's precise logf and expf
+# are tens of instructions): the own-count removal and CRP repair (6),
+# the two aggregates (2), seven logs and their argument adds (14), the
+# occupancy term (3), four clamps (8) and two Stirling differences (2),
+# the sums of the two factors (9), the document factor, two exps and two
+# products (5), two cdf adds per outcome (4) and one compare per outcome
+# and MH step at mh_steps = 2 (4).
+PDP_OPS_PER_TOPIC = 57
 
 
 def card_line() -> str:
@@ -97,13 +115,42 @@ def encoded(prob: torch.Tensor, alias: torch.Tensor) -> torch.Tensor:
     return q / k
 
 
+def rounding_bound(target: torch.Tensor, alias: torch.Tensor,
+                   mass: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
+    """The rounding a float32 build can add to a row's encoded
+    distribution, beyond DIST_ABS + DIST_REL·target (see
+    :func:`check_tables`), from the row's own numbers:
+
+    * the row mass: with δ = |mass/Σp − 1|, every scaled value
+      s = p/mass·E is off by δ relative, and since the encoded distribution
+      sums to 1 while the scaled values sum to E/(1+δ), the deficit E·δ
+      ends in the slots left at prob = 1: δ·(1 + target).  Rows of many
+      nearly equal tiny entries (the PDP term's r=1 half) round the same
+      way at every add, so δ is systematic there;
+    * the pairing: each time slot j donates, the build computes
+      s_j − (1 − s_i) in float32, an error of at most 2⁻²⁴·(s_j + 2) in
+      scaled units; the row's errors together can end in its last slots,
+      so every entry is held to the row's total, ÷E.
+    """
+    e = alias.shape[1]
+    delta = torch.where(exact > 0, (mass.double()[:, None] / exact - 1).abs(),
+                        torch.zeros_like(exact))
+    donated = (alias != torch.arange(e, device=alias.device)).double()
+    donations = torch.zeros_like(target).scatter_add_(1, alias.long(),
+                                                      donated)
+    pairing = ((donations * (target * e + 2)).sum(1, keepdim=True)
+               * 2.0 ** -24 / e)
+    return delta * (1 + target) + pairing
+
+
 def check_tables(name, p, prob, alias, mass, prob_ref, alias_ref, mass_ref):
     """Kernel and plain tables agree bit for bit on rows whose float32
     masses agree bit for bit, and both encode the row's exact distribution
-    p/Σp (summed in float64) to DIST_ABS + DIST_REL·(p/Σp): a float32 row
-    sum over K = 1024 terms is off by up to (K−1)·2⁻²⁴ ≈ 6e-5 relative,
-    which scales every entry, and the pairing's float32 subtractions add a
-    few ulp of 1/K per slot.  Returns match statistics."""
+    p/Σp (summed in float64) to DIST_ABS + DIST_REL·(p/Σp) plus the row's
+    :func:`rounding_bound`: a float32 row sum over K = 1024 terms is off
+    by up to (K−1)·2⁻²⁴ ≈ 6e-5 relative, which scales every entry, and the
+    pairing's float32 subtractions add their rounding.  Returns match
+    statistics."""
     same = mass == mass_ref
     if not (torch.equal(alias[same], alias_ref[same])
             and torch.equal(prob[same], prob_ref[same])):
@@ -112,14 +159,26 @@ def check_tables(name, p, prob, alias, mass, prob_ref, alias_ref, mass_ref):
     exact = p.double().sum(1, keepdim=True)
     target = torch.where(exact > 0, p.double() / exact.clamp_min(1e-300),
                          torch.full_like(exact, 1.0 / p.shape[1]))
-    errs = {}
-    for who, pr, al in (("kernel", prob, alias), ("plain", prob_ref,
-                                                  alias_ref)):
+    errs, used = {}, {}
+    for who, pr, al, ms in (("kernel", prob, alias, mass),
+                            ("plain", prob_ref, alias_ref, mass_ref)):
         err = (encoded(pr, al) - target).abs()
-        if not bool((err <= DIST_ABS + DIST_REL * target).all()):
-            raise AssertionError(f"{name}: {who} table is off the row's "
-                                 f"distribution by up to {float(err.max())}")
+        extra = rounding_bound(target, al, ms, exact)
+        lim = DIST_ABS + DIST_REL * target + extra
+        use = err / lim
+        if not bool((use <= 1).all()):
+            i = int(use.argmax())
+            r, c = divmod(i, p.shape[1])
+            raise AssertionError(
+                f"{name}: {who} table is off the row's distribution by up "
+                f"to {float(err.max())}; worst entry ({r}, {c}): err "
+                f"{float(err[r, c])}, bound {float(lim[r, c])}, target "
+                f"{float(target[r, c])}, rounding bound "
+                f"{float(extra[r, c])}, row max target "
+                f"{float(target[r].max())}")
         errs[who] = float(err.max())
+        used[who] = float(use.max())
+        del err, extra, lim, use
     rel = float(((mass - mass_ref).abs() / mass_ref.abs().clamp_min(1e-30))
                 .max())
     if not rel <= 1e-4:
@@ -128,10 +187,12 @@ def check_tables(name, p, prob, alias, mass, prob_ref, alias_ref, mass_ref):
             "alias_match_rate": float((alias == alias_ref).float().mean()),
             "prob_max_ulp": ulps(prob, prob_ref),
             "max_abs_err": float((prob - prob_ref).abs().max()),
-            "dist_max_err": errs["kernel"]}
+            "dist_max_err": errs["kernel"],
+            "dist_max_err_plain": errs["plain"],
+            "dist_bound_use": used["kernel"]}
 
 
-def profile_round(trainer) -> None:
+def profile_round(trainer, label: str) -> None:
     """One more round under torch.profiler: device time by kernel and the
     device's busy share of the round's wall time.  Its launches are not
     main-path launches, so the counters are restored afterwards."""
@@ -160,8 +221,8 @@ def profile_round(trainer) -> None:
             rows.append((dev_us / 1e3, e.count, e.key[:90]))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"PROFILE one cadence round: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms, idle share "
+    print(f"PROFILE {label} cadence round: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for ms, n, k in rows[:15]:
         print(f"  {ms:9.2f} ms {n:6d} x {k}")
@@ -183,52 +244,44 @@ def held_out_docs(phi: np.ndarray, n_docs: int, doc_len: int, seed: int):
     return tokens, mask
 
 
-def main() -> int:
-    t0 = time.perf_counter()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    card = card_line()
-    print(f"CARD {card}", flush=True)
-    dev = torch.device("cuda")
-    phase("card", t0)
+def sweep_bytes(rows, docs, slot, v, k, e_out, steps, row_stats):
+    """What a sweep must move for one slice: the full (V, K) rows of each
+    word it touches (``row_stats`` of them) and the n_dk row of each
+    document; prob and alias at the distinct (word, slot) entries its
+    draws name; stale at the initial state and at each step's candidate
+    (counted per read, at most (1 + mh_steps)·4 B a token); the per-topic
+    aggregates and the prior; mass once per word; rows, the initial state
+    and the result for every position; docs and the five uniform streams
+    for real tokens only (padding exits before reading them).  Returns
+    (total, parts)."""
+    real = rows < v
+    n_real = int(real.sum())
+    r_real = rows[real].long()
+    u_rows = int(torch.unique(r_real).numel())
+    u_docs = int(torch.unique(docs[real]).numel())
+    u_slots = int(torch.unique(r_real * e_out + slot[:, real].long()).numel())
+    b = rows.shape[0]
+    parts = {"word_rows": u_rows * k * 4 * row_stats,
+             "n_dk_rows": u_docs * k * 4,
+             "prob_alias_points": u_slots * 8,
+             "stale_points": (1 + steps) * n_real * 4,
+             "aggregates_prior_mass": (row_stats * k + e_out) * 4
+             + u_rows * 4,
+             "streams": b * 12 + n_real * 4 + steps * n_real * 20}
+    return sum(parts.values()), parts, n_real
 
-    from repro_torch.kernels import _build
-    t = time.perf_counter()
-    secs = _build.build_all()
-    print(f"BUILD {secs:.1f} s nvcc (all sources in parallel)")
-    for stem, log in sorted(_build.BUILD_LOG.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{stem}] {line.strip()}")
-    phase("build", t)
 
+def lda_kernels(dev, tr, cfg, ccfg) -> list[dict]:
+    """Phase 3: the LDA kernels (1-3) against their plain versions."""
     from repro_torch.core import alias as alias_mod
     from repro_torch.core import lda, mhw
     from repro_torch.data import segment
-    from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
-    from repro_torch.engine import Trainer, TrainerConfig
     from repro_torch.kernels import alias_build as kab
     from repro_torch.kernels import mhw_fused as kmf
     from repro_torch.kernels import ops, ref
 
-    t = time.perf_counter()
-    ccfg = CorpusConfig(n_topics=64, vocab_size=131072, n_docs=65536,
-                        doc_len=256, seed=0)
-    tokens, mask, phi = make_topic_corpus(ccfg)
-    ho_tokens, ho_mask = held_out_docs(phi, 32, ccfg.doc_len, seed=1)
-    n_tok = int(mask.sum())
-    print(f"CORPUS {ccfg} tokens={n_tok} ({time.perf_counter() - t:.1f} s)")
-    if n_tok >= 1 << 24:
-        raise AssertionError("counts must stay below 2^24 to stay exact")
-    cfg = lda.LDAConfig(n_topics=1024, vocab_size=131072)
     v, k = cfg.vocab_size, cfg.n_topics
     beta_bar = cfg.beta * v
-    phase("corpus", t)
-
-    # ---------------------------------------------------------- phase 3
-    t = time.perf_counter()
-    tc_cad = TrainerConfig(layout="sorted", n_clients=2, consistency="bsp")
-    tr = Trainer(cfg, tokens, mask, config=tc_cad, seed=0, device=dev)
     shared = tr.shared
     dp = lda.dense_probs(cfg, shared)
     rows_k3 = torch.argsort(-shared.n_wk.sum(1), stable=True)[
@@ -307,11 +360,13 @@ def main() -> int:
     z_kernel = kmf.mhw_sweep_fused(*args1, beta=cfg.beta, beta_bar=beta_bar)
     z_plain = mhw.sorted_chain(*args1, beta=cfg.beta, beta_bar=beta_bar)
     mismatch = float((z_kernel != z_plain).float().mean())
-    # A mismatch can only come from rounding: the kernel sums the sparse
-    # weights in 32 sequential blocks plus a warp scan of their totals,
-    # the plain version with torch.cumsum, so a target within rounding of
-    # a cdf step can land one topic apart (and the chain then continues
-    # from another state), as can log() near an accept tie.
+    # A mismatch can only come from rounding: the kernel forms the cdf of
+    # the sparse weights as 32 lane blocks, each summed left to right from
+    # an offset that a warp scan of the block totals gives, while the
+    # plain version sums the whole row left to right
+    # (core/mhw.sequential_cumsum); so a target within rounding of a cdf
+    # step can land one topic apart (and the chain then continues from
+    # another state), as can log() near an accept tie.
     if not mismatch <= SWEEP_MISMATCH_TOL:
         raise AssertionError(f"sweep: {mismatch:.3g} of chains differ "
                              f"(> {SWEEP_MISMATCH_TOL})")
@@ -319,73 +374,181 @@ def main() -> int:
                                               beta_bar=beta_bar), 10)
     plain1 = time_ms(lambda: mhw.sorted_chain(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 3)
-    # What the chain must move for this slice: the full n_wk row of each
-    # word and n_dk row of each document it touches; prob and alias at the
-    # distinct (word, slot) entries its draws name; mass once per word;
-    # stale at z0 and at each step's candidate (counted per read, at most
-    # (1 + mh_steps)·4 B a token); rows, z0 and z out for every position;
-    # docs and the five uniform streams for real tokens only (padding
-    # exits before reading them).
-    real = rows1 < v
-    n_real = int(real.sum())
-    r_real = rows1[real].long()
-    u_rows = int(torch.unique(r_real).numel())
-    u_docs = int(torch.unique(docs1[real]).numel())
-    u_slots = int(torch.unique(r_real * k + uni[0][:, real].long()).numel())
-    b = SWEEP_SLICE
-    steps = cfg.mh_steps
-    bytes1 = (u_rows * k * 4 + u_docs * k * 4 + 2 * k * 4 + u_rows * 4
-              + u_slots * 8 + (1 + steps) * n_real * 4
-              + b * 12 + n_real * 4 + steps * n_real * 20)
+    bytes1, parts1, n_real = sweep_bytes(rows1, docs1, uni[0], v, k, k,
+                                         cfg.mh_steps, 1)
     ops1 = n_real * k * 8
     b1, by1 = bound(bytes1, ops1)
     full_b = lay.rows.shape[0]
     full_real = int((lay.rows < v).sum())
     uni_full = ops._step_uniforms(gen, k, cfg.mh_steps, full_b, dev)
-    e_full = segment.sort_values(lay, z_c)
     ms1_full = time_ms(lambda: kmf.mhw_sweep_fused(
         prob, alias, mass, dp, shared.n_wk, shared.n_k, prior, lay.rows,
-        lay.docs, e_full, n_dk, *uni_full, beta=cfg.beta,
+        lay.docs, e_s, n_dk, *uni_full, beta=cfg.beta,
         beta_bar=beta_bar), 5)
     report.append({
         "name": "mhw_sweep_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/mhw_fused.cu",
         "replaces": "src/repro/kernels/mhw_fused.py:153",
         "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
-        "library_ms": None, "tokens": b, "mismatch_rate": mismatch,
+        "library_ms": None, "tokens": SWEEP_SLICE,
+        "mismatch_rate": mismatch,
         "max_abs_err": int((z_kernel - z_plain).abs().max()),
-        "bytes": bytes1, "bytes_parts": {
-            "n_wk_rows": u_rows * k * 4, "n_dk_rows": u_docs * k * 4,
-            "prob_alias_points": u_slots * 8,
-            "stale_points": (1 + steps) * n_real * 4,
-            "n_k_prior_mass": 2 * k * 4 + u_rows * 4,
-            "streams": b * 12 + n_real * 4 + steps * n_real * 20},
+        "bytes": bytes1, "bytes_parts": parts1,
         "full_chunk_tokens": full_b, "full_chunk_real_tokens": full_real,
         "full_chunk_ms": ms1_full})
     print(f"KERNEL mhw_sweep_fused {json.dumps(report[-1])}", flush=True)
-    trainers = {"cadence": tr}
-    del tr, shared, dp, n_dk, prob, alias, mass, prob_r, alias_r, mass_r
-    del g, g_r, args1, uni_full, e_full, z_kernel, z_plain
-    torch.cuda.empty_cache()
-    phase("kernels", t)
+    return report
 
-    # ---------------------------------------------------------- phase 4
-    t = time.perf_counter()
-    state_bytes = (v * k * 4 * 7 + 2 * 32768 * k * 4
-                   + 2 * n_tok * 4 * 4 + 5 * cfg.mh_steps * 2_200_000 * 4)
-    print(f"MEMORY reckoned ~{state_bytes / 2**30:.1f} GiB: n_wk, its "
-          "delta, the push sum, stale, prob, alias and the build's "
-          "transients as (V,K) f32; two (D,K) n_dk; layouts; uniforms")
+
+def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
+    """Phase 5: the alias build at width 2K (added to ``report2``, kernel
+    2's entry) and kernels 5 and 4 against their plain versions."""
+    from repro_torch.core import alias as alias_mod
+    from repro_torch.core import pdp, stirling
+    from repro_torch.data import segment
+    from repro_torch.kernels import alias_build as kab
+    from repro_torch.kernels import mhw_fused as kmf
+    from repro_torch.kernels import ops
+
+    v, k = cfg.vocab_size, cfg.n_topics
+    e_out = 2 * k
+    fam = tr.family
+    shared = tr.shared
+    dp = pdp.dense_probs(cfg, shared)
+    report = []
+    above = int((shared.m_wk > cfg.stirling_n_max).sum())
+    print(f"PDP cells with m_wk above stirling_n_max={cfg.stirling_n_max}: "
+          f"{above}; max m_wk {float(shared.m_wk.max())}")
+
+    # Kernel 2 at width 2K on the full (V, 2K) dense term.
+    prob, alias, mass = kab.alias_build(dp)
+    prob_r, alias_r, mass_r = alias_mod.build(dp)
+    stats2 = check_tables("alias_build (2K)", dp, prob, alias, mass, prob_r,
+                          alias_r, mass_r)
+    del prob_r, alias_r, mass_r
+    ms2 = time_ms(lambda: kab.alias_build(dp), 5)
+    plain2 = time_ms(lambda: alias_mod.build(dp), 2)
+    bytes2 = v * e_out * 12 + v * 4
+    b2, by2 = bound(bytes2, 0)
+    report2["width_2k"] = {"rows": v, "width": e_out, "ms": ms2,
+                           "plain_ms": plain2, "bound_ms": b2,
+                           "bound_by": by2, "bytes": bytes2, **stats2}
+    print(f"KERNEL alias_build width 2K {json.dumps(report2['width_2k'])}",
+          flush=True)
+
+    # Kernel 5: the R rows with the largest m_wk + s_wk mass.
+    rows5 = torch.argsort(-(shared.m_wk + shared.s_wk).sum(1), stable=True)[
+        :GATHER_ROWS].to(torch.int32)
+    ridx = rows5.long()
+    p_rows = fam.dense_probs_rows(cfg, shared, rows5)
+    if not torch.equal(p_rows, dp[ridx]):
+        raise AssertionError("PDP gathered dense rows differ from the full "
+                             "dense term's rows")
+    t5 = kab.alias_build_rows(p_rows)
+    t5_r = alias_mod.build(p_rows)
+    if not all(torch.equal(a, b) for a, b in zip(t5, t5_r)):
+        raise AssertionError("alias_build_rows differs from its plain "
+                             "version")
+    if not (torch.equal(t5[0], prob[ridx]) and torch.equal(t5[1], alias[ridx])
+            and torch.equal(t5[2], mass[ridx])):
+        raise AssertionError("alias_build_rows differs from the full "
+                             "build's rows")
+    stats5 = check_tables("alias_build_rows", p_rows, *t5, *t5_r)
+    ms5 = time_ms(lambda: kab.alias_build_rows(p_rows), 10)
+    plain5 = time_ms(lambda: alias_mod.build(p_rows), 2)
+    r = GATHER_ROWS
+    # Reads the (R, 2K) block; writes prob and alias (R, 2K) and mass (R,).
+    bytes5 = r * e_out * 12 + r * 4
+    b5, by5 = bound(bytes5, 0)
+    report.append({
+        "name": "alias_build_rows", "route": "cuda",
+        "source": "src/repro_torch/csrc/alias_build.cu",
+        "replaces": "src/repro/kernels/alias_build.py:336",
+        "ms": ms5, "plain_ms": plain5, "bound_ms": b5, "bound_by": by5,
+        "library_ms": None, "bytes": bytes5, "rows": r, "width": e_out,
+        "bit_equal_plain": True, "partial_equals_full": True, **stats5})
+    print(f"KERNEL alias_build_rows {json.dumps(report[-1])}", flush=True)
+
+    # Kernel 4: a slice of client 0's first chunk.
+    lay = tr.layouts[0][0]
+    bounds = segment.chunk_bounds(ccfg.doc_len, cfg.sorted_chunks)
+    e_c = fam.encode(cfg, tr.locals_[0])[:, bounds[0]:bounds[1]].reshape(-1)
+    e_s = segment.sort_values(lay, e_c)
+    sl = slice(0, PDP_SWEEP_SLICE)
+    rows4, docs4, e04 = lay.rows[sl], lay.docs[sl], e_s[sl]
+    n_dk = tr.locals_[0].n_dk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    uni = ops._step_uniforms(gen, e_out, cfg.mh_steps, PDP_SWEEP_SLICE, dev)
+    stirl = stirling.as_tensor(cfg.stirling_n_max, cfg.discount, dev)
+    prior = fam.sparse_prior(cfg, shared)
+    hyper = dict(b=cfg.concentration, a=cfg.discount, gamma=cfg.gamma,
+                 gamma_bar=cfg.gamma * v)
+    tabs = (prob, alias, mass, dp, shared.m_wk, shared.s_wk, shared.m_k,
+            shared.s_k, stirl, prior)
+    args4 = (*tabs, rows4, docs4, e04, n_dk, *uni)
+    e_kernel = kmf.pdp_sweep_fused(*args4, **hyper)
+    e_plain = pdp.sorted_chain_pdp(*args4, **hyper)
+    mismatch = float((e_kernel != e_plain).float().mean())
+    # As for the LDA sweep: only the kernel's 32-block cdf (against the
+    # plain version's left-to-right sum) and log() near an accept tie
+    # can make a chain differ.
+    if not mismatch <= SWEEP_MISMATCH_TOL:
+        raise AssertionError(f"PDP sweep: {mismatch:.3g} of chains differ "
+                             f"(> {SWEEP_MISMATCH_TOL})")
+    if not bool(((e_kernel >= 0) & (e_kernel < e_out)).all()):
+        raise AssertionError("PDP sweep: outcome out of [0, 2K)")
+    moved = float((e_kernel != e04).float().mean())
+    max_err4 = int((e_kernel - e_plain).abs().max())
+    del e_plain
+    torch.cuda.empty_cache()
+    ms4 = time_ms(lambda: kmf.pdp_sweep_fused(*args4, **hyper), 10)
+    plain4 = time_ms(lambda: pdp.sorted_chain_pdp(*args4, **hyper), 2)
+    torch.cuda.empty_cache()
+    bytes4, parts4, n_real = sweep_bytes(rows4, docs4, uni[0], v, k, e_out,
+                                         cfg.mh_steps, 2)
+    stirl_bytes = stirl.numel() * 4
+    bytes4 += stirl_bytes
+    parts4["stirling_table"] = stirl_bytes
+    ops4 = n_real * k * PDP_OPS_PER_TOPIC
+    b4, by4 = bound(bytes4, ops4)
+    full_b = lay.rows.shape[0]
+    full_real = int((lay.rows < v).sum())
+    uni_full = ops._step_uniforms(gen, e_out, cfg.mh_steps, full_b, dev)
+    ms4_full = time_ms(lambda: kmf.pdp_sweep_fused(
+        *tabs, lay.rows, lay.docs, e_s, n_dk, *uni_full, **hyper), 5)
+    report.append({
+        "name": "pdp_sweep_fused", "route": "cuda",
+        "source": "src/repro_torch/csrc/pdp_fused.cu",
+        "replaces": "src/repro/kernels/mhw_fused.py:322",
+        "ms": ms4, "plain_ms": plain4, "bound_ms": b4, "bound_by": by4,
+        "bound_bytes_ms": bound(bytes4, 0)[0],
+        "bound_ops_ms": bound(0, ops4)[0], "ops": ops4,
+        "ops_note": f"{PDP_OPS_PER_TOPIC} per real token and topic, each "
+                    "log and exp counted as one",
+        "library_ms": None, "tokens": PDP_SWEEP_SLICE,
+        "mismatch_rate": mismatch, "moved_share": moved,
+        "max_abs_err": max_err4,
+        "bytes": bytes4, "bytes_parts": parts4,
+        "full_chunk_tokens": full_b, "full_chunk_real_tokens": full_real,
+        "full_chunk_ms": ms4_full})
+    print(f"KERNEL pdp_sweep_fused {json.dumps(report[-1])}", flush=True)
+    return report
+
+
+def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
+          memory_note) -> dict:
+    """Drive one main path: the launch counters are zeroed just before and
+    read just after; every round is checked.  Returns the counts."""
+    from repro_torch.engine import Trainer
+    from repro_torch.kernels import _build
+
+    ho_tokens, ho_mask = ho
+    print(f"MEMORY {label} reckoned {memory_note}")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    chunks = cfg.sorted_chunks
-    modes = (("cadence", tc_cad, 4),
-             ("incremental", TrainerConfig(
-                 layout="sorted", n_clients=2, consistency="bsp",
-                 alias_rebuild_threshold=0.0, alias_rebuild_rows=4096,
-                 alias_full_rebuild_every=16), 3))
     for name, tcfg, rounds in modes:
-        trainer = trainers.pop(name, None) or Trainer(
+        trainer = first.pop(name, None) or Trainer(
             cfg, tokens, mask, config=tcfg, seed=0, device=dev)
         before = dict(_build.LAUNCHES)
         ppl, step_s = [], 0.0
@@ -398,44 +561,150 @@ def main() -> int:
             err = trainer.consistency_error()
             viol = trainer.family.count_violations(trainer.shared)
             ppl.append(trainer.perplexity(ho_tokens, ho_mask))
-            print(f"ROUND {name} {rnd} consistency_error={err} "
+            print(f"ROUND {label}-{name} {rnd} consistency_error={err} "
                   f"violations={viol} heldout_perplexity={ppl[-1]:.3f}",
                   flush=True)
             if err != 0.0 or viol != 0:
-                raise AssertionError(f"{name} round {rnd}: consistency "
-                                     f"{err}, violations {viol}")
+                raise AssertionError(f"{label} {name} round {rnd}: "
+                                     f"consistency {err}, violations {viol}")
             if not np.isfinite(ppl[-1]):
-                raise AssertionError(f"{name}: perplexity {ppl[-1]}")
+                raise AssertionError(f"{label} {name}: perplexity {ppl[-1]}")
         if not ppl[-1] < ppl[0]:
-            raise AssertionError(f"{name}: perplexity did not fall: {ppl}")
+            raise AssertionError(f"{label} {name}: perplexity did not fall: "
+                                 f"{ppl}")
         launched = {n: _build.LAUNCHES[n] - before.get(n, 0)
                     for n in _build.SIGNATURES}
-        want = rounds * tcfg.n_clients * chunks
-        if launched["mhw_sweep_fused"] != want:
-            raise AssertionError(f"{name}: sweep launched "
-                                 f"{launched['mhw_sweep_fused']} times, "
+        want = rounds * tcfg.n_clients * cfg.sorted_chunks
+        if launched[kernels["sweep"]] != want:
+            raise AssertionError(f"{label} {name}: sweep launched "
+                                 f"{launched[kernels['sweep']]} times, "
                                  f"expected {want}")
+        if (tcfg.alias_rebuild_threshold is not None
+                and launched[kernels["rows"]] < rounds):
+            raise AssertionError(f"{label} {name}: {kernels['rows']} "
+                                 f"launched {launched[kernels['rows']]} "
+                                 f"times in {rounds} incremental rounds")
         summary = {
             "rounds": rounds, "rounds_per_s": rounds / step_s,
-            "tokens_per_s": n_tok * rounds / step_s,
+            "tokens_per_s": int(mask.sum()) * rounds / step_s,
             "perplexity": ppl, "launches": launched,
             "alias_builds": trainer.alias_builds}
-        print(f"TRAIN {name} {json.dumps(summary)}", flush=True)
+        print(f"TRAIN {label}-{name} {json.dumps(summary)}", flush=True)
         if name == "cadence":
-            profile_round(trainer)
+            profile_round(trainer, label)
         del trainer
         torch.cuda.empty_cache()
     counts = dict(_build.LAUNCHES)
-    for kernel in ("alias_build", "alias_build_gather_fused",
-                   "mhw_sweep_fused"):
+    for kernel in kernels.values():
         if counts.get(kernel, 0) < 1:
-            raise AssertionError(f"{kernel} never launched on the main path")
+            raise AssertionError(f"{kernel} never launched on the {label} "
+                                 "main path")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"MEMORY peak allocated {peak:.2f} GiB")
-    for entry in report:
-        entry["launches"] = counts[entry["name"]]
-    phase("train", t)
+    print(f"MEMORY {label} peak allocated {peak:.2f} GiB")
+    return counts
 
+
+def main() -> int:
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    card = card_line()
+    print(f"CARD {card}", flush=True)
+    dev = torch.device("cuda")
+    phase("card", t0)
+
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    secs = _build.build_all()
+    print(f"BUILD {secs:.1f} s nvcc (all sources in parallel)")
+    for stem, log in sorted(_build.BUILD_LOG.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{stem}] {line.strip()}")
+    phase("build", t)
+
+    from repro_torch.core import lda, pdp
+    from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
+    from repro_torch.engine import Trainer, TrainerConfig
+
+    t = time.perf_counter()
+    ccfg = CorpusConfig(n_topics=64, vocab_size=131072, n_docs=65536,
+                        doc_len=256, seed=0)
+    tokens, mask, phi = make_topic_corpus(ccfg)
+    ho = held_out_docs(phi, 32, ccfg.doc_len, seed=1)
+    n_tok = int(mask.sum())
+    print(f"CORPUS {ccfg} tokens={n_tok} ({time.perf_counter() - t:.1f} s)")
+    if n_tok >= 1 << 24:
+        raise AssertionError("counts must stay below 2^24 to stay exact")
+    cfg = lda.LDAConfig(n_topics=1024, vocab_size=131072)
+    v, k = cfg.vocab_size, cfg.n_topics
+    phase("corpus", t)
+
+    tc_cad = TrainerConfig(layout="sorted", n_clients=2, consistency="bsp")
+    tc_inc = TrainerConfig(layout="sorted", n_clients=2, consistency="bsp",
+                           alias_rebuild_threshold=0.0,
+                           alias_rebuild_rows=GATHER_ROWS,
+                           alias_full_rebuild_every=16)
+    counts = {}
+
+    # ---------------------------------------------------------- phase 3
+    t = time.perf_counter()
+    tr = Trainer(cfg, tokens, mask, config=tc_cad, seed=0, device=dev)
+    report = lda_kernels(dev, tr, cfg, ccfg)
+    first = {"cadence": tr}
+    del tr
+    torch.cuda.empty_cache()
+    phase("lda-kernels", t)
+
+    # ---------------------------------------------------------- phase 4
+    t = time.perf_counter()
+    vk, dk = v * k * 4, 2 * 32768 * k * 4    # a (V,K) f32; two (D,K) n_dk
+    lays = 2 * n_tok * 4 * 4                 # order, rows, docs, real
+    gib = (7 * vk + dk + lays + 5 * cfg.mh_steps * 2_200_000 * 4) / 2**30
+    note = (f"~{gib:.1f} GiB: n_wk, its delta, the push sum, stale, prob, "
+            "alias and the build's transients as (V,K) f32; two (D,K) "
+            "n_dk; layouts; uniforms")
+    counts["lda"] = train("lda", cfg, (("cadence", tc_cad, 4),
+                                       ("incremental", tc_inc, 3)),
+                          tokens, mask, ho, dev, first,
+                          {"sweep": "mhw_sweep_fused",
+                           "full": "alias_build",
+                           "rows": "alias_build_gather_fused"}, note)
+    phase("lda-train", t)
+
+    # ---------------------------------------------------------- phase 5
+    t = time.perf_counter()
+    pcfg = pdp.PDPConfig(n_topics=1024, vocab_size=131072)
+    tr = Trainer(pcfg, tokens, mask, config=tc_cad, seed=0, device=dev)
+    report += pdp_kernels(dev, tr, pcfg, ccfg, report[0])
+    first = {"cadence": tr}
+    del tr
+    torch.cuda.empty_cache()
+    phase("pdp-kernels", t)
+
+    # ---------------------------------------------------------- phase 6
+    t = time.perf_counter()
+    gib = (16 * vk + 9 * 2 * vk + dk + lays) / 2**30
+    note = (f"~{gib:.1f} GiB: "
+            "m_wk and s_wk, their per-client deltas and sums, the push "
+            "sum and the projection's copies as 16 (V,K) f32; prob, "
+            "alias, stale and the dense build's transients as 9 (V,2K); "
+            "two (D,K) n_dk; layouts")
+    counts["pdp"] = train("pdp", pcfg, (("cadence", tc_cad, 3),
+                                        ("incremental", tc_inc, 3)),
+                          tokens, mask, ho, dev, first,
+                          {"sweep": "pdp_sweep_fused",
+                           "full": "alias_build",
+                           "rows": "alias_build_rows"}, note)
+    phase("pdp-train", t)
+
+    for entry in report:
+        by_path = {p: c.get(entry["name"], 0) for p, c in counts.items()}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']} never launched on a "
+                                 "main path")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

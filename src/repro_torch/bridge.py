@@ -6,7 +6,9 @@ The reference's state types are NamedTuples of arrays (``SharedStats``,
 frozen dataclasses.  Here they arrive as mappings of field name to numpy
 array (``np.asarray`` of each field, e.g. ``ref_nt._asdict()``) or as the
 config object itself, read by field name; nothing of the reference
-package is imported.
+package is imported.  Families are told apart by the reference config's
+class name (``LDAConfig`` or ``PDPConfig``); state converters take the
+port's family (or its NamedTuple class), LDA by default.
 """
 
 from __future__ import annotations
@@ -17,18 +19,27 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core import lda
+from repro_torch.core import lda, pdp
 from repro_torch.core.alias import AliasTable
 from repro_torch.data.segment import SortedLayout
 
 
-def config_from(ref_cfg: Any) -> lda.LDAConfig:
-    """The port's LDAConfig with the reference config's field values."""
-    return lda.LDAConfig(**{f.name: getattr(ref_cfg, f.name)
-                            for f in dataclasses.fields(lda.LDAConfig)})
+CONFIGS = {"LDAConfig": lda.LDAConfig, "PDPConfig": pdp.PDPConfig}
 
 
-def config_to(cfg: lda.LDAConfig, ref_cls: type):
+def config_from(ref_cfg: Any):
+    """The port's config of the same class name as ``ref_cfg``, with its
+    field values."""
+    name = type(ref_cfg).__name__
+    if name not in CONFIGS:
+        raise TypeError(f"no port config for {name}; ported: "
+                        f"{sorted(CONFIGS)}")
+    cls = CONFIGS[name]
+    return cls(**{f.name: getattr(ref_cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def config_to(cfg, ref_cls: type):
     """A reference config of type ``ref_cls`` with the port's values."""
     return ref_cls(**dataclasses.asdict(cfg))
 
@@ -44,12 +55,19 @@ def to_numpy(nt) -> dict[str, np.ndarray]:
     return {f: getattr(nt, f).detach().cpu().numpy() for f in nt._fields}
 
 
-def shared_from(arrays, device="cpu") -> lda.SharedStats:
-    return from_numpy(lda.SharedStats, arrays, device)
+def _cls(kind, attr: str) -> type:
+    """A NamedTuple class, or the ``attr`` class of a port family."""
+    return kind if isinstance(kind, type) else getattr(kind, attr)
 
 
-def local_from(arrays, device="cpu") -> lda.LocalState:
-    return from_numpy(lda.LocalState, arrays, device)
+def shared_from(arrays, device="cpu", kind=lda.SharedStats):
+    """Shared statistics of ``kind`` (a family or its ``shared_cls``)."""
+    return from_numpy(_cls(kind, "shared_cls"), arrays, device)
+
+
+def local_from(arrays, device="cpu", kind=lda.LocalState):
+    """Local state of ``kind`` (a family or its ``local_cls``)."""
+    return from_numpy(_cls(kind, "local_cls"), arrays, device)
 
 
 def layout_from(arrays, device="cpu") -> SortedLayout:

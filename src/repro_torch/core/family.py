@@ -1,13 +1,13 @@
 """The ``ModelFamily`` protocol and registry (port of
-``repro.core.family``), LDA only.
+``repro.core.family``): LDA and PDP.
 
 ``ModelFamily.sweep_sorted`` is the chunked sorted sweep: ``sorted_chunks``
 position-chunks in turn, each one launch of the family's fused kernel
 (Jacobi within a chunk), with ``n_dk`` refreshed between chunks
 (Gauss-Seidel across them).  The shared statistics stay the sweep-start
-snapshot throughout.  HDP and PDP register here in later slices
-(ROADMAP.md queue A.6-A.7); HDP reuses the LM sweep kernel, whose per-topic
-``prior`` vector is there for it.
+snapshot throughout.  HDP registers here in a later slice (ROADMAP.md
+queue A.6); it reuses the LM sweep kernel, whose per-topic ``prior``
+vector is there for it.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import alias as alias_mod
-from repro_torch.core import lda, projection
+from repro_torch.core import lda, pdp, projection, stirling
 from repro_torch.data import segment
 from repro_torch.kernels import ops
 
@@ -70,7 +70,29 @@ class ModelFamily:
         return self.local_cls(**{n: d[n] for n in self.local_stats})
 
     def n_outcomes(self, cfg) -> int:
+        """E: the size of the per-token outcome space (K, or 2K for PDP)."""
         return cfg.n_topics
+
+    def dense_probs(self, cfg, shared) -> torch.Tensor:
+        """(V, E) dense proposal term prior_e · f_e per token-type."""
+        raise NotImplementedError
+
+    def dense_probs_rows(self, cfg, shared, rows: torch.Tensor
+                         ) -> torch.Tensor:
+        """(R, E) dense rows of token-types ``rows``, equal to
+        ``dense_probs(cfg, shared)[rows]``; families override it with
+        gathered math whose cost scales with R."""
+        return self.dense_probs(cfg, shared)[rows.long()]
+
+    def rebuild_alias_rows(self, cfg, shared, tables, stale, rows, valid,
+                           device=None):
+        """Incremental alias rebuild of ``rows``: gathered dense rows, the
+        compacted-rows build (kernel 5), scattered into the resident
+        tables; rows with ``valid=False`` keep theirs.  The LM families
+        override it with the fused gather build."""
+        p_rows = self.dense_probs_rows(cfg, shared, rows)
+        sub = ops.build_tables_rows(p_rows, device=device)
+        return alias_mod.update_rows(tables, stale, rows, valid, sub, p_rows)
 
     def project(self, shared):
         """Algorithm 1 on the shared statistics."""
@@ -282,6 +304,94 @@ class LDAFamily(_LMFamilyBase):
         return lda.perplexity(cfg, shared, tokens, mask, key)
 
 
+class PDPFamily(ModelFamily):
+    name = "pdp"
+    config_cls = pdp.PDPConfig
+    shared_cls = pdp.SharedStats
+    local_cls = pdp.LocalState
+    shared_stats = ("m_wk", "s_wk", "m_k", "s_k")
+    local_stats = ("z", "r", "n_dk")
+    # s_wk is not count-conserved: the init repair and the projection
+    # adjust table counts without rewriting the per-token r indicators.
+    conserved_stats = ("m_wk",)
+    delta_names = ("m_wk", "s_wk")
+    rules = projection.PDP_RULES
+    aggregates = projection.PDP_AGGREGATES
+
+    def init_state(self, cfg, tokens, mask, key):
+        return pdp.init_state(cfg, tokens, mask, key)
+
+    def n_outcomes(self, cfg) -> int:
+        return 2 * cfg.n_topics
+
+    def dense_probs(self, cfg, shared) -> torch.Tensor:
+        return pdp.dense_probs(cfg, shared)
+
+    def dense_probs_rows(self, cfg, shared, rows) -> torch.Tensor:
+        # Both m_wk and s_wk rows feed the 2K columns, which is why
+        # alias_delta_stats tracks the drift of both.
+        r = rows.long()
+        return pdp.dense_rows(cfg, shared.m_wk[r], shared.s_wk[r],
+                              shared.m_k, shared.s_k)
+
+    def build_alias(self, cfg, shared):
+        return pdp.build_alias(cfg, shared)
+
+    def sparse_prior(self, cfg, shared) -> torch.Tensor:
+        return torch.full((2 * cfg.n_topics,), cfg.alpha, dtype=torch.float32,
+                          device=shared.m_k.device)
+
+    def sweep(self, cfg, local, shared, tables, stale, tokens, mask, key, *,
+              method="mhw", layout="sorted", sorted_layouts=None,
+              device=None):
+        local2, dm, ds = pdp.sweep(cfg, local, shared, tables, stale, tokens,
+                                   mask, key, method=method, layout=layout,
+                                   sorted_layouts=sorted_layouts,
+                                   device=device)
+        return local2, {"m_wk": dm, "s_wk": ds}
+
+    def apply_delta(self, shared, deltas):
+        return pdp.apply_delta(shared, deltas["m_wk"], deltas["s_wk"])
+
+    def count_stats(self, cfg, tokens, mask, local) -> dict[str, torch.Tensor]:
+        return {"m_wk": pdp._count(cfg, tokens, local.z, mask,
+                                   torch.ones_like(local.r)),
+                "s_wk": pdp._count(cfg, tokens, local.z, mask, local.r)}
+
+    def topics_per_word(self, shared) -> float:
+        return lda.topics_per_word(
+            lda.SharedStats(n_wk=shared.m_wk, n_k=shared.m_k))
+
+    def encode(self, cfg, local) -> torch.Tensor:
+        return local.z + cfg.n_topics * local.r
+
+    def topic_of(self, cfg, e: torch.Tensor) -> torch.Tensor:
+        return e % cfg.n_topics
+
+    def sorted_chunk(self, cfg, shared, tables, stale, lay, e_sorted, n_dk,
+                     generator, uniforms=None, device=None) -> torch.Tensor:
+        stirl = stirling.as_tensor(cfg.stirling_n_max, cfg.discount,
+                                   shared.m_wk.device)
+        return ops.pdp_sweep_sorted(
+            tables, stale, shared.m_wk, shared.s_wk, shared.m_k, shared.s_k,
+            stirl, self.sparse_prior(cfg, shared), lay.rows, lay.docs,
+            e_sorted, n_dk, generator, mh_steps=cfg.mh_steps,
+            concentration=cfg.concentration, discount=cfg.discount,
+            gamma=cfg.gamma, gamma_bar=cfg.gamma * cfg.vocab_size,
+            uniforms=uniforms, device=device)
+
+    def finalize_sorted(self, cfg, local, e_grid, n_dk, tokens, mask):
+        z_new = e_grid % cfg.n_topics
+        r_new = e_grid // cfg.n_topics
+        dm, ds = pdp.deltas_from(cfg, tokens, mask, local.z, local.r, z_new,
+                                 r_new)
+        return (pdp.LocalState(z=z_new, r=r_new, n_dk=n_dk),
+                {"m_wk": dm, "s_wk": ds})
+
+    def perplexity(self, cfg, shared, tokens, mask, key) -> float:
+        return pdp.perplexity(cfg, shared, tokens, mask, key)
+
+
 FAMILIES: dict[str, ModelFamily] = {}
 
 
@@ -299,6 +409,7 @@ def register(family: ModelFamily) -> ModelFamily:
 
 
 register(LDAFamily())
+register(PDPFamily())
 
 
 def get(name: str) -> ModelFamily:

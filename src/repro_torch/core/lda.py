@@ -89,8 +89,8 @@ def add_at(mat: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     return mat
 
 
-def count_dk(cfg: LDAConfig, z: torch.Tensor, mask: torch.Tensor
-             ) -> torch.Tensor:
+def count_dk(cfg, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(D, n_topics) document-topic counts of the unmasked ``z``."""
     d, l = z.shape
     docs = torch.arange(d, device=z.device).repeat_interleave(l)
     return add_at(torch.zeros((d, cfg.n_topics), dtype=torch.float32,
@@ -152,8 +152,17 @@ def perplexity(cfg: LDAConfig, shared: SharedStats, tokens: torch.Tensor,
     frozen from the trained statistics, θ_d comes from ``n_fold_sweeps``
     position-scan Gibbs sweeps on the held-out documents, then
     π = exp(−Σ log Σ_t θ_dt φ_wt / Σ N_d)."""
+    return fold_in_perplexity(cfg, language_model(cfg, shared), tokens,
+                              mask, key, n_fold_sweeps)
+
+
+def fold_in_perplexity(cfg, phi: torch.Tensor, tokens: torch.Tensor,
+                       mask: torch.Tensor, key: device_mod.Key,
+                       n_fold_sweeps: int = 10) -> float:
+    """Fold-in held-out perplexity against the frozen (V, K) word rows
+    ``phi``; ``cfg`` gives ``n_topics`` and ``alpha``.  Shared by the
+    families whose evaluation differs only in φ."""
     dev = tokens.device
-    phi = language_model(cfg, shared)
     d, l = tokens.shape
     gen = device_mod.generator(key, dev)
     z = torch.randint(0, cfg.n_topics, (d, l), generator=gen, device=dev)

@@ -87,5 +87,16 @@ def project(stats: Stats, rules: Sequence[Rule],
     return stats
 
 
+PDP_RULES = (
+    Rule("nonneg", "m_wk"),
+    Rule("nonneg", "s_wk"),
+    Rule("pos_link", "s_wk", "m_wk"),   # m>0 => s>=1 ; m=0 => s=0
+    Rule("le", "s_wk", "m_wk"),         # s <= m
+)
+PDP_AGGREGATES = (
+    Aggregate("m_wk", "m_k", 0),
+    Aggregate("s_wk", "s_k", 0),
+)
+
 LDA_RULES = (Rule("nonneg", "n_wk"),)
 LDA_AGGREGATES = (Aggregate("n_wk", "n_k", 0),)

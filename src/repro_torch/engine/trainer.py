@@ -1,12 +1,13 @@
 """``Trainer``: the driver loop (port of ``repro.engine.trainer``) for
-in-process LDA training on the token-sorted layout under BSP.
+in-process training of any registered family (LDA, PDP) on the
+token-sorted layout under BSP.
 
 Each round: (alias maintenance) → pull → sample → filter → push →
 project, through :func:`repro_torch.engine.round.run_round`.  Alias
 tables are rebuilt in full every ``alias_refresh_every`` rounds (kernel
 2), or, in incremental mode (``alias_rebuild_threshold`` set), only the
-drifted rows at the end of every round (kernel 3), with a full rebuild
-every ``alias_full_rebuild_every`` rounds.
+drifted rows at the end of every round (kernel 3 for LDA, kernel 5 for
+PDP), with a full rebuild every ``alias_full_rebuild_every`` rounds.
 
 The trainer runs on ``cuda`` unless ``device="cpu"`` is passed
 (:mod:`repro_torch.device`).  RNG: the trainer's ``seed`` heads every
@@ -105,7 +106,8 @@ class RunResult:
 
 
 class Trainer:
-    """Multi-client LDA trainer on the sorted layout, in process, BSP.
+    """Multi-client trainer on the sorted layout, in process, BSP; the
+    family follows from the type of ``model_cfg``.
 
     ``tokens``/``mask`` are (D, L) arrays (numpy or tensors); they are
     split into ``n_clients`` document shards and moved to ``device``.

@@ -45,9 +45,12 @@ L = ctypes.c_long
 F = ctypes.c_float
 SIGNATURES = {
     "alias_build": ("alias_build", [P, I, I, P, P, P, P]),
+    "alias_build_rows": ("alias_build", [P, I, I, P, P, P, P]),
     "alias_build_gather_fused": ("alias_build",
                                  [P, P, P, P, I, I, F, F, P, P, P, P, P]),
     "mhw_sweep_fused": ("mhw_fused", [P] * 17 + [I, I, L, I, F, F, P]),
+    "pdp_sweep_fused": ("pdp_fused",
+                        [P] * 20 + [I, I, L, I, I, F, F, F, F, P]),
 }
 
 

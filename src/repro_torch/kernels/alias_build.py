@@ -4,9 +4,14 @@
   (kernel 2); the port sends full builds through it.
 * :func:`alias_build_gather_fused` replaces
   ``repro/kernels/alias_build.py::alias_build_gather_fused`` (kernel 3),
-  the incremental rebuild of the changed rows.
+  the incremental rebuild of the changed rows for the LM families.
+* :func:`alias_build_rows` replaces
+  ``repro/kernels/alias_build.py::alias_build_rows`` (kernel 5), the build
+  of a compacted block of gathered changed rows (PDP's incremental
+  rebuild).  It takes any number of rows, so it needs no padding to a
+  row tile.
 
-Both take CUDA tensors only and never fall back to the plain versions
+All take CUDA tensors only and never fall back to the plain versions
 (``core/alias.py::build``, ``kernels/ref.py``); ``kernels/ops.py`` routes
 CPU tensors there.
 """
@@ -30,8 +35,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def alias_build(p: torch.Tensor):
-    """Alias tables of the rows of ``p`` (R, K) f32 → (prob, alias, mass)."""
+def _build_rows(name: str, p: torch.Tensor):
     if p.dim() != 2:
         raise ValueError(f"p must be (R, K), got {tuple(p.shape)}")
     _check("p", p, torch.float32)
@@ -39,9 +43,20 @@ def alias_build(p: torch.Tensor):
     prob = torch.empty((r, k), dtype=torch.float32, device=p.device)
     alias = torch.empty((r, k), dtype=torch.int32, device=p.device)
     mass = torch.empty((r,), dtype=torch.float32, device=p.device)
-    launch("alias_build", p.data_ptr(), r, k, prob.data_ptr(),
-           alias.data_ptr(), mass.data_ptr())
+    launch(name, p.data_ptr(), r, k, prob.data_ptr(), alias.data_ptr(),
+           mass.data_ptr())
     return prob, alias, mass
+
+
+def alias_build(p: torch.Tensor):
+    """Alias tables of the rows of ``p`` (R, K) f32 → (prob, alias, mass)."""
+    return _build_rows("alias_build", p)
+
+
+def alias_build_rows(p_rows: torch.Tensor):
+    """Alias tables of a compacted (R, K) f32 block of gathered rows →
+    (prob, alias, mass); kernel 5, counted apart from full builds."""
+    return _build_rows("alias_build_rows", p_rows)
 
 
 def alias_build_gather_fused(n_wk: torch.Tensor, n_k: torch.Tensor,

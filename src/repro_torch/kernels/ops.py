@@ -3,8 +3,9 @@
 Each wrapper runs on ``device`` (default ``cuda``; see
 :mod:`repro_torch.device`) and its tensors must lie there.  On a CUDA
 device it launches the hand-written kernel; on the CPU it runs the plain
-version (``core.alias.build``, ``kernels/ref.py``, ``core.mhw.sorted_chain``),
-and only there.  A CUDA tensor never reaches a plain version.
+version (``core.alias.build``, ``kernels/ref.py``, ``core.mhw.sorted_chain``,
+``core.pdp.sorted_chain_pdp``), and only there.  A CUDA tensor never
+reaches a plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import alias as alias_mod
-from repro_torch.core import mhw
+from repro_torch.core import mhw, pdp
 from repro_torch.core.alias import AliasTable
 from repro_torch.kernels import alias_build as _build
 from repro_torch.kernels import mhw_fused as _fused
@@ -35,6 +36,15 @@ def build_tables(p: torch.Tensor, *, device=None) -> AliasTable:
     if not _on(device, p):
         return alias_mod.build(p)
     prob, alias, mass = _build.alias_build(p)
+    return AliasTable(prob=prob, alias=alias, mass=mass)
+
+
+def build_tables_rows(p_rows: torch.Tensor, *, device=None) -> AliasTable:
+    """Alias tables of a compacted (R, E) block of gathered changed rows
+    (the generic incremental rebuild): kernel 5 on the card."""
+    if not _on(device, p_rows):
+        return alias_mod.build(p_rows)
+    prob, alias, mass = _build.alias_build_rows(p_rows)
     return AliasTable(prob=prob, alias=alias, mass=mass)
 
 
@@ -81,3 +91,23 @@ def mhw_sweep_sorted(tables: AliasTable, stale, n_wk, n_k, prior, rows, docs,
     return fn(tables.prob, tables.alias, tables.mass, stale, n_wk, n_k,
               prior, rows, docs, z0, n_dk, *uniforms, beta=beta,
               beta_bar=beta_bar)
+
+
+def pdp_sweep_sorted(tables: AliasTable, stale, m_wk, s_wk, m_k, s_k, stirl,
+                     prior, rows, docs, e0, n_dk,
+                     generator: torch.Generator | None, *, mh_steps: int,
+                     concentration: float, discount: float, gamma: float,
+                     gamma_bar: float,
+                     uniforms: tuple[torch.Tensor, ...] | None = None,
+                     device=None) -> torch.Tensor:
+    """Fused sorted-layout MHW chain over PDP's 2K joint outcomes: draws
+    the per-step uniforms (slot over [0, 2K)) and runs kernel 4.
+    ``uniforms`` overrides the draw as in :func:`mhw_sweep_sorted`."""
+    on_card = _on(device, m_wk, rows)
+    if uniforms is None:
+        uniforms = _step_uniforms(generator, tables.prob.shape[-1],
+                                  mh_steps, rows.shape[0], m_wk.device)
+    fn = _fused.pdp_sweep_fused if on_card else pdp.sorted_chain_pdp
+    return fn(tables.prob, tables.alias, tables.mass, stale, m_wk, s_wk, m_k,
+              s_k, stirl, prior, rows, docs, e0, n_dk, *uniforms,
+              b=concentration, a=discount, gamma=gamma, gamma_bar=gamma_bar)

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core import alias, family, lda, mhw
+from repro_torch.core import alias, family, lda, mhw, pdp, stirling
 from repro_torch.engine import Trainer, TrainerConfig
 from repro_torch.kernels import _build, ops
 
@@ -48,7 +48,7 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"trainer.py", "family.py", "ops.py", "chip_smoke.py",
-            "alias_build.py", "mhw_fused.py"} <= names
+            "alias_build.py", "mhw_fused.py", "pdp.py", "stirling.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -61,6 +61,12 @@ def _small():
     tokens = torch.as_tensor(rng.integers(0, 16, size=(6, 8)),
                              dtype=torch.int32)
     mask = torch.ones((6, 8), dtype=torch.bool)
+    return cfg, tokens, mask
+
+
+def _small_pdp():
+    _, tokens, mask = _small()
+    cfg = pdp.PDPConfig(n_topics=4, vocab_size=16, stirling_n_max=32)
     return cfg, tokens, mask
 
 
@@ -79,6 +85,19 @@ def test_trainer_requires_card_unless_cpu_asked(monkeypatch):
                 config=TrainerConfig(layout="sorted", n_clients=2))
     Trainer(cfg, tokens, mask, config=TrainerConfig(layout="sorted"),
             device="cpu").step()
+
+
+def test_pdp_trainer_requires_card_unless_cpu_asked(monkeypatch):
+    _no_card(monkeypatch)
+    cfg, tokens, mask = _small_pdp()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, tokens, mask,
+                config=TrainerConfig(layout="sorted", n_clients=2))
+    tr = Trainer(cfg, tokens, mask, config=TrainerConfig(
+        layout="sorted", n_clients=2, alias_rebuild_threshold=0.0,
+        alias_rebuild_rows=4), device="cpu")
+    tr.step()
+    assert tr.consistency_error() == 0.0
 
 
 def test_family_sweep_requires_card_unless_cpu_asked(monkeypatch):
@@ -114,6 +133,29 @@ def test_ops_require_card_unless_cpu_asked(call, monkeypatch):
             tables, dp, shared.n_wk, shared.n_k, prior, lay.rows, lay.docs,
             torch.zeros_like(lay.rows), local.n_dk, torch.Generator(),
             mh_steps=2, beta=0.01, beta_bar=0.16, **kw)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    fns[call](device="cpu")
+
+
+@pytest.mark.parametrize("call", ["build_tables_rows", "pdp_sweep"])
+def test_pdp_ops_require_card_unless_cpu_asked(call, monkeypatch):
+    _no_card(monkeypatch)
+    cfg, tokens, mask = _small_pdp()
+    fam = family.get("pdp")
+    local, shared = fam.init_state(cfg, tokens, mask, (0,))
+    dp = pdp.dense_probs(cfg, shared)
+    tables = ops.build_tables(dp, device="cpu")
+    lay = fam.build_sorted_layouts(cfg, tokens, mask)[0]
+    stirl = stirling.as_tensor(cfg.stirling_n_max, cfg.discount, "cpu")
+    fns = {
+        "build_tables_rows": lambda **kw: ops.build_tables_rows(dp[:3], **kw),
+        "pdp_sweep": lambda **kw: ops.pdp_sweep_sorted(
+            tables, dp, shared.m_wk, shared.s_wk, shared.m_k, shared.s_k,
+            stirl, torch.full((8,), 0.1), lay.rows, lay.docs,
+            torch.zeros_like(lay.rows), local.n_dk, torch.Generator(),
+            mh_steps=2, concentration=10.0, discount=0.1, gamma=0.5,
+            gamma_bar=8.0, **kw)}
     with pytest.raises(RuntimeError, match="CUDA"):
         fns[call]()
     fns[call](device="cpu")
@@ -180,4 +222,57 @@ def test_cuda_tensors_reach_the_kernels(cuda_device):
         z0, local.n_dk, *uni, beta=cfg.beta,
         beta_bar=cfg.beta * cfg.vocab_size)
     assert float((z != z_ref).float().mean()) <= 0.01
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_reach_the_pdp_kernels(cuda_device):
+    """The PDP kernels on the card: the compacted-rows build (kernel 5)
+    launches once and is bit-equal to its plain version and to the same
+    rows of a full build (kernel 2) at width 2K; the PDP sweep (kernel 4)
+    launches once and its chains agree with the plain version except where
+    the block-parallel cdf rounds across a step (at most 1% of chains)."""
+    cfg = pdp.PDPConfig(n_topics=64, vocab_size=512, stirling_n_max=128)
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, 512, size=(64, 32)),
+                             dtype=torch.int32, device=cuda_device)
+    mask = torch.ones_like(tokens, dtype=torch.bool)
+    fam = family.get("pdp")
+    local, shared = fam.init_state(cfg, tokens, mask, (0,))
+    _build.reset_launches()
+    tables, dp = pdp.build_alias(cfg, shared)
+    assert _build.LAUNCHES["alias_build"] == 1
+    for a, b in zip(tables, alias.build(dp)):
+        assert torch.equal(a, b)
+
+    rows = torch.tensor([3, 0, 511, 42, 7], dtype=torch.int32,
+                        device=cuda_device)
+    p_rows = fam.dense_probs_rows(cfg, shared, rows)
+    sub = ops.build_tables_rows(p_rows, device=cuda_device)
+    assert _build.LAUNCHES["alias_build_rows"] == 1
+    assert torch.equal(p_rows, dp[rows.long()])
+    for a, b, c in zip(sub, alias.build(p_rows), tables):
+        assert torch.equal(a, b) and torch.equal(a, c[rows.long()])
+
+    lay = fam.build_sorted_layouts(cfg, tokens, mask)[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    uni = ops._step_uniforms(gen, 128, 2, lay.rows.shape[0], cuda_device)
+    e0 = torch.randint(0, 128, lay.rows.shape, generator=gen,
+                       device=cuda_device, dtype=torch.int32)
+    stirl = stirling.as_tensor(cfg.stirling_n_max, cfg.discount, cuda_device)
+    prior = fam.sparse_prior(cfg, shared)
+    hyper = dict(b=cfg.concentration, a=cfg.discount, gamma=cfg.gamma,
+                 gamma_bar=cfg.gamma * cfg.vocab_size)
+    args = (*tables, dp, shared.m_wk, shared.s_wk, shared.m_k, shared.s_k,
+            stirl, prior, lay.rows, lay.docs, e0, local.n_dk, *uni)
+    e = ops.pdp_sweep_sorted(
+        tables, dp, shared.m_wk, shared.s_wk, shared.m_k, shared.s_k, stirl,
+        prior, lay.rows, lay.docs, e0, local.n_dk, None, mh_steps=2,
+        concentration=cfg.concentration, discount=cfg.discount,
+        gamma=cfg.gamma, gamma_bar=cfg.gamma * cfg.vocab_size, uniforms=uni,
+        device=cuda_device)
+    assert _build.LAUNCHES["pdp_sweep_fused"] == 1
+    e_ref = pdp.sorted_chain_pdp(*args, **hyper)
+    assert float((e != e_ref).float().mean()) <= 0.01
+    assert bool(((e >= 0) & (e < 128)).all())
     torch.cuda.synchronize()
