@@ -22,7 +22,9 @@ Phases; any failure raises and the script exits non-zero:
    the alias build at width 2K on the full (V, 2K) dense term, the
    compacted-rows build of the R=4096 rows with the largest m_wk+s_wk mass
    (bit-equal to its plain version and to the full build's rows), and the
-   PDP sweep on a 131,072-token slice of client 0's first chunk.
+   PDP sweep on a 131,072-token slice of client 0's first chunk, once
+   with the main path's Stirling table and once with a table small enough
+   that its clamps bind.
 6. PDP training at full size: PDPConfig(n_topics=1024, vocab_size=131072)
    at its defaults, two clients, BSP, 3 cadence rounds then 3 incremental
    rounds, with the checks of phase 4 under the PDP rules.
@@ -54,15 +56,23 @@ PDP_SWEEP_SLICE = 131_072
 GATHER_ROWS = 4096
 SWEEP_MISMATCH_TOL = 1e-3      # share of chains that may differ (see below)
 DIST_ABS, DIST_REL = 2e-6, 1e-4  # encoded distribution vs p/Σp
-# Operations per (real token, topic) of the PDP sweep, each log and exp
-# counted as one (which understates them: CUDA's precise logf and expf
-# are tens of instructions): the own-count removal and CRP repair (6),
-# the two aggregates (2), seven logs and their argument adds (14), the
-# occupancy term (3), four clamps (8) and two Stirling differences (2),
-# the sums of the two factors (9), the document factor, two exps and two
-# products (5), two cdf adds per outcome (4) and one compare per outcome
-# and MH step at mh_steps = 2 (4).
-PDP_OPS_PER_TOPIC = 57
+# Operations of the PDP sweep, each log and exp counted as one (which
+# understates them: CUDA's precise logf and expf are tens of
+# instructions).  The log factors of a (word, topic) cell depend on the
+# token only at the token's own topic, so the work the function needs is:
+# per distinct word of the slice and topic, the CRP repair (3), the
+# occupancy term (2), four logs and their argument adds (8), four clamps
+# (8), two Stirling differences (2), the sums of the two factors (9) and
+# two exps (2);
+PDP_WORD_OPS = 34
+# per topic, once: log(b + m_k), log(b + a·s_k), log(γ̄ + s_k) (7);
+PDP_TOPIC_OPS = 7
+# per real token and topic: two document-factor products, two cdf adds and
+# one compare per outcome and MH step (4 + 2·mh_steps);
+# per real token: the own topic's factors again with the own counts
+# removed (4 + 34 + 7), log p and log q at the initial state (9), and at
+# each MH step those of the candidate and the accept (14).
+PDP_TOKEN_OPS, PDP_STEP_OPS = 54, 14
 
 
 def card_line() -> str:
@@ -99,14 +109,6 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest distance in units in the last place between two f32
-    tensors of equal sign."""
-    ia = a.contiguous().view(torch.int32).to(torch.int64)
-    ib = b.contiguous().view(torch.int32).to(torch.int64)
-    return int((ia - ib).abs().max()) if a.numel() else 0
-
-
 def encoded(prob: torch.Tensor, alias: torch.Tensor) -> torch.Tensor:
     """The distribution each alias row draws from."""
     k = prob.shape[1]
@@ -115,81 +117,45 @@ def encoded(prob: torch.Tensor, alias: torch.Tensor) -> torch.Tensor:
     return q / k
 
 
-def rounding_bound(target: torch.Tensor, alias: torch.Tensor,
-                   mass: torch.Tensor, exact: torch.Tensor) -> torch.Tensor:
-    """The rounding a float32 build can add to a row's encoded
-    distribution, beyond DIST_ABS + DIST_REL·target (see
-    :func:`check_tables`), from the row's own numbers:
-
-    * the row mass: with δ = |mass/Σp − 1|, every scaled value
-      s = p/mass·E is off by δ relative, and since the encoded distribution
-      sums to 1 while the scaled values sum to E/(1+δ), the deficit E·δ
-      ends in the slots left at prob = 1: δ·(1 + target).  Rows of many
-      nearly equal tiny entries (the PDP term's r=1 half) round the same
-      way at every add, so δ is systematic there;
-    * the pairing: each time slot j donates, the build computes
-      s_j − (1 − s_i) in float32, an error of at most 2⁻²⁴·(s_j + 2) in
-      scaled units; the row's errors together can end in its last slots,
-      so every entry is held to the row's total, ÷E.
-    """
-    e = alias.shape[1]
-    delta = torch.where(exact > 0, (mass.double()[:, None] / exact - 1).abs(),
-                        torch.zeros_like(exact))
-    donated = (alias != torch.arange(e, device=alias.device)).double()
-    donations = torch.zeros_like(target).scatter_add_(1, alias.long(),
-                                                      donated)
-    pairing = ((donations * (target * e + 2)).sum(1, keepdim=True)
-               * 2.0 ** -24 / e)
-    return delta * (1 + target) + pairing
-
-
 def check_tables(name, p, prob, alias, mass, prob_ref, alias_ref, mass_ref):
-    """Kernel and plain tables agree bit for bit on rows whose float32
-    masses agree bit for bit, and both encode the row's exact distribution
-    p/Σp (summed in float64) to DIST_ABS + DIST_REL·(p/Σp) plus the row's
-    :func:`rounding_bound`: a float32 row sum over K = 1024 terms is off
-    by up to (K−1)·2⁻²⁴ ≈ 6e-5 relative, which scales every entry, and the
-    pairing's float32 subtractions add their rounding.  Returns match
+    """The kernel's tables equal the plain version's bit for bit on every
+    row (the kernel sums each row's mass left to right, the plain
+    version's order), and they encode the row's exact distribution p/Σp
+    (summed in float64) to DIST_ABS + DIST_REL·(p/Σp) + δ·(1 + p/Σp).
+    δ = |mass/Σp − 1| is the relative error of the plain version's float32
+    row mass (up to (E−1)·2⁻²⁴ over E terms): the build scales every entry
+    by that mass, and since the encoded distribution sums to 1, the
+    deficit ends in the slots left at prob = 1.  Rows of a few large and
+    many nearly equal tiny entries (the PDP term's r = 1 half) round the
+    same way at every add, so there δ is systematic.  Returns match
     statistics."""
     same = mass == mass_ref
-    if not (torch.equal(alias[same], alias_ref[same])
-            and torch.equal(prob[same], prob_ref[same])):
-        raise AssertionError(f"{name}: tables differ on rows whose mass "
-                             "is bit-equal")
+    if not (bool(same.all()) and torch.equal(alias, alias_ref)
+            and torch.equal(prob, prob_ref)):
+        raise AssertionError(
+            f"{name}: kernel and plain tables differ: "
+            f"{int((~same).sum())} row masses, "
+            f"{int((alias != alias_ref).sum())} alias entries, "
+            f"{int((prob != prob_ref).sum())} prob entries")
     exact = p.double().sum(1, keepdim=True)
     target = torch.where(exact > 0, p.double() / exact.clamp_min(1e-300),
                          torch.full_like(exact, 1.0 / p.shape[1]))
-    errs, used = {}, {}
-    for who, pr, al, ms in (("kernel", prob, alias, mass),
-                            ("plain", prob_ref, alias_ref, mass_ref)):
-        err = (encoded(pr, al) - target).abs()
-        extra = rounding_bound(target, al, ms, exact)
-        lim = DIST_ABS + DIST_REL * target + extra
-        use = err / lim
-        if not bool((use <= 1).all()):
-            i = int(use.argmax())
-            r, c = divmod(i, p.shape[1])
-            raise AssertionError(
-                f"{name}: {who} table is off the row's distribution by up "
-                f"to {float(err.max())}; worst entry ({r}, {c}): err "
-                f"{float(err[r, c])}, bound {float(lim[r, c])}, target "
-                f"{float(target[r, c])}, rounding bound "
-                f"{float(extra[r, c])}, row max target "
-                f"{float(target[r].max())}")
-        errs[who] = float(err.max())
-        used[who] = float(use.max())
-        del err, extra, lim, use
-    rel = float(((mass - mass_ref).abs() / mass_ref.abs().clamp_min(1e-30))
-                .max())
-    if not rel <= 1e-4:
-        raise AssertionError(f"{name}: row masses differ by {rel:.3g}")
-    return {"rows_mass_bit_equal": float(same.float().mean()),
-            "alias_match_rate": float((alias == alias_ref).float().mean()),
-            "prob_max_ulp": ulps(prob, prob_ref),
-            "max_abs_err": float((prob - prob_ref).abs().max()),
-            "dist_max_err": errs["kernel"],
-            "dist_max_err_plain": errs["plain"],
-            "dist_bound_use": used["kernel"]}
+    delta = torch.where(exact > 0, (mass_ref.double()[:, None] / exact
+                                    - 1).abs(), torch.zeros_like(exact))
+    err = (encoded(prob_ref, alias_ref) - target).abs()
+    lim = DIST_ABS + DIST_REL * target + delta * (1 + target)
+    use = err / lim
+    if not bool((use <= 1).all()):
+        r, c = divmod(int(use.argmax()), p.shape[1])
+        raise AssertionError(
+            f"{name}: tables are off the row's distribution by up to "
+            f"{float(err.max())}; worst entry ({r}, {c}): err "
+            f"{float(err[r, c])}, bound {float(lim[r, c])}, target "
+            f"{float(target[r, c])}, row mass error {float(delta[r, 0])}")
+    return {"bit_equal": True, "max_abs_err": 0.0,
+            "dist_max_err": float(err.max()),
+            "dist_bound_use": float(use.max()),
+            "mass_rel_err_max": float(delta.max())}
 
 
 def profile_round(trainer, label: str) -> None:
@@ -253,7 +219,7 @@ def sweep_bytes(rows, docs, slot, v, k, e_out, steps, row_stats):
     aggregates and the prior; mass once per word; rows, the initial state
     and the result for every position; docs and the five uniform streams
     for real tokens only (padding exits before reading them).  Returns
-    (total, parts)."""
+    (total, parts, real tokens, distinct words)."""
     real = rows < v
     n_real = int(real.sum())
     r_real = rows[real].long()
@@ -268,7 +234,7 @@ def sweep_bytes(rows, docs, slot, v, k, e_out, steps, row_stats):
              "aggregates_prior_mass": (row_stats * k + e_out) * 4
              + u_rows * 4,
              "streams": b * 12 + n_real * 4 + steps * n_real * 20}
-    return sum(parts.values()), parts, n_real
+    return sum(parts.values()), parts, n_real, u_rows
 
 
 def lda_kernels(dev, tr, cfg, ccfg) -> list[dict]:
@@ -374,8 +340,8 @@ def lda_kernels(dev, tr, cfg, ccfg) -> list[dict]:
                                               beta_bar=beta_bar), 10)
     plain1 = time_ms(lambda: mhw.sorted_chain(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 3)
-    bytes1, parts1, n_real = sweep_bytes(rows1, docs1, uni[0], v, k, k,
-                                         cfg.mh_steps, 1)
+    bytes1, parts1, n_real, _ = sweep_bytes(rows1, docs1, uni[0], v, k, k,
+                                            cfg.mh_steps, 1)
     ops1 = n_real * k * 8
     b1, by1 = bound(bytes1, ops1)
     full_b = lay.rows.shape[0]
@@ -398,6 +364,38 @@ def lda_kernels(dev, tr, cfg, ccfg) -> list[dict]:
         "full_chunk_ms": ms1_full})
     print(f"KERNEL mhw_sweep_fused {json.dumps(report[-1])}", flush=True)
     return report
+
+
+def clamp_check(args4, rows, shared, cfg, hyper, dev) -> dict:
+    """Kernel 4 against its plain version on the same slice with a
+    Stirling table that ends at half the slice's largest m_wk, so that the
+    clamps bind (m to hi, s to hi+1 in the same-table ratio and to hi in
+    the new-table ratio, with hi = n_max − 1) and the table's −1e30
+    entries are reached: the state's counts stay below the main path's
+    n_max = 512."""
+    from repro_torch.core import pdp, stirling
+    from repro_torch.kernels import mhw_fused as kmf
+
+    words = torch.unique(rows[rows < cfg.vocab_size].long())
+    m_w, s_w = shared.m_wk[words], shared.s_wk[words]
+    n_max = max(2, int(m_w.max()) // 2)
+    hi = n_max - 1
+    small = stirling.as_tensor(n_max, cfg.discount, dev)
+    args = (*args4[:8], small, *args4[9:])      # stirl is the ninth
+    e_kernel = kmf.pdp_sweep_fused(*args, **hyper)
+    e_plain = pdp.sorted_chain_pdp(*args, **hyper)
+    mismatch = float((e_kernel != e_plain).float().mean())
+    out = {"stirling_n_max": n_max,
+           "cells_m_above_hi": int((m_w > hi).sum()),
+           "cells_s_above_hi": int((s_w > hi).sum()),
+           "words_clamped": int((m_w > hi).any(1).sum()),
+           "mismatch_rate": mismatch}
+    print(f"PDP sweep with clamped Stirling ratios {json.dumps(out)}",
+          flush=True)
+    if not mismatch <= SWEEP_MISMATCH_TOL:
+        raise AssertionError(f"PDP sweep at n_max={n_max}: {mismatch:.3g} "
+                             f"of chains differ (> {SWEEP_MISMATCH_TOL})")
+    return out
 
 
 def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
@@ -466,7 +464,7 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
         "replaces": "src/repro/kernels/alias_build.py:336",
         "ms": ms5, "plain_ms": plain5, "bound_ms": b5, "bound_by": by5,
         "library_ms": None, "bytes": bytes5, "rows": r, "width": e_out,
-        "bit_equal_plain": True, "partial_equals_full": True, **stats5})
+        "partial_equals_full": True, **stats5})
     print(f"KERNEL alias_build_rows {json.dumps(report[-1])}", flush=True)
 
     # Kernel 4: a slice of client 0's first chunk.
@@ -502,15 +500,22 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
     max_err4 = int((e_kernel - e_plain).abs().max())
     del e_plain
     torch.cuda.empty_cache()
+    clamp = clamp_check(args4, rows4, shared, cfg, hyper, dev)
     ms4 = time_ms(lambda: kmf.pdp_sweep_fused(*args4, **hyper), 10)
     plain4 = time_ms(lambda: pdp.sorted_chain_pdp(*args4, **hyper), 2)
     torch.cuda.empty_cache()
-    bytes4, parts4, n_real = sweep_bytes(rows4, docs4, uni[0], v, k, e_out,
-                                         cfg.mh_steps, 2)
+    bytes4, parts4, n_real, u_rows = sweep_bytes(rows4, docs4, uni[0], v, k,
+                                                 e_out, cfg.mh_steps, 2)
     stirl_bytes = stirl.numel() * 4
     bytes4 += stirl_bytes
     parts4["stirling_table"] = stirl_bytes
-    ops4 = n_real * k * PDP_OPS_PER_TOPIC
+    steps = cfg.mh_steps
+    ops_parts4 = {"word_factors": u_rows * k * PDP_WORD_OPS,
+                  "topic_terms": k * PDP_TOPIC_OPS,
+                  "token_outcomes": n_real * k * (4 + 2 * steps),
+                  "token_points": n_real * (PDP_TOKEN_OPS
+                                            + PDP_STEP_OPS * steps)}
+    ops4 = sum(ops_parts4.values())
     b4, by4 = bound(bytes4, ops4)
     full_b = lay.rows.shape[0]
     full_real = int((lay.rows < v).sum())
@@ -524,10 +529,12 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
         "ms": ms4, "plain_ms": plain4, "bound_ms": b4, "bound_by": by4,
         "bound_bytes_ms": bound(bytes4, 0)[0],
         "bound_ops_ms": bound(0, ops4)[0], "ops": ops4,
-        "ops_note": f"{PDP_OPS_PER_TOPIC} per real token and topic, each "
-                    "log and exp counted as one",
+        "ops_parts": ops_parts4,
+        "ops_note": "the word factors once per distinct word of the slice; "
+                    "each log and exp counted as one",
         "library_ms": None, "tokens": PDP_SWEEP_SLICE,
         "mismatch_rate": mismatch, "moved_share": moved,
+        "clamp_check": clamp,
         "max_abs_err": max_err4,
         "bytes": bytes4, "bytes_parts": parts4,
         "full_chunk_tokens": full_b, "full_chunk_real_tokens": full_real,

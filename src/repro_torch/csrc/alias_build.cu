@@ -39,9 +39,9 @@
 // Kernel 5 is the build of a compacted block of gathered changed rows (the
 // generic incremental rebuild, PDP's).  The TPU kernel pads the block to
 // its row tile and trims the result; here a warp takes any 32 rows, so the
-// entry runs the row build on the R rows as they are.  It has its own
-// __global__ function so that a profile and the launch counters tell it
-// apart from a full build.
+// entry launches the full build's kernel on the R rows as they are.  Its
+// own entry point lets the wrapper count its launches apart from full
+// builds; a profile tells the two apart by grid size only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,29 +123,15 @@ __device__ void build_rows_warp(const float* p, long row0,
   }
 }
 
-// The rows of p this warp builds: 32 from row0 = 32 * (global warp id).
-__device__ __forceinline__ void build_block_rows(
-    const float* __restrict__ p, int r, int k, float* __restrict__ prob,
-    int* __restrict__ alias, float* __restrict__ mass) {
+__global__ void alias_build_kernel(const float* __restrict__ p, int r, int k,
+                                   float* __restrict__ prob,
+                                   int* __restrict__ alias,
+                                   float* __restrict__ mass) {
   const long warp = (long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const long row0 = warp * 32;
   if (row0 >= r) return;
   const int n = (int)min(32L, (long)r - row0);
   build_rows_warp(p, row0, n, k, prob, alias, mass);
-}
-
-__global__ void alias_build_kernel(const float* __restrict__ p, int r, int k,
-                                   float* __restrict__ prob,
-                                   int* __restrict__ alias,
-                                   float* __restrict__ mass) {
-  build_block_rows(p, r, k, prob, alias, mass);
-}
-
-__global__ void alias_build_rows_kernel(const float* __restrict__ p, int r,
-                                        int k, float* __restrict__ prob,
-                                        int* __restrict__ alias,
-                                        float* __restrict__ mass) {
-  build_block_rows(p, r, k, prob, alias, mass);
 }
 
 __global__ void alias_build_gather_kernel(
@@ -186,11 +172,7 @@ extern "C" int alias_build(const float* p, int r, int k, float* prob,
 
 extern "C" int alias_build_rows(const float* p, int r, int k, float* prob,
                                 int* alias, float* mass, void* stream) {
-  if (r > 0)
-    alias_build_rows_kernel<<<blocks_for(r), kWarpsPerBlock * 32, 0,
-                              (cudaStream_t)stream>>>(p, r, k, prob, alias,
-                                                      mass);
-  return (int)cudaGetLastError();
+  return alias_build(p, r, k, prob, alias, mass, stream);
 }
 
 extern "C" int alias_build_gather_fused(const float* n_wk, const float* n_k,

@@ -17,14 +17,17 @@
 //   log p(e) = log(ndk_t + prior[e] + 1e-30) + log_f(e) and
 //   log q(e) = log(sparse_w(e) + stale[w, e] + 1e-30).
 //
-// What bounds it on the card.  Operations: every token evaluates the two
-// log factors for all K topics, seven logf, two expf, four Stirling-table
-// reads and some twenty float operations per topic; CUDA's precise logf
-// and expf are software routines of tens of instructions each.  Bytes: each
-// token reads its document's n_dk row and its word's m_wk and s_wk rows
-// (rows repeat across neighbouring tokens of the sorted stream and come
-// from L2), plus point reads of prob/alias/stale.  At the main path's
-// shapes the arithmetic is the larger bound.
+// What bounds it on the card.  Bytes: each token reads its document's n_dk
+// row and its word's m_wk and s_wk rows (rows repeat across neighbouring
+// tokens of the sorted stream and come from L2), plus point reads of
+// prob/alias/stale.  Operations: the log factors of a (word, topic) cell
+// differ between tokens only at the token's own topic, so the function
+// needs them once per distinct word, and per token only the 2K weights,
+// their cdf and the chain; at the main path's shapes that work is below
+// the bytes' bound.  This kernel evaluates the factors per token (seven
+// logf, two expf, four Stirling-table reads and some twenty float
+// operations per topic; precise logf and expf are tens of instructions
+// each), so its arithmetic, not the bound, sets its time.
 //
 // What the design does about it (a first, simple kernel).
 //   * One warp per token, four warps a block, as in mhw_fused.cu:

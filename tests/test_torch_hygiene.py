@@ -276,3 +276,76 @@ def test_cuda_tensors_reach_the_pdp_kernels(cuda_device):
     assert float((e != e_ref).float().mean()) <= 0.01
     assert bool(((e >= 0) & (e < 128)).all())
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pdp_sweep_kernel_clamps_counts_above_the_stirling_table(cuda_device):
+    """Kernel 4 on consistent (m, s) statistics far above stirling_n_max
+    (16 here, counts in the hundreds), where m is clamped to hi, s to hi+1
+    in the same-table ratio and to hi in the new-table ratio, and the
+    table's −1e30 entries are reached: its chains agree with the plain
+    version's, at most 1% apart as above.  The plain log factors on
+    the card equal the CPU's at the clamped cells: non-finite entries
+    exactly, the rest within 4 ulp (CUDA's and the CPU's log)."""
+    from repro_torch.kernels import mhw_fused
+
+    v, k, n_max, b, n_pad, steps = 64, 64, 16, 1024, 24, 2
+    rng = np.random.default_rng(4)
+    m = np.floor(rng.gamma(1.0, size=(v, k)) * 400).astype(np.float32)
+    s = np.minimum(np.ceil(m * rng.uniform(0.2, 0.8, size=(v, k))), m)
+    s = np.where(m > 0, np.maximum(s, 1.0), 0.0).astype(np.float32)
+    hi = n_max - 1
+    # The first half of the words keep s within the table, so their
+    # factors stay finite with m clamped; the rest reach the −1e30 entries.
+    s[:v // 2] = np.minimum(s[:v // 2], hi)
+    assert (m > hi).mean() > 0.5 and (s > hi).mean() > 0.25
+    cfg = pdp.PDPConfig(n_topics=k, vocab_size=v, stirling_n_max=n_max)
+    hyper = dict(b=cfg.concentration, a=cfg.discount, gamma=cfg.gamma,
+                 gamma_bar=cfg.gamma * v)
+
+    def on(dev):
+        mt = torch.as_tensor(m, device=dev)
+        st = torch.as_tensor(s, device=dev)
+        return pdp.SharedStats(m_wk=mt, s_wk=st, m_k=mt.sum(0),
+                               s_k=st.sum(0))
+
+    shared = on(cuda_device)
+    stirl = stirling.as_tensor(n_max, cfg.discount, cuda_device)
+    f_card = torch.cat(pdp.log_factors(
+        stirl, shared.m_wk, shared.s_wk, shared.m_k[None, :],
+        shared.s_k[None, :], **hyper), -1).cpu()
+    cpu = on("cpu")
+    f_cpu = torch.cat(pdp.log_factors(
+        stirling.as_tensor(n_max, cfg.discount, "cpu"), cpu.m_wk, cpu.s_wk,
+        cpu.m_k[None, :], cpu.s_k[None, :], **hyper), -1)
+    clamped = torch.as_tensor(np.concatenate([m > hi, m > hi], -1))
+    fin = torch.isfinite(f_cpu)
+    assert torch.equal(f_card[clamped & ~fin], f_cpu[clamped & ~fin])
+    sel = clamped & fin
+    ia = f_card[sel].view(torch.int32).long()
+    ib = f_cpu[sel].view(torch.int32).long()
+    assert int((ia - ib).abs().max()) <= 4
+
+    dp = pdp.dense_probs(cfg, shared)
+    tables = alias.build(dp)
+    prior = torch.full((2 * k,), cfg.alpha, device=cuda_device)
+    rows = np.concatenate([np.sort(rng.integers(0, v, size=b - n_pad)),
+                           np.full(n_pad, v)]).astype(np.int32)
+    e0 = rng.integers(0, 2 * k, size=b).astype(np.int32)
+    ndk = np.floor(rng.gamma(0.5, size=(b, k)) * 2).astype(np.float32)
+    ndk[np.arange(b), e0 % k] += 1.0
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    uni = ops._step_uniforms(gen, 2 * k, steps, b, cuda_device)
+    args = (*tables, dp, *shared, stirl, prior,
+            torch.as_tensor(rows, device=cuda_device),
+            torch.arange(b, dtype=torch.int32, device=cuda_device),
+            torch.as_tensor(e0, device=cuda_device),
+            torch.as_tensor(ndk, device=cuda_device), *uni)
+    _build.reset_launches()
+    e = mhw_fused.pdp_sweep_fused(*args, **hyper)
+    assert _build.LAUNCHES["pdp_sweep_fused"] == 1
+    e_ref = pdp.sorted_chain_pdp(*args, **hyper)
+    assert float((e != e_ref).float().mean()) <= 0.01
+    assert torch.equal(e[-n_pad:].cpu(), torch.as_tensor(e0[-n_pad:]))
+    assert bool(((e >= 0) & (e < 2 * k)).all())
+    torch.cuda.synchronize()
