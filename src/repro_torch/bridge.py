@@ -7,8 +7,9 @@ frozen dataclasses.  Here they arrive as mappings of field name to numpy
 array (``np.asarray`` of each field, e.g. ``ref_nt._asdict()``) or as the
 config object itself, read by field name; nothing of the reference
 package is imported.  Families are told apart by the reference config's
-class name (``LDAConfig`` or ``PDPConfig``); state converters take the
-port's family (or its NamedTuple class), LDA by default.
+class name (``LDAConfig``, ``PDPConfig`` or ``HDPConfig``); state
+converters take the port's family (or its NamedTuple class), LDA by
+default.
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core import lda, pdp
+from repro_torch.core import hdp, lda, pdp
 from repro_torch.core.alias import AliasTable
 from repro_torch.data.segment import SortedLayout
 
 
-CONFIGS = {"LDAConfig": lda.LDAConfig, "PDPConfig": pdp.PDPConfig}
+CONFIGS = {"LDAConfig": lda.LDAConfig, "PDPConfig": pdp.PDPConfig,
+           "HDPConfig": hdp.HDPConfig}
 
 
 def config_from(ref_cfg: Any):

@@ -1,13 +1,13 @@
 """The ``ModelFamily`` protocol and registry (port of
-``repro.core.family``): LDA and PDP.
+``repro.core.family``): LDA, PDP and HDP.
 
 ``ModelFamily.sweep_sorted`` is the chunked sorted sweep: ``sorted_chunks``
 position-chunks in turn, each one launch of the family's fused kernel
 (Jacobi within a chunk), with ``n_dk`` refreshed between chunks
 (Gauss-Seidel across them).  The shared statistics stay the sweep-start
-snapshot throughout.  HDP registers here in a later slice (ROADMAP.md
-queue A.6); it reuses the LM sweep kernel, whose per-topic ``prior``
-vector is there for it.
+snapshot throughout.  LDA and HDP share the LM sweep kernel and differ in
+its per-topic ``prior`` vector (α·1 against b1·θ0); PDP runs the 2K
+joint-outcome kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import alias as alias_mod
-from repro_torch.core import lda, pdp, projection, stirling
+from repro_torch.core import hdp, lda, pdp, projection, stirling
 from repro_torch.data import segment
 from repro_torch.kernels import ops
 
@@ -104,12 +104,24 @@ class ModelFamily:
                                                  self.shared_rules))
 
     def local_project(self, local):
+        """The family's client-local rules (HDP's 1 ≤ m_dk ≤ n_dk) applied
+        to a client's state; the identity when it has none."""
         if not self.local_rules:
             return local
         return self.local_from_dict(projection.project(
             self.local_dict(local), self.local_rules))
 
-    def post_round(self, cfg, locals_: list, shared, key):
+    def count_local_violations(self, local) -> float:
+        """Elementwise violations of the client-local rules (0 when the
+        family has none)."""
+        if not self.local_rules:
+            return 0.0
+        return float(projection.count_violations(self.local_dict(local),
+                                                 self.local_rules))
+
+    def post_round(self, cfg, locals_: list, shared, key: device_mod.Key):
+        """Per-round auxiliary step after the push and the projection
+        (HDP's tables and θ0); the identity by default."""
         return locals_, shared
 
     # ---------------------------------------------- token-sorted fast path
@@ -304,6 +316,71 @@ class LDAFamily(_LMFamilyBase):
         return lda.perplexity(cfg, shared, tokens, mask, key)
 
 
+class HDPFamily(_LMFamilyBase):
+    name = "hdp"
+    config_cls = hdp.HDPConfig
+    shared_cls = hdp.SharedStats
+    local_cls = hdp.LocalState
+    shared_stats = ("n_wk", "n_k", "m_k", "theta0")
+    local_stats = ("z", "n_dk", "m_dk")
+    replicated_stats = ("theta0",)
+    conserved_stats = ("n_wk",)
+    delta_names = ("n_wk",)
+    rules = projection.HDP_RULES
+    aggregates = projection.HDP_AGGREGATES
+
+    def init_state(self, cfg, tokens, mask, key):
+        return hdp.init_state(cfg, tokens, mask, key)
+
+    def dense_probs(self, cfg, shared) -> torch.Tensor:
+        return hdp.dense_probs(cfg, shared)
+
+    def build_alias(self, cfg, shared):
+        return hdp.build_alias(cfg, shared)
+
+    def sparse_prior(self, cfg, shared) -> torch.Tensor:
+        return cfg.b1 * shared.theta0
+
+    def sweep(self, cfg, local, shared, tables, stale, tokens, mask, key, *,
+              method="mhw", layout="sorted", sorted_layouts=None,
+              device=None):
+        local2, dwk, _ = hdp.sweep(cfg, local, shared, tables, stale, tokens,
+                                   mask, key, method=method, layout=layout,
+                                   sorted_layouts=sorted_layouts,
+                                   device=device)
+        return local2, {"n_wk": dwk}
+
+    def apply_delta(self, shared, deltas):
+        n_wk = shared.n_wk + deltas["n_wk"]
+        return hdp.SharedStats(n_wk=n_wk, n_k=n_wk.sum(0), m_k=shared.m_k,
+                               theta0=shared.theta0)
+
+    def finalize_sorted(self, cfg, local, e_grid, n_dk, tokens, mask):
+        dwk = self._delta_wk(cfg, tokens, mask, local.z, e_grid)
+        return (hdp.LocalState(z=e_grid, n_dk=n_dk, m_dk=local.m_dk),
+                {"n_wk": dwk})
+
+    def post_round(self, cfg, locals_, shared, key):
+        """CRT tables per client (client c's stream ``fold_in(key, c)``);
+        m_k sums across clients, then θ0 | m_k (stream
+        ``fold_in(key, 101)``), as the reference keys them."""
+        dev = shared.n_k.device
+        locals_ = list(locals_)
+        m_k_total = None
+        for c, loc in enumerate(locals_):
+            locals_[c], m_k = hdp.resample_tables(
+                cfg, loc, shared,
+                device_mod.generator(device_mod.fold_in(key, c), dev))
+            m_k_total = m_k if m_k_total is None else m_k_total + m_k
+        theta0 = hdp.resample_theta0(
+            cfg, m_k_total,
+            device_mod.generator(device_mod.fold_in(key, 101), dev))
+        return locals_, shared._replace(m_k=m_k_total, theta0=theta0)
+
+    def perplexity(self, cfg, shared, tokens, mask, key) -> float:
+        return hdp.perplexity(cfg, shared, tokens, mask, key)
+
+
 class PDPFamily(ModelFamily):
     name = "pdp"
     config_cls = pdp.PDPConfig
@@ -410,6 +487,7 @@ def register(family: ModelFamily) -> ModelFamily:
 
 register(LDAFamily())
 register(PDPFamily())
+register(HDPFamily())
 
 
 def get(name: str) -> ModelFamily:

@@ -2,10 +2,12 @@
 ``repro.core.lda``), token-sorted layout only.
 
 The dense proposal term α·(n_wk+β)/(n_k+β̄) is built into alias tables by
-kernel 2 (``kernels/alias_build.py``), and each sorted chunk of a sweep is
-one launch of kernel 1 (``kernels/mhw_fused.py``) through
-``core.family.LDAFamily.sweep_sorted``.  The position-scan layout and the
-exact sampler wait for ROADMAP.md queue A.4.
+kernel 2 (``kernels/alias_build.py``), or, with
+``fused_alias_build=True``, computed and built in one launch of kernel 6;
+each sorted chunk of a sweep is one launch of kernel 1
+(``kernels/mhw_fused.py``) through ``core.family.LDAFamily.sweep_sorted``.
+The position-scan layout and the exact sampler wait for ROADMAP.md queue
+A.4.
 
 Sufficient statistics: n_dk (D, K) client-local, n_wk (V, K) and n_k (K,)
 shared through the parameter server; all float32 counts, exact below 2²⁴.
@@ -45,13 +47,6 @@ class LDAConfig:
     tile_k: int | None = None
     sorted_chunks: int = 4
     fused_alias_build: bool = False
-
-    def __post_init__(self):
-        if self.fused_alias_build:
-            raise NotImplementedError(
-                "fused_alias_build=True needs the fused dense-term build "
-                "kernel, not ported yet (ROADMAP.md queue B.6, "
-                "alias_build_fused)")
 
 
 class SharedStats(NamedTuple):
@@ -119,7 +114,15 @@ def dense_probs(cfg: LDAConfig, shared: SharedStats) -> torch.Tensor:
 
 def build_alias(cfg: LDAConfig, shared: SharedStats
                 ) -> tuple[alias_mod.AliasTable, torch.Tensor]:
-    """Alias tables over the dense term (kernel 2) and the term itself."""
+    """Alias tables over the dense term (kernel 2) and the term itself.
+    With ``fused_alias_build`` kernel 6 forms the term α·(n_wk+β) /
+    (n_k+β̄) itself, with the product taken before the division, so its
+    tables and stale matrix differ from the unfused ones in the last
+    place."""
+    if cfg.fused_alias_build:
+        return ops.build_tables_fused_lda(
+            shared.n_wk, shared.n_k, alpha=cfg.alpha, beta=cfg.beta,
+            vocab_size=cfg.vocab_size, device=shared.n_wk.device)
     dp = dense_probs(cfg, shared)
     return ops.build_tables(dp, device=dp.device), dp
 
@@ -158,10 +161,13 @@ def perplexity(cfg: LDAConfig, shared: SharedStats, tokens: torch.Tensor,
 
 def fold_in_perplexity(cfg, phi: torch.Tensor, tokens: torch.Tensor,
                        mask: torch.Tensor, key: device_mod.Key,
-                       n_fold_sweeps: int = 10) -> float:
+                       n_fold_sweeps: int = 10,
+                       prior: torch.Tensor | None = None) -> float:
     """Fold-in held-out perplexity against the frozen (V, K) word rows
-    ``phi``; ``cfg`` gives ``n_topics`` and ``alpha``.  Shared by the
-    families whose evaluation differs only in φ."""
+    ``phi``; ``cfg`` gives ``n_topics``.  The document prior is the scalar
+    ``cfg.alpha`` on every topic, or the per-topic vector ``prior`` (K,)
+    (HDP's b1·θ0), normalised by its sum.  Shared by the families whose
+    evaluation differs only in φ and the prior."""
     dev = tokens.device
     d, l = tokens.shape
     gen = device_mod.generator(key, dev)
@@ -175,14 +181,19 @@ def fold_in_perplexity(cfg, phi: torch.Tensor, tokens: torch.Tensor,
         for i in range(l):
             w, m = tokens[:, i].long(), mask_f[:, i]
             n_dk[docs, z[:, i]] -= m
-            logits = torch.log(n_dk + cfg.alpha) + log_phi[w]
+            logits = torch.log(n_dk + (cfg.alpha if prior is None
+                                        else prior[None, :])) + log_phi[w]
             u = torch.rand(logits.shape, generator=gen, device=dev)
             z_new = torch.argmax(logits - torch.log(-torch.log(u + 1e-20)
                                                     + 1e-20), dim=-1)
             z[:, i] = torch.where(mask[:, i], z_new, z[:, i])
             n_dk[docs, z[:, i]] += m
-    theta = (n_dk + cfg.alpha) / (n_dk.sum(-1, keepdim=True)
-                                  + cfg.alpha * cfg.n_topics)
+    if prior is None:
+        theta = (n_dk + cfg.alpha) / (n_dk.sum(-1, keepdim=True)
+                                      + cfg.alpha * cfg.n_topics)
+    else:
+        theta = (n_dk + prior[None, :]) / (n_dk.sum(-1, keepdim=True)
+                                           + prior.sum())
     pw = torch.einsum("dk,dlk->dl", theta, phi[tokens.long()])
     logp = torch.where(mask, torch.log(pw + 1e-30), 0.0)
     return float(torch.exp(-logp.sum() / mask.sum().clamp_min(1)))

@@ -100,3 +100,11 @@ PDP_AGGREGATES = (
 
 LDA_RULES = (Rule("nonneg", "n_wk"),)
 LDA_AGGREGATES = (Aggregate("n_wk", "n_k", 0),)
+
+HDP_RULES = (
+    Rule("nonneg", "n_wk"),
+    Rule("nonneg", "m_dk"),
+    Rule("pos_link", "m_dk", "n_dk"),   # n_dk>0 => m_dk>=1 ; n_dk=0 => m_dk=0
+    Rule("le", "m_dk", "n_dk"),         # tables <= customers
+)
+HDP_AGGREGATES = (Aggregate("n_wk", "n_k", 0),)

@@ -24,8 +24,9 @@ import torch
 
 Key = tuple[int, ...]
 
-# Purposes of the streams a run draws (second element of every key).
-INIT, SWEEP, EVAL = 0, 1, 2
+# Purposes of the streams a run draws (second element of every key): AUX
+# keys the per-round auxiliary step (HDP's table counts and θ0).
+INIT, SWEEP, EVAL, AUX = 0, 1, 2, 3
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:

@@ -10,7 +10,9 @@ PyTorch runs it op by op, and each sorted chunk is one kernel launch.
 RNG: the reference keys sweep s of client c in round r with
 ``fold_in(key, r*131 + c*17 + s)`` and chunk ch with a further
 ``fold_in(·, ch)``.  The port keys the same stream by the tuple
-(seed, SWEEP, r, c, s, ch) (see :mod:`repro_torch.device`).
+(seed, SWEEP, r, c, s, ch) (see :mod:`repro_torch.device`).  The
+family's auxiliary step (``post_round``, HDP's CRT tables and θ0) is
+keyed (seed, AUX, r), the reference's ``fold_in(key, 9000 + r)``.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def run_round(server, model_cfg, rcfg: RoundConfig, incremental: bool,
     state = server.project(state, do_project)
     new_locals, dense = fam.post_round(model_cfg, new_locals,
                                        server.assemble(state),
-                                       (seed, r))
+                                       (seed, device_mod.AUX, r))
     state = server.load_dense(state, dense)
     state = state._replace(cache=cache, cache_version=version)
     if incremental:

@@ -1,13 +1,15 @@
 """``Trainer``: the driver loop (port of ``repro.engine.trainer``) for
-in-process training of any registered family (LDA, PDP) on the
+in-process training of any registered family (LDA, PDP, HDP) on the
 token-sorted layout under BSP.
 
-Each round: (alias maintenance) → pull → sample → filter → push →
-project, through :func:`repro_torch.engine.round.run_round`.  Alias
-tables are rebuilt in full every ``alias_refresh_every`` rounds (kernel
-2), or, in incremental mode (``alias_rebuild_threshold`` set), only the
-drifted rows at the end of every round (kernel 3 for LDA, kernel 5 for
-PDP), with a full rebuild every ``alias_full_rebuild_every`` rounds.
+Each round: (alias maintenance) → pull → sample → client-local rules →
+filter → push → project → family auxiliaries (HDP's tables and θ0),
+through :func:`repro_torch.engine.round.run_round`.  Alias tables are
+rebuilt in full every ``alias_refresh_every`` rounds (kernel 2, or kernel
+6 for ``LDAConfig(fused_alias_build=True)``), or, in incremental mode
+(``alias_rebuild_threshold`` set), only the drifted rows at the end of
+every round (kernel 3 for LDA and HDP, kernel 5 for PDP), with a full
+rebuild every ``alias_full_rebuild_every`` rounds.
 
 The trainer runs on ``cuda`` unless ``device="cpu"`` is passed
 (:mod:`repro_torch.device`).  RNG: the trainer's ``seed`` heads every
@@ -165,6 +167,9 @@ class Trainer:
         self._rcfg = round_mod.RoundConfig.from_trainer(config)
 
     def _merge_shared(self, acc, sh):
+        """Sum the clients' initial statistics, as the reference does:
+        replicated ones (HDP's θ0) come from client 0 alone, although
+        HDP's m_k is summed over clients."""
         fam = self.family
         a, b = fam.stats_dict(acc), fam.stats_dict(sh)
         return fam.shared_from_dict({

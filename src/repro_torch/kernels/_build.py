@@ -51,6 +51,10 @@ SIGNATURES = {
     "mhw_sweep_fused": ("mhw_fused", [P] * 17 + [I, I, L, I, F, F, P]),
     "pdp_sweep_fused": ("pdp_fused",
                         [P] * 20 + [I, I, L, I, I, F, F, F, F, P]),
+    "alias_build_fused": ("alias_build", [P, P, I, I, F, F, F, P, P, P, P]),
+    "alias_sample": ("alias_sample", [P] * 5 + [L, I, I, P, P]),
+    "alias_sample_sorted": ("alias_sample", [P] * 5 + [L, I, I, P, P]),
+    "mh_accept": ("mh_accept", [P] * 7 + [L, P, P]),
 }
 
 

@@ -10,6 +10,10 @@
   of a compacted block of gathered changed rows (PDP's incremental
   rebuild).  It takes any number of rows, so it needs no padding to a
   row tile.
+* :func:`alias_build_fused` replaces
+  ``repro/kernels/alias_build.py::alias_build_fused`` (kernel 6), the full
+  LDA build that forms the dense term α·(n_wk+β)/(n_k+β̄) itself
+  (``LDAConfig(fused_alias_build=True)``).
 
 All take CUDA tensors only and never fall back to the plain versions
 (``core/alias.py::build``, ``kernels/ref.py``); ``kernels/ops.py`` routes
@@ -86,3 +90,22 @@ def alias_build_gather_fused(n_wk: torch.Tensor, n_k: torch.Tensor,
            prob.data_ptr(), alias.data_ptr(), mass.data_ptr(),
            dense.data_ptr())
     return prob, alias, mass, dense
+
+
+def alias_build_fused(n_wk: torch.Tensor, n_k: torch.Tensor, *,
+                      alpha: float, beta: float, beta_bar: float):
+    """Tables of the rows of (α·(n_wk+β))/(n_k+β̄), formed in the kernel:
+    n_wk (V, K) f32, n_k (K,) f32 → (prob, alias, mass)."""
+    if n_wk.dim() != 2:
+        raise ValueError(f"n_wk must be (V, K), got {tuple(n_wk.shape)}")
+    v, k = n_wk.shape
+    _check("n_wk", n_wk, torch.float32)
+    _check("n_k", n_k, torch.float32, (k,))
+    dev = n_wk.device
+    prob = torch.empty((v, k), dtype=torch.float32, device=dev)
+    alias = torch.empty((v, k), dtype=torch.int32, device=dev)
+    mass = torch.empty((v,), dtype=torch.float32, device=dev)
+    launch("alias_build_fused", n_wk.data_ptr(), n_k.data_ptr(), v, k,
+           alpha, beta, beta_bar, prob.data_ptr(), alias.data_ptr(),
+           mass.data_ptr())
+    return prob, alias, mass

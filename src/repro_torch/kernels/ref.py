@@ -1,11 +1,11 @@
-"""Plain PyTorch version of the gather build, kernel 3 (port of part of
+"""Plain PyTorch versions of kernels 3, 6, 7, 8 and 9 (port of part of
 ``repro.kernels.ref``).
 
-The plain versions of kernels 1 and 2 are ``core.mhw.sorted_chain`` and
-``core.alias.build``; this module holds only what computes something of
-its own.  The CPU path of ``ops.build_tables_gather_fused`` runs it, and
-``chip_smoke.py`` compares the kernel with it on the card.  Nothing on the
-main path calls it when a card is present.
+The plain versions of kernels 1, 2, 4 and 5 are ``core.mhw.sorted_chain``,
+``core.alias.build`` and ``core.pdp.sorted_chain_pdp``; this module holds
+only what computes something of its own.  The CPU paths of the ``ops``
+wrappers run it, and ``chip_smoke.py`` compares the kernels with it on the
+card.  Nothing calls it when a card is present.
 """
 
 from __future__ import annotations
@@ -31,3 +31,46 @@ def alias_build_gather_fused_ref(n_wk, n_k, prior, rows, *, beta: float,
                              beta_bar=beta_bar)
     t = alias_mod.build(dense)
     return t.prob, t.alias, t.mass, dense
+
+
+def fused_dense_ref(n_wk, n_k, *, alpha: float, beta: float,
+                    vocab_size: int) -> torch.Tensor:
+    """α·(n_wk+β)/(n_k+β̄) with the product taken first, the grouping of
+    the fused build (kernel 6); not ``lda.dense_probs``'s
+    α·((n_wk+β)/(n_k+β̄)), so the two differ in the last place."""
+    return alpha * (n_wk + beta) / (n_k[None, :] + beta * vocab_size)
+
+
+def alias_build_fused_ref(n_wk, n_k, *, alpha: float, beta: float,
+                          vocab_size: int):
+    """(prob, alias, mass) of the fused dense term: plain version of
+    kernel 6."""
+    t = alias_mod.build(fused_dense_ref(n_wk, n_k, alpha=alpha, beta=beta,
+                                        vocab_size=vocab_size))
+    return t.prob, t.alias, t.mass
+
+
+def alias_sample_ref(prob, alias, rows, slot, coin) -> torch.Tensor:
+    """Alias draws with given uniforms: ``slot`` if ``coin < prob[row,
+    slot]``, else ``alias[row, slot]``; 0 for rows outside [0, V) (the
+    padding sentinels).  Plain version of kernels 7 and 8."""
+    v = prob.shape[0]
+    inside = (rows >= 0) & (rows < v)
+    r = torch.where(inside, rows, 0).long()
+    s = slot.long()
+    draw = torch.where(coin < prob[r, s], slot, alias[r, s])
+    return torch.where(inside, draw, 0).to(torch.int32)
+
+
+# The sorted stream's draws are the same function; its tile window only
+# skipped work on the TPU.
+alias_sample_sorted_ref = alias_sample_ref
+
+
+def mh_accept_ref(z, cand, log_p_z, log_p_cand, log_q_z, log_q_cand,
+                  u) -> torch.Tensor:
+    """MH accept step (paper eq. 7) with given uniforms: plain version of
+    kernel 9."""
+    log_ratio = log_p_cand - log_p_z + log_q_z - log_q_cand
+    accept = torch.log(u + 1e-30) < log_ratio
+    return torch.where(accept, cand, z).to(torch.int32)

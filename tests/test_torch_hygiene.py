@@ -19,9 +19,9 @@ import pytest
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core import alias, family, lda, mhw, pdp, stirling
+from repro_torch.core import alias, family, hdp, lda, mhw, pdp, stirling
 from repro_torch.engine import Trainer, TrainerConfig
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -48,7 +48,8 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"trainer.py", "family.py", "ops.py", "chip_smoke.py",
-            "alias_build.py", "mhw_fused.py", "pdp.py", "stirling.py"} <= names
+            "alias_build.py", "mhw_fused.py", "pdp.py", "stirling.py",
+            "hdp.py", "alias_sample.py", "mh_accept.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -98,6 +99,22 @@ def test_pdp_trainer_requires_card_unless_cpu_asked(monkeypatch):
         alias_rebuild_rows=4), device="cpu")
     tr.step()
     assert tr.consistency_error() == 0.0
+
+
+def test_hdp_trainer_requires_card_unless_cpu_asked(monkeypatch):
+    _no_card(monkeypatch)
+    _, tokens, mask = _small()
+    cfg = hdp.HDPConfig(n_topics=4, vocab_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, tokens, mask,
+                config=TrainerConfig(layout="sorted", n_clients=2))
+    tr = Trainer(cfg, tokens, mask, config=TrainerConfig(
+        layout="sorted", n_clients=2, alias_rebuild_threshold=0.0,
+        alias_rebuild_rows=4), device="cpu")
+    tr.step()
+    assert tr.consistency_error() == 0.0
+    assert sum(tr.family.count_local_violations(loc)
+               for loc in tr.locals_) == 0.0
 
 
 def test_family_sweep_requires_card_unless_cpu_asked(monkeypatch):
@@ -159,6 +176,40 @@ def test_pdp_ops_require_card_unless_cpu_asked(call, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         fns[call]()
     fns[call](device="cpu")
+
+
+def _draw_ops(dev="cpu"):
+    """The four entry points of kernels 6-9 on small inputs on ``dev``."""
+    n_wk = torch.arange(48, dtype=torch.float32, device=dev).reshape(16, 3)
+    n_k = n_wk.sum(0)
+    tables = alias.build(torch.rand(16, 3).to(dev))
+    rows = torch.tensor([0, 3, 3, 15, 16, 16, 16, 16], dtype=torch.int32,
+                        device=dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    z = torch.zeros(8, dtype=torch.int32, device=dev)
+    lp = torch.zeros(8, device=dev)
+    return {
+        "fused": lambda **kw: ops.build_tables_fused_lda(
+            n_wk, n_k, alpha=0.1, beta=0.01, vocab_size=16, **kw),
+        "sample_rows": lambda **kw: ops.sample_rows(
+            tables, rows, torch.Generator(), **kw),
+        "sample_rows_sorted": lambda **kw: ops.sample_rows_sorted(
+            tables, rows, one, one, torch.Generator(), tile_b=8, **kw),
+        "mh_accept": lambda **kw: ops.mh_accept(
+            z, z + 1, lp, lp, lp, lp, torch.Generator(), **kw)}
+
+
+@pytest.mark.parametrize("call", ["fused", "sample_rows",
+                                  "sample_rows_sorted", "mh_accept"])
+def test_draw_and_fused_ops_require_card_unless_cpu_asked(call,
+                                                          monkeypatch):
+    _no_card(monkeypatch)
+    fns = _draw_ops()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    fns[call](device="cpu")
+    with pytest.raises(ValueError, match="runs on"):
+        _draw_ops("meta")[call](device="cpu")
 
 
 def test_ops_reject_tensors_on_another_device():
@@ -348,4 +399,99 @@ def test_pdp_sweep_kernel_clamps_counts_above_the_stirling_table(cuda_device):
     assert float((e != e_ref).float().mean()) <= 0.01
     assert torch.equal(e[-n_pad:].cpu(), torch.as_tensor(e0[-n_pad:]))
     assert bool(((e >= 0) & (e < 2 * k)).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_reach_kernels_6_to_9(cuda_device):
+    """Kernels 6-9 on the card: each wrapper launches its kernel once and
+    agrees with its plain version on the same inputs: the fused build's
+    tables bit-equal (row masses summed in the same order) and its stale
+    matrix equal to the wrapper's formula; the draws equal, sentinels 0;
+    the accept step equal (CUDA's logf is the one torch.log calls)."""
+    v, k = 512, 64
+    rng = np.random.default_rng(5)
+    n_wk = torch.as_tensor(np.floor(rng.gamma(0.4, size=(v, k)) * 3),
+                           dtype=torch.float32, device=cuda_device)
+    n_k = n_wk.sum(0)
+    _build.reset_launches()
+    tables, stale = ops.build_tables_fused_lda(
+        n_wk, n_k, alpha=0.1, beta=0.01, vocab_size=v, device=cuda_device)
+    assert _build.LAUNCHES["alias_build_fused"] == 1
+    want = ref.alias_build_fused_ref(n_wk, n_k, alpha=0.1, beta=0.01,
+                                     vocab_size=v)
+    for a, b in zip(tables, want):
+        assert torch.equal(a, b)
+    assert torch.equal(stale, ref.fused_dense_ref(
+        n_wk, n_k, alpha=0.1, beta=0.01, vocab_size=v))
+
+    b, n_pad = 4096, 300
+    rows = torch.as_tensor(np.concatenate([
+        np.sort(rng.integers(0, v, size=b - n_pad)), np.full(n_pad, v)]),
+        dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    slot = torch.randint(0, k, (b,), generator=gen, device=cuda_device,
+                         dtype=torch.int32)
+    coin = torch.rand(b, generator=gen, device=cuda_device)
+    nb = torch.zeros(b // 1024, dtype=torch.int32, device=cuda_device)
+    drawn = ops.sample_rows_sorted(tables, rows, nb, nb, uniforms=(
+        slot, coin), device=cuda_device)
+    assert _build.LAUNCHES["alias_sample_sorted"] == 1
+    assert torch.equal(drawn, ref.alias_sample_sorted_ref(
+        tables.prob, tables.alias, rows, slot, coin))
+    assert bool((drawn[-n_pad:] == 0).all())
+    perm = torch.randperm(b, generator=gen, device=cuda_device)
+    shuffled = ops.sample_rows(tables, rows[perm], uniforms=(
+        slot[perm], coin[perm]), device=cuda_device)
+    assert _build.LAUNCHES["alias_sample"] == 1
+    assert torch.equal(shuffled, drawn[perm])
+
+    z = torch.randint(0, k, (b,), generator=gen, device=cuda_device,
+                      dtype=torch.int32)
+    r = rows.clamp_max(v - 1).long()
+    lps = (torch.log(stale[r, slot.long()]), torch.log(stale[r, z.long()]),
+           torch.log(tables.prob[r, slot.long()]),
+           torch.log(tables.prob[r, z.long()]))
+    u = torch.rand(b, generator=gen, device=cuda_device)
+    out = ops.mh_accept(z, slot, lps[1], lps[0], lps[3], lps[2], u=u,
+                        device=cuda_device)
+    assert _build.LAUNCHES["mh_accept"] == 1
+    assert torch.equal(out, ref.mh_accept_ref(z, slot, lps[1], lps[0],
+                                              lps[3], lps[2], u))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_with_a_non_uniform_prior(cuda_device):
+    """Kernel 1 with HDP's prior b1·θ0 (a Dirichlet draw, entries orders of
+    magnitude apart) agrees with its plain version except where the
+    block-parallel cdf rounds across a step (at most 1% of chains)."""
+    cfg = hdp.HDPConfig(n_topics=64, vocab_size=512, b1=2.0)
+    rng = np.random.default_rng(6)
+    tokens = torch.as_tensor(rng.integers(0, 512, size=(64, 32)),
+                             dtype=torch.int32, device=cuda_device)
+    mask = torch.ones_like(tokens, dtype=torch.bool)
+    fam = family.get("hdp")
+    local, shared = fam.init_state(cfg, tokens, mask, (0,))
+    theta0 = torch.as_tensor(rng.dirichlet(np.full(64, 0.2)),
+                             dtype=torch.float32, device=cuda_device)
+    shared = shared._replace(theta0=theta0)
+    tables, dp = fam.build_alias(cfg, shared)
+    prior = fam.sparse_prior(cfg, shared)
+    assert float(prior.max() / prior.min()) > 100
+    lay = fam.build_sorted_layouts(cfg, tokens, mask)[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    uni = ops._step_uniforms(gen, 64, 2, lay.rows.shape[0], cuda_device)
+    z0 = torch.zeros_like(lay.rows)
+    hyper = dict(beta=cfg.beta, beta_bar=cfg.beta * cfg.vocab_size)
+    _build.reset_launches()
+    z = ops.mhw_sweep_sorted(tables, dp, shared.n_wk, shared.n_k, prior,
+                             lay.rows, lay.docs, z0, local.n_dk, None,
+                             mh_steps=2, uniforms=uni, device=cuda_device,
+                             **hyper)
+    assert _build.LAUNCHES["mhw_sweep_fused"] == 1
+    z_ref = mhw.sorted_chain(*tables, dp, shared.n_wk, shared.n_k, prior,
+                             lay.rows, lay.docs, z0, local.n_dk, *uni,
+                             **hyper)
+    assert float((z != z_ref).float().mean()) <= 0.01
     torch.cuda.synchronize()

@@ -26,7 +26,7 @@ from repro.data.synthetic import CorpusConfig, make_topic_corpus
 from repro.engine import Trainer as RefTrainer
 from repro.engine import TrainerConfig as RefTrainerConfig
 from repro_torch import bridge
-from repro_torch.core import projection
+from repro_torch.core import lda, projection
 from repro_torch.kernels import _build
 from repro_torch.engine import Trainer, TrainerConfig
 
@@ -102,9 +102,28 @@ def test_trainer_rejects_unported_options(field, value, corpus):
 
 
 def test_fused_alias_build_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="B.6"):
-        bridge.config_from(ref_lda.LDAConfig(n_topics=4, vocab_size=8,
-                                             fused_alias_build=True))
+    """LDAConfig(fused_alias_build=True), ROADMAP.md queue B.6, bridges and
+    builds through the fused build (kernel 6; its plain version here):
+    against the reference's build_alias on the same statistics the stale
+    matrix, the masses and every alias entry are equal, and prob is within
+    4·K·2⁻²⁴ (``tests/test_torch_kernels.py`` says why it is not equal)."""
+    rcfg = ref_lda.LDAConfig(n_topics=4, vocab_size=8, fused_alias_build=True)
+    cfg = bridge.config_from(rcfg)
+    assert cfg.fused_alias_build
+    assert bridge.config_to(cfg, ref_lda.LDAConfig) == rcfg
+    n_wk = np.random.default_rng(1).integers(0, 5, size=(8, 4)).astype(
+        np.float32)
+    want_t, want_stale = ref_lda.build_alias(rcfg, ref_lda.SharedStats(
+        n_wk=jax.numpy.asarray(n_wk), n_k=jax.numpy.asarray(n_wk.sum(0))))
+    got_t, got_stale = lda.build_alias(cfg, lda.SharedStats(
+        n_wk=torch.as_tensor(n_wk), n_k=torch.as_tensor(n_wk.sum(0))))
+    np.testing.assert_array_equal(got_stale.numpy(), np.asarray(want_stale))
+    np.testing.assert_array_equal(got_t.mass.numpy(),
+                                  np.asarray(want_t.mass))
+    np.testing.assert_array_equal(got_t.alias.numpy(),
+                                  np.asarray(want_t.alias))
+    np.testing.assert_allclose(got_t.prob.numpy(), np.asarray(want_t.prob),
+                               rtol=0, atol=4 * 4 * 2.0 ** -24)
 
 
 def test_bridge_round_trip(corpus):
