@@ -13,7 +13,12 @@ Phases; any failure raises and the script exits non-zero:
    main path's shapes, built from the full-size corpus's own statistics:
    alias build (V=131072, K=1024), gather build (R=4096 rows) and the
    sweep (a 262,144-token slice of a real chunk), each timed with CUDA
-   events beside its plain version and its bounds.
+   events beside its plain version and its bounds; the sweep also on the
+   whole chunk (2,097,152 positions, the launch the main path runs) with
+   and without its MH steps, beside its bound on that launch, the chunk's
+   figures (non-zero topics per document, tokens per word, longest run)
+   and the dense design's time; and the document-list build that each
+   sweep launch runs first, against its plain version on a client's n_dk.
 4. LDA training at full size: K=1024 over V=131072 on ~12.6M tokens, two
    clients, BSP, 4 rounds with full alias rebuilds then 3 rounds of
    incremental rebuilds.  After every round: consistency_error() == 0.0,
@@ -24,7 +29,7 @@ Phases; any failure raises and the script exits non-zero:
    (bit-equal to its plain version and to the full build's rows), and the
    PDP sweep on a 131,072-token slice of client 0's first chunk, once
    with the main path's Stirling table and once with a table small enough
-   that its clamps bind.
+   that its clamps bind; and on the whole chunk as in phase 3.
 6. PDP training at full size: PDPConfig(n_topics=1024, vocab_size=131072)
    at its defaults, two clients, BSP, 3 cadence rounds then 3 incremental
    rounds, with the checks of phase 4 under the PDP rules.
@@ -75,20 +80,34 @@ DIST_ABS, DIST_REL = 2e-6, 1e-4  # encoded distribution vs p/Σp
 # Operations of the PDP sweep, each log and exp counted as one (which
 # understates them: CUDA's precise logf and expf are tens of
 # instructions).  The log factors of a (word, topic) cell depend on the
-# token only at the token's own topic, so the work the function needs is:
-# per distinct word of the slice and topic, the CRP repair (3), the
-# occupancy term (2), four logs and their argument adds (8), four clamps
-# (8), two Stirling differences (2), the sums of the two factors (9) and
-# two exps (2);
+# token only at the token's own topic, and those of a cell with m_wk = 0
+# on its topic alone, so the work the function needs is: per (word, topic)
+# cell with m_wk > 0 of the words touched, and once per topic for the empty
+# cells, the CRP repair (3), the occupancy term (2), four logs and their
+# argument adds (8), four clamps (8), two Stirling differences (2), the
+# sums of the two factors (9) and two exps (2);
 PDP_WORD_OPS = 34
 # per topic, once: log(b + m_k), log(b + a·s_k), log(γ̄ + s_k) (7);
 PDP_TOPIC_OPS = 7
-# per real token and topic: two document-factor products, two cdf adds and
-# one compare per outcome and MH step (4 + 2·mh_steps);
+# per real token at its document's non-zero topics and its own (a zero
+# count gives an exact zero weight): two document-factor products, two cdf
+# adds and one compare per outcome and MH step (4 + 2·mh_steps);
 # per real token: the own topic's factors again with the own counts
 # removed (4 + 34 + 7), log p and log q at the initial state (9), and at
 # each MH step those of the candidate and the accept (14).
 PDP_TOKEN_OPS, PDP_STEP_OPS = 54, 14
+# Kernel 1's function: per distinct word and topic the LM entry (two adds,
+# a division); per token at its document's non-zero topics and its own,
+# the weight and its cdf add, and a compare per MH step; per token the own
+# topic's entry (5), log p and log q at the initial state (12), and at
+# each MH step the dense draw's compare, the mixture pick (3), log p and
+# log q of the candidate (12) and the accept (5).
+LM_ROW_OPS, LM_TOKEN_OPS, LM_STEP_OPS = 3, 17, 21
+# Full-chunk times of kernels 1 and 4 in their dense design (one warp a
+# token, every topic), from this script's run before the sparse redesign
+# on another call and card (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel
+# table), printed beside this run's for reference, not compared in one call.
+DENSE_FULL_CHUNK_MS = {"mhw_sweep_fused": 8.53, "pdp_sweep_fused": 34.53}
 
 
 def card_line() -> str:
@@ -253,6 +272,132 @@ def sweep_bytes(rows, docs, slot, v, k, e_out, steps, row_stats):
     return sum(parts.values()), parts, n_real, u_rows
 
 
+def visited_topics(rows, docs, n_dk, v: int) -> int:
+    """Σ over the real tokens of k_d + 1: the document's non-zero topics
+    and the token's own, the topics whose weights the function needs."""
+    real = rows < v
+    k_d = (n_dk != 0).sum(1)
+    return int((k_d[docs[real].long()] + 1).sum())
+
+
+def lm_sweep_ops(rows, docs, n_dk, v: int, k: int, steps: int) -> dict:
+    """Operations of kernel 1's function on one launch (see LM_ROW_OPS)."""
+    real = rows < v
+    n_real = int(real.sum())
+    u_rows = int(torch.unique(rows[real]).numel())
+    return {"word_rows": u_rows * k * LM_ROW_OPS,
+            "token_weights": visited_topics(rows, docs, n_dk, v)
+            * (2 + steps),
+            "token_points": n_real * (LM_TOKEN_OPS + LM_STEP_OPS * steps)}
+
+
+def pdp_sweep_ops(rows, docs, n_dk, m_wk, v: int, k: int,
+                  steps: int) -> dict:
+    """Operations of kernel 4's function on one launch (see PDP_WORD_OPS)."""
+    real = rows < v
+    n_real = int(real.sum())
+    words = torch.unique(rows[real].long())
+    nnz = sum(int((m_wk[words[i:i + 8192]] != 0).sum())
+              for i in range(0, words.numel(), 8192))
+    return {"word_factors": nnz * PDP_WORD_OPS,
+            "empty_cells": k * PDP_WORD_OPS,
+            "topic_terms": k * PDP_TOPIC_OPS,
+            "token_outcomes": visited_topics(rows, docs, n_dk, v) * 2
+            * (2 + steps),
+            "token_points": n_real * (PDP_TOKEN_OPS + PDP_STEP_OPS * steps)}
+
+
+def chunk_figures(rows, docs, n_dk, v: int, tile: int = 128) -> dict:
+    """What sizes the sparse sweeps' work on one chunk: non-zero topics per
+    document (k_d) over the chunk's documents, real tokens per distinct
+    word, the longest run of one word, and (tile of 128 positions, word)
+    segments, each of which builds its word's factors once."""
+    real = rows < v
+    _, runs = torch.unique_consecutive(rows[real], return_counts=True)
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    starts = real & ((pos % tile == 0)
+                     | torch.cat([real[:1], rows[1:] != rows[:-1]]))
+    k_d = (n_dk[torch.unique(docs[real].long())] != 0).sum(1).float()
+    n_real = int(real.sum())
+    return {"positions": int(rows.shape[0]), "real_tokens": n_real,
+            "distinct_words": int(runs.numel()),
+            "tokens_per_word": n_real / max(1, int(runs.numel())),
+            "longest_run": int(runs.max()), "tile_word_segments":
+            int(starts.sum()), "k_d_mean": float(k_d.mean()),
+            "k_d_max": int(k_d.max())}
+
+
+def full_chunk(name, run, gen, dev, e_out, steps, b, bytes_full, ops_full,
+               figures, label) -> dict:
+    """A sweep kernel on a full chunk of ``b`` positions with S = mh_steps
+    uniform rows and with S = 0 (the step loop does not run), beside its
+    bound on that launch and the dense design's time."""
+    from repro_torch.kernels import ops
+
+    ms_s = {}
+    for s in (steps, 0):
+        uni = ops._step_uniforms(gen, e_out, s, b, dev)
+        ms_s[s] = time_ms(lambda: run(uni), 5)
+    nbytes, nops = sum(bytes_full.values()), sum(ops_full.values())
+    b_full, by_full = bound(nbytes, nops)
+    print(f"SWEEP {name}{label} full chunk ({b} positions): "
+          f"{ms_s[steps]:.3f} ms with S={steps}, {ms_s[0]:.3f} ms with S=0; "
+          f"bound {b_full:.4f} ms ({by_full}); dense design "
+          f"{DENSE_FULL_CHUNK_MS[name]} ms (an earlier run, on another call "
+          f"and card); chunk {json.dumps(figures)}", flush=True)
+    return {"full_chunk_tokens": b, "full_chunk_ms": ms_s[steps],
+            "full_chunk_ms_S0": ms_s[0],
+            "full_chunk_bound_ms": b_full, "full_chunk_bound_by": by_full,
+            "full_chunk_bound_bytes_ms": bound(nbytes, 0)[0],
+            "full_chunk_bound_ops_ms": bound(0, nops)[0],
+            "full_chunk_bytes": nbytes, "full_chunk_bytes_parts": bytes_full,
+            "full_chunk_ops": nops, "full_chunk_ops_parts": ops_full,
+            "chunk": figures,
+            "dense_design_full_chunk_ms": DENSE_FULL_CHUNK_MS[name],
+            "dense_design_note": "this script's run before the sparse "
+                                 "redesign, on another call and card"}
+
+
+def doc_list_kernel(n_dk) -> dict:
+    """The document-list build that kernels 1 and 4 launch first, against
+    its plain version on a client's (D, K) n_dk: the bitmaps and prefix
+    counts equal, and the counts equal up to each document's k_d (the
+    kernel leaves the rest unwritten)."""
+    from repro_torch.kernels import doc_topics, ref
+
+    words, counts = doc_topics.doc_topic_lists(n_dk)
+    want_w, want_c = ref.doc_topic_lists_ref(n_dk)
+    d, k = n_dk.shape
+    k_d = want_w[:, -1, 1].long()
+    valid = torch.arange(k, device=n_dk.device)[None, :] < k_d[:, None]
+    if not (torch.equal(words, want_w)
+            and torch.equal(counts[valid], want_c[valid])):
+        raise AssertionError(
+            f"doc_topic_lists: {int((words != want_w).sum())} words and "
+            f"{int((counts[valid] != want_c[valid]).sum())} counts differ "
+            "from plain")
+    del words, counts, want_w, want_c, valid
+    ms = time_ms(lambda: doc_topics.doc_topic_lists(n_dk), 20)
+    plain = time_ms(lambda: ref.doc_topic_lists_ref(n_dk), 3)
+    parts = {"n_dk": d * k * 4, "words": d * ref.doc_words(k) * 8,
+             "counts": int(k_d.sum()) * 2}
+    nbytes = sum(parts.values())
+    b, by = bound(nbytes, 0)
+    entry = {
+        "name": "doc_topic_lists", "route": "cuda",
+        "source": "src/repro_torch/csrc/doc_topics.cu",
+        "replaces": "src/repro/kernels/mhw_fused.py:153",
+        "replaces_note": "no TPU kernel of its own: the lists of each "
+                         "document's non-zero topics that kernels 1 and 4 "
+                         "(mhw_fused.py:153, :322) read in place of n_dk rows",
+        "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+        "library_ms": None, "bytes": nbytes, "bytes_parts": parts,
+        "docs": d, "k_d_mean": float(k_d.float().mean()),
+        "k_d_max": int(k_d.max()), "max_abs_err": 0}
+    print(f"KERNEL doc_topic_lists {json.dumps(entry)}", flush=True)
+    return entry
+
+
 def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
     """Kernels 2, 3 and 1 against their plain versions on an LM family's
     dense term ``dp`` with its per-topic ``prior``: LDA's α·1 (phase 3) or
@@ -348,7 +493,8 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
     # plain version sums the whole row left to right
     # (core/mhw.sequential_cumsum); so a target within rounding of a cdf
     # step can land one topic apart (and the chain then continues from
-    # another state), as can log() near an accept tie.
+    # another state), as can log() near an accept tie.  The kernel skips
+    # only exact zeros, which change no sum.
     if not mismatch <= SWEEP_MISMATCH_TOL:
         raise AssertionError(f"sweep{label}: {mismatch:.3g} of chains "
                              f"differ (> {SWEEP_MISMATCH_TOL})")
@@ -356,28 +502,40 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
                                               beta_bar=beta_bar), 10)
     plain1 = time_ms(lambda: mhw.sorted_chain(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 3)
-    bytes1, parts1, n_real, _ = sweep_bytes(rows1, docs1, uni[0], v, k, k,
-                                            cfg.mh_steps, 1)
-    ops1 = n_real * k * 8
+    steps = cfg.mh_steps
+    bytes1, parts1, _, _ = sweep_bytes(rows1, docs1, uni[0], v, k, k, steps,
+                                       1)
+    ops_parts1 = lm_sweep_ops(rows1, docs1, n_dk, v, k, steps)
+    ops1 = sum(ops_parts1.values())
     b1, by1 = bound(bytes1, ops1)
+    # The launch the main path runs: the whole chunk.
     full_b = lay.rows.shape[0]
-    full_real = int((lay.rows < v).sum())
-    uni_full = ops._step_uniforms(gen, k, cfg.mh_steps, full_b, dev)
-    ms1_full = time_ms(lambda: kmf.mhw_sweep_fused(
-        prob, alias, mass, dp, shared.n_wk, shared.n_k, prior, lay.rows,
-        lay.docs, e_s, n_dk, *uni_full, beta=cfg.beta,
-        beta_bar=beta_bar), 5)
+    uni_full = ops._step_uniforms(gen, k, steps, full_b, dev)
+    parts_full = sweep_bytes(lay.rows, lay.docs, uni_full[0], v, k, k, steps,
+                             1)[1]
+    del uni_full
+    full = full_chunk(
+        "mhw_sweep_fused", lambda u: kmf.mhw_sweep_fused(
+            prob, alias, mass, dp, shared.n_wk, shared.n_k, prior, lay.rows,
+            lay.docs, e_s, n_dk, *u, beta=cfg.beta, beta_bar=beta_bar),
+        gen, dev, k, steps, full_b, parts_full,
+        lm_sweep_ops(lay.rows, lay.docs, n_dk, v, k, steps),
+        chunk_figures(lay.rows, lay.docs, n_dk, v), label)
     report.append({
         "name": "mhw_sweep_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/mhw_fused.cu",
         "replaces": "src/repro/kernels/mhw_fused.py:153",
         "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
+        "bound_bytes_ms": bound(bytes1, 0)[0],
+        "bound_ops_ms": bound(0, ops1)[0], "ops": ops1,
+        "ops_parts": ops_parts1,
+        "ops_note": "per distinct word the LM row, per token its document's "
+                    "non-zero topics and its own; each division counted as "
+                    "one",
         "library_ms": None, "tokens": SWEEP_SLICE,
         "mismatch_rate": mismatch,
         "max_abs_err": int((z_kernel - z_plain).abs().max()),
-        "bytes": bytes1, "bytes_parts": parts1,
-        "full_chunk_tokens": full_b, "full_chunk_real_tokens": full_real,
-        "full_chunk_ms": ms1_full})
+        "bytes": bytes1, "bytes_parts": parts1, **full})
     print(f"KERNEL mhw_sweep_fused{label} {json.dumps(report[-1])}",
           flush=True)
     return report
@@ -521,24 +679,28 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
     ms4 = time_ms(lambda: kmf.pdp_sweep_fused(*args4, **hyper), 10)
     plain4 = time_ms(lambda: pdp.sorted_chain_pdp(*args4, **hyper), 2)
     torch.cuda.empty_cache()
-    bytes4, parts4, n_real, u_rows = sweep_bytes(rows4, docs4, uni[0], v, k,
+    bytes4, parts4, _, _ = sweep_bytes(rows4, docs4, uni[0], v, k,
                                                  e_out, cfg.mh_steps, 2)
     stirl_bytes = stirl.numel() * 4
     bytes4 += stirl_bytes
     parts4["stirling_table"] = stirl_bytes
     steps = cfg.mh_steps
-    ops_parts4 = {"word_factors": u_rows * k * PDP_WORD_OPS,
-                  "topic_terms": k * PDP_TOPIC_OPS,
-                  "token_outcomes": n_real * k * (4 + 2 * steps),
-                  "token_points": n_real * (PDP_TOKEN_OPS
-                                            + PDP_STEP_OPS * steps)}
+    ops_parts4 = pdp_sweep_ops(rows4, docs4, n_dk, shared.m_wk, v, k, steps)
     ops4 = sum(ops_parts4.values())
     b4, by4 = bound(bytes4, ops4)
+    # The launch the main path runs: the whole chunk.
     full_b = lay.rows.shape[0]
-    full_real = int((lay.rows < v).sum())
-    uni_full = ops._step_uniforms(gen, e_out, cfg.mh_steps, full_b, dev)
-    ms4_full = time_ms(lambda: kmf.pdp_sweep_fused(
-        *tabs, lay.rows, lay.docs, e_s, n_dk, *uni_full, **hyper), 5)
+    uni_full = ops._step_uniforms(gen, e_out, steps, full_b, dev)
+    parts_full = sweep_bytes(lay.rows, lay.docs, uni_full[0], v, k, e_out,
+                             steps, 2)[1]
+    parts_full["stirling_table"] = stirl_bytes
+    del uni_full
+    full = full_chunk(
+        "pdp_sweep_fused", lambda u: kmf.pdp_sweep_fused(
+            *tabs, lay.rows, lay.docs, e_s, n_dk, *u, **hyper),
+        gen, dev, e_out, steps, full_b, parts_full,
+        pdp_sweep_ops(lay.rows, lay.docs, n_dk, shared.m_wk, v, k, steps),
+        chunk_figures(lay.rows, lay.docs, n_dk, v), "")
     report.append({
         "name": "pdp_sweep_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/pdp_fused.cu",
@@ -547,15 +709,15 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
         "bound_bytes_ms": bound(bytes4, 0)[0],
         "bound_ops_ms": bound(0, ops4)[0], "ops": ops4,
         "ops_parts": ops_parts4,
-        "ops_note": "the word factors once per distinct word of the slice; "
+        "ops_note": "the word factors once per non-zero (word, topic) cell "
+                    "of the slice and once per topic for the empty cells; "
+                    "per token its document's non-zero topics and its own; "
                     "each log and exp counted as one",
         "library_ms": None, "tokens": PDP_SWEEP_SLICE,
         "mismatch_rate": mismatch, "moved_share": moved,
         "clamp_check": clamp,
         "max_abs_err": max_err4,
-        "bytes": bytes4, "bytes_parts": parts4,
-        "full_chunk_tokens": full_b, "full_chunk_real_tokens": full_real,
-        "full_chunk_ms": ms4_full})
+        "bytes": bytes4, "bytes_parts": parts4, **full})
     print(f"KERNEL pdp_sweep_fused {json.dumps(report[-1])}", flush=True)
     return report
 
@@ -877,6 +1039,7 @@ def main() -> int:
     prior = torch.full((k,), cfg.alpha, dtype=torch.float32, device=dev)
     report = lm_kernels(dev, tr, cfg, ccfg, lda.dense_probs(cfg, shared),
                         prior, rows3)
+    report.append(doc_list_kernel(tr.locals_[0].n_dk))
     del shared
     first = {"cadence": tr}
     del tr
@@ -895,6 +1058,7 @@ def main() -> int:
                                                  ("incremental", tc_inc, 3)),
                                     tokens, mask, ho, dev, first,
                                     {"sweep": "mhw_sweep_fused",
+                                     "lists": "doc_topic_lists",
                                      "full": "alias_build",
                                      "rows": "alias_build_gather_fused"},
                                     note)
@@ -922,6 +1086,7 @@ def main() -> int:
                                            ("incremental", tc_inc, 3)),
                              tokens, mask, ho, dev, first,
                              {"sweep": "pdp_sweep_fused",
+                              "lists": "doc_topic_lists",
                               "full": "alias_build",
                               "rows": "alias_build_rows"}, note)
     phase("pdp-train", t)
@@ -973,8 +1138,8 @@ def main() -> int:
     counts["hdp"], peak_hdp = train(
         "hdp", hcfg, (("cadence", tc_cad, 5), ("incremental", tc_inc, 5)),
         tokens, mask, ho_hdp, dev, first,
-        {"sweep": "mhw_sweep_fused", "full": "alias_build",
-         "rows": "alias_build_gather_fused"}, note)
+        {"sweep": "mhw_sweep_fused", "lists": "doc_topic_lists",
+         "full": "alias_build", "rows": "alias_build_gather_fused"}, note)
     print(f"MEMORY hdp peak minus lda peak {peak_hdp - peak_lda:+.2f} GiB")
     phase("hdp-train", t)
 
@@ -988,7 +1153,8 @@ def main() -> int:
     counts["lda-fused"], _ = train(
         "lda-fused", fcfg, (("cadence", tc_cad, 3),), tokens, mask, ho,
         dev, {"cadence": tr},
-        {"sweep": "mhw_sweep_fused", "full": "alias_build_fused"}, note)
+        {"sweep": "mhw_sweep_fused", "lists": "doc_topic_lists",
+         "full": "alias_build_fused"}, note)
     phase("lda-fused", t)
 
     # --------------------------------------------------------- phase 10

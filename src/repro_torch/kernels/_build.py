@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, ``build/kernels/<name>-<hash>.so`` at the
-root of the checkout (the hash is of the source and the flags, so an
-edited source is rebuilt).  All sources compile at once, one ``nvcc``
-process each.  Nothing is built when a module is imported: the first
-kernel launch, or an explicit :func:`build_all`, builds.
+root of the checkout (the hash is of the source, the shared ``*.cuh``
+headers and the flags, so an edited source or header is rebuilt).  All
+sources compile at once, one ``nvcc`` process each.  Nothing is built when
+a module is imported: the first kernel launch, or an explicit
+:func:`build_all`, builds.
 
 The libraries are loaded with ``ctypes``.  Each wrapper passes tensor
 pointers and PyTorch's current stream as ``c_void_p`` and raises if the C
@@ -48,9 +49,10 @@ SIGNATURES = {
     "alias_build_rows": ("alias_build", [P, I, I, P, P, P, P]),
     "alias_build_gather_fused": ("alias_build",
                                  [P, P, P, P, I, I, F, F, P, P, P, P, P]),
-    "mhw_sweep_fused": ("mhw_fused", [P] * 17 + [I, I, L, I, F, F, P]),
+    "mhw_sweep_fused": ("mhw_fused", [P] * 19 + [I, I, L, I, F, F, P]),
     "pdp_sweep_fused": ("pdp_fused",
-                        [P] * 20 + [I, I, L, I, I, F, F, F, F, P]),
+                        [P] * 23 + [I, I, L, I, I, F, F, F, F, P]),
+    "doc_topic_lists": ("doc_topics", [P, I, I, P, P, P]),
     "alias_build_fused": ("alias_build", [P, P, I, I, F, F, F, P, P, P, P]),
     "alias_sample": ("alias_sample", [P] * 5 + [L, I, I, P, P]),
     "alias_sample_sorted": ("alias_sample", [P] * 5 + [L, I, I, P, P]),
@@ -71,7 +73,8 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 

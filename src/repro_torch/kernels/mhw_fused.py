@@ -8,8 +8,11 @@
   chain over the 2K joint (topic, table) outcomes.
 
 Unlike the TPU kernels they take the (D, K) ``n_dk`` matrix and the
-per-token ``docs`` vector and read each token's document row in place;
-the function computed is the same.  CUDA tensors only; ``kernels/ops.py``
+per-token ``docs`` vector; the function computed is the same.  Each
+wrapper first launches ``kernels/doc_topics.py::doc_topic_lists`` on
+``n_dk`` (each document's non-zero topics and counts, which the sweep
+reads in place of the dense rows), then the sweep, both on the current
+stream and without a host sync.  CUDA tensors only; ``kernels/ops.py``
 routes CPU tensors to the plain versions (``core.mhw.sorted_chain``,
 ``core.pdp.sorted_chain_pdp``).
 """
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.kernels._build import launch
 from repro_torch.kernels.alias_build import _check
+from repro_torch.kernels.doc_topics import doc_topic_lists
 
 
 def mhw_sweep_fused(prob, alias, mass, stale, n_wk, n_k, prior, rows, docs,
@@ -53,11 +57,12 @@ def mhw_sweep_fused(prob, alias, mass, stale, n_wk, n_k, prior, rows, docs,
         _check(name, t, dt, shape)
     if n_dk.dim() != 2 or n_dk.shape[1] != k:
         raise ValueError(f"n_dk must be (D, {k}), got {tuple(n_dk.shape)}")
+    words, counts = doc_topic_lists(n_dk)
     out = torch.empty((b,), dtype=torch.int32, device=prob.device)
     launch("mhw_sweep_fused", *(t.data_ptr() for t in (
         prob, alias, mass, stale, n_wk, n_k, prior, rows, docs, z0, n_dk,
-        slot, coin, u_mix, u_sparse, u_acc, out)), v, k, b, s, beta,
-        beta_bar)
+        words, counts, slot, coin, u_mix, u_sparse, u_acc, out)), v, k, b,
+        s, beta, beta_bar)
     return out
 
 
@@ -101,9 +106,13 @@ def pdp_sweep_fused(prob, alias, mass, stale, m_wk, s_wk, m_k, s_k, stirl,
         raise ValueError(f"stirl must be at least 2x2, got {n}x{n}")
     if n_dk.dim() != 2 or n_dk.shape[1] != k:
         raise ValueError(f"n_dk must be (D, {k}), got {tuple(n_dk.shape)}")
+    words, counts = doc_topic_lists(n_dk)
+    # The factors of an empty (word, topic) cell, one set per topic.
+    topic_scratch = torch.empty((4 * k,), dtype=torch.float32,
+                                device=m_wk.device)
     out = torch.empty((b_total,), dtype=torch.int32, device=m_wk.device)
     launch("pdp_sweep_fused", *(t.data_ptr() for t in (
         prob, alias, mass, stale, m_wk, s_wk, m_k, s_k, stirl, prior, rows,
-        docs, e0, n_dk, slot, coin, u_mix, u_sparse, u_acc, out)), v, k,
-        b_total, s, n, b, a, gamma, gamma_bar)
+        docs, e0, n_dk, words, counts, topic_scratch, slot, coin, u_mix,
+        u_sparse, u_acc, out)), v, k, b_total, s, n, b, a, gamma, gamma_bar)
     return out

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of kernels 3, 6, 7, 8 and 9 (port of part of
-``repro.kernels.ref``).
+``repro.kernels.ref``), and of the document-list build that the sweep
+kernels 1 and 4 run first (``csrc/doc_topics.cu``).
 
 The plain versions of kernels 1, 2, 4 and 5 are ``core.mhw.sorted_chain``,
 ``core.alias.build`` and ``core.pdp.sorted_chain_pdp``; this module holds
@@ -74,3 +75,40 @@ def mh_accept_ref(z, cand, log_p_z, log_p_cand, log_q_z, log_q_cand,
     log_ratio = log_p_cand - log_p_z + log_q_z - log_q_cand
     accept = torch.log(u + 1e-30) < log_ratio
     return torch.where(accept, cand, z).to(torch.int32)
+
+
+def doc_words(k: int) -> int:
+    """Words of a document's topic bitmap: ceil(K/32) and a pad word."""
+    return (k + 31) // 32 + 1
+
+
+def doc_topic_lists_ref(n_dk: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-document lists of the non-zero topics of (D, K) ``n_dk``: plain
+    version of ``csrc/doc_topics.cu``.
+
+    Returns ``words`` (D, W, 2) int32 with W = :func:`doc_words`: word j's
+    bit i is ``n_dk[d, 32j + i] != 0`` and its second entry the number of
+    such topics below 32j (the last word has no bits and holds k_d); and
+    ``counts`` (D, K) int16 holding u16 bits: the q-th non-zero count in
+    topic order when it is an integer in [0, 65535), else 0xffff.  Entries
+    from k_d on are 0 here; the kernel leaves them unwritten."""
+    d, k = n_dk.shape
+    n_words = doc_words(k)
+    dev = n_dk.device
+    nz = torch.zeros((d, n_words * 32), dtype=torch.bool, device=dev)
+    nz[:, :k] = n_dk != 0
+    bit = nz.view(d, n_words, 32).to(torch.int64)
+    bits = (bit << torch.arange(32, device=dev)).sum(-1)
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    pop = bit.sum(-1)
+    words = torch.stack([bits, torch.cumsum(pop, 1) - pop], -1)
+    ok = (n_dk >= 0) & (n_dk < 65535) & (n_dk == torch.trunc(n_dk))
+    enc = torch.where(ok, n_dk, 65535.0).to(torch.int64)
+    enc = torch.where(enc >= 2**15, enc - 2**16, enc)
+    nzk = nz[:, :k]
+    counts = torch.zeros((d, k), dtype=torch.int16, device=dev)
+    slot = torch.cumsum(nzk.to(torch.int64), 1) - 1
+    doc = torch.arange(d, device=dev)[:, None].expand(d, k)
+    counts[doc[nzk], slot[nzk]] = enc[nzk].to(torch.int16)
+    return words.to(torch.int32), counts
