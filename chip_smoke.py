@@ -96,17 +96,19 @@ PDP_TOPIC_OPS = 7
 # removed (4 + 34 + 7), log p and log q at the initial state (9), and at
 # each MH step those of the candidate and the accept (14).
 PDP_TOKEN_OPS, PDP_STEP_OPS = 54, 14
-# Kernel 1's function: per distinct word and topic the LM entry (two adds,
-# a division); per token at its document's non-zero topics and its own,
-# the weight and its cdf add, and a compare per MH step; per token the own
-# topic's entry (5), log p and log q at the initial state (12), and at
-# each MH step the dense draw's compare, the mixture pick (3), log p and
-# log q of the candidate (12) and the accept (5).
+# Kernel 1's function: per (word, topic) cell it needs (``lm_word_cells``)
+# the LM entry (two adds, a division); per token at its document's non-zero
+# topics and its own, the weight and its cdf add, and a compare per MH
+# step; per token the own topic's entry (5), log p and log q at the
+# initial state (12), and at each MH step the dense draw's compare, the
+# mixture pick (3), log p and log q of the candidate (12) and the accept
+# (5).
 LM_ROW_OPS, LM_TOKEN_OPS, LM_STEP_OPS = 3, 17, 21
 # Full-chunk times of kernels 1 and 4 in their dense design (one warp a
 # token, every topic), from this script's run before the sparse redesign
 # on another call and card (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel
-# table), printed beside this run's for reference, not compared in one call.
+# table), printed on the SWEEP lines beside this run's for reference, not
+# compared in one call and kept out of the kernels JSON.
 DENSE_FULL_CHUNK_MS = {"mhw_sweep_fused": 8.53, "pdp_sweep_fused": 34.53}
 
 
@@ -245,16 +247,18 @@ def held_out_docs(phi: np.ndarray, n_docs: int, doc_len: int, seed: int):
     return tokens, mask
 
 
-def sweep_bytes(rows, docs, slot, v, k, e_out, steps, row_stats):
-    """What a sweep must move for one slice: the full (V, K) rows of each
-    word it touches (``row_stats`` of them) and the n_dk row of each
-    document; prob and alias at the distinct (word, slot) entries its
-    draws name; stale at the initial state and at each step's candidate
-    (counted per read, at most (1 + mh_steps)·4 B a token); the per-topic
-    aggregates and the prior; mass once per word; rows, the initial state
-    and the result for every position; docs and the five uniform streams
-    for real tokens only (padding exits before reading them).  Returns
-    (total, parts, real tokens, distinct words)."""
+def sweep_bytes(rows, docs, slot, v, k, e_out, steps, word_cells,
+                topic_stats):
+    """What a sweep must move for one launch: the ``word_cells`` 4-byte
+    cells of the word statistics that its function needs (see
+    ``lm_word_cells`` and ``pdp_word_cells``) and the n_dk row of each
+    document; prob and alias at the distinct (word, slot) entries its draws
+    name; stale at the initial state and at each step's candidate (counted
+    per read, at most (1 + mh_steps)·4 B a token); the ``topic_stats``
+    per-topic aggregates and the prior; mass once per word; rows, the
+    initial state and the result for every position; docs and the five
+    uniform streams for real tokens only (padding exits before reading
+    them).  Returns (total, parts)."""
     real = rows < v
     n_real = int(real.sum())
     r_real = rows[real].long()
@@ -262,14 +266,45 @@ def sweep_bytes(rows, docs, slot, v, k, e_out, steps, row_stats):
     u_docs = int(torch.unique(docs[real]).numel())
     u_slots = int(torch.unique(r_real * e_out + slot[:, real].long()).numel())
     b = rows.shape[0]
-    parts = {"word_rows": u_rows * k * 4 * row_stats,
+    parts = {"word_cells": word_cells * 4,
              "n_dk_rows": u_docs * k * 4,
              "prob_alias_points": u_slots * 8,
              "stale_points": (1 + steps) * n_real * 4,
-             "aggregates_prior_mass": (row_stats * k + e_out) * 4
+             "aggregates_prior_mass": (topic_stats * k + e_out) * 4
              + u_rows * 4,
              "streams": b * 12 + n_real * 4 + steps * n_real * 20}
-    return sum(parts.values()), parts, n_real, u_rows
+    return sum(parts.values()), parts
+
+
+def lm_word_cells(rows, docs, z0, n_dk, v: int) -> int:
+    """The n_wk cells kernel 1's function needs: per distinct word, each
+    topic that is non-zero in one of its tokens' documents or is one of its
+    tokens' own.  Elsewhere the weight n_dk·lm is an exact zero (lm is
+    finite), so no other cell is read for the cdf; the MH candidates'
+    cells outside these are not counted."""
+    real = rows < v
+    words, w_of = torch.unique(rows[real].long(), return_inverse=True)
+    n_docs = n_dk.shape[0]
+    pairs = torch.unique(w_of * n_docs + docs[real].long())
+    incidence = torch.sparse_coo_tensor(
+        torch.stack([pairs // n_docs, pairs % n_docs]),
+        torch.ones(pairs.numel(), device=rows.device),
+        (words.numel(), n_docs), check_invariants=True)
+    cover = torch.sparse.mm(incidence, (n_dk != 0).float()) > 0
+    cover[w_of, z0[real].long()] = True
+    return int(cover.sum())
+
+
+def pdp_word_cells(rows, m_wk, v: int) -> tuple[int, int]:
+    """The m_wk and s_wk cells kernel 4's function needs: the whole m_wk
+    row of each word it touches (a factor that is not finite makes a NaN
+    weight even where n_dk is 0, so every cell is looked at), and s_wk at
+    its non-zero m_wk cells only (the CRP repair gives s = 0 where m = 0).
+    Returns (m_wk cells, s_wk cells)."""
+    words = torch.unique(rows[rows < v].long())
+    nnz = sum(int((m_wk[words[i:i + 8192]] != 0).sum())
+              for i in range(0, words.numel(), 8192))
+    return words.numel() * m_wk.shape[1], nnz
 
 
 def visited_topics(rows, docs, n_dk, v: int) -> int:
@@ -280,25 +315,21 @@ def visited_topics(rows, docs, n_dk, v: int) -> int:
     return int((k_d[docs[real].long()] + 1).sum())
 
 
-def lm_sweep_ops(rows, docs, n_dk, v: int, k: int, steps: int) -> dict:
-    """Operations of kernel 1's function on one launch (see LM_ROW_OPS)."""
-    real = rows < v
-    n_real = int(real.sum())
-    u_rows = int(torch.unique(rows[real]).numel())
-    return {"word_rows": u_rows * k * LM_ROW_OPS,
+def lm_sweep_ops(rows, docs, n_dk, v: int, cells: int, steps: int) -> dict:
+    """Operations of kernel 1's function on one launch, with ``cells`` from
+    ``lm_word_cells`` (see LM_ROW_OPS)."""
+    n_real = int((rows < v).sum())
+    return {"word_cells": cells * LM_ROW_OPS,
             "token_weights": visited_topics(rows, docs, n_dk, v)
             * (2 + steps),
             "token_points": n_real * (LM_TOKEN_OPS + LM_STEP_OPS * steps)}
 
 
-def pdp_sweep_ops(rows, docs, n_dk, m_wk, v: int, k: int,
+def pdp_sweep_ops(rows, docs, n_dk, v: int, k: int, nnz: int,
                   steps: int) -> dict:
-    """Operations of kernel 4's function on one launch (see PDP_WORD_OPS)."""
-    real = rows < v
-    n_real = int(real.sum())
-    words = torch.unique(rows[real].long())
-    nnz = sum(int((m_wk[words[i:i + 8192]] != 0).sum())
-              for i in range(0, words.numel(), 8192))
+    """Operations of kernel 4's function on one launch, with ``nnz`` the
+    non-zero m_wk cells of the words it touches (see PDP_WORD_OPS)."""
+    n_real = int((rows < v).sum())
     return {"word_factors": nnz * PDP_WORD_OPS,
             "empty_cells": k * PDP_WORD_OPS,
             "topic_terms": k * PDP_TOPIC_OPS,
@@ -327,17 +358,25 @@ def chunk_figures(rows, docs, n_dk, v: int, tile: int = 128) -> dict:
             "k_d_max": int(k_d.max())}
 
 
-def full_chunk(name, run, gen, dev, e_out, steps, b, bytes_full, ops_full,
-               figures, label) -> dict:
-    """A sweep kernel on a full chunk of ``b`` positions with S = mh_steps
-    uniform rows and with S = 0 (the step loop does not run), beside its
-    bound on that launch and the dense design's time."""
+def split_ms(run, gen, dev, e_out: int, steps: int, b: int) -> dict:
+    """Milliseconds of a sweep launch ``run(uniforms)`` on ``b`` positions
+    with S = ``steps`` uniform rows and with S = 0, where the MH step loop
+    does not run: the difference is the steps' share."""
     from repro_torch.kernels import ops
 
     ms_s = {}
     for s in (steps, 0):
         uni = ops._step_uniforms(gen, e_out, s, b, dev)
         ms_s[s] = time_ms(lambda: run(uni), 5)
+    return ms_s
+
+
+def full_chunk(name, run, gen, dev, e_out, steps, b, bytes_full, ops_full,
+               figures, label) -> dict:
+    """A sweep kernel on a full chunk of ``b`` positions with and without
+    its MH steps (``split_ms``), beside its bound on that launch; the
+    dense design's time is printed, not returned."""
+    ms_s = split_ms(run, gen, dev, e_out, steps, b)
     nbytes, nops = sum(bytes_full.values()), sum(ops_full.values())
     b_full, by_full = bound(nbytes, nops)
     print(f"SWEEP {name}{label} full chunk ({b} positions): "
@@ -352,10 +391,7 @@ def full_chunk(name, run, gen, dev, e_out, steps, b, bytes_full, ops_full,
             "full_chunk_bound_ops_ms": bound(0, nops)[0],
             "full_chunk_bytes": nbytes, "full_chunk_bytes_parts": bytes_full,
             "full_chunk_ops": nops, "full_chunk_ops_parts": ops_full,
-            "chunk": figures,
-            "dense_design_full_chunk_ms": DENSE_FULL_CHUNK_MS[name],
-            "dense_design_note": "this script's run before the sparse "
-                                 "redesign, on another call and card"}
+            "chunk": figures}
 
 
 def doc_list_kernel(n_dk) -> dict:
@@ -386,7 +422,7 @@ def doc_list_kernel(n_dk) -> dict:
     entry = {
         "name": "doc_topic_lists", "route": "cuda",
         "source": "src/repro_torch/csrc/doc_topics.cu",
-        "replaces": "src/repro/kernels/mhw_fused.py:153",
+        "replaces": None,
         "replaces_note": "no TPU kernel of its own: the lists of each "
                          "document's non-zero topics that kernels 1 and 4 "
                          "(mhw_fused.py:153, :322) read in place of n_dk rows",
@@ -503,23 +539,25 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
     plain1 = time_ms(lambda: mhw.sorted_chain(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 3)
     steps = cfg.mh_steps
-    bytes1, parts1, _, _ = sweep_bytes(rows1, docs1, uni[0], v, k, k, steps,
-                                       1)
-    ops_parts1 = lm_sweep_ops(rows1, docs1, n_dk, v, k, steps)
+    cells1 = lm_word_cells(rows1, docs1, z01, n_dk, v)
+    bytes1, parts1 = sweep_bytes(rows1, docs1, uni[0], v, k, k, steps,
+                                 cells1, 1)
+    ops_parts1 = lm_sweep_ops(rows1, docs1, n_dk, v, cells1, steps)
     ops1 = sum(ops_parts1.values())
     b1, by1 = bound(bytes1, ops1)
     # The launch the main path runs: the whole chunk.
     full_b = lay.rows.shape[0]
     uni_full = ops._step_uniforms(gen, k, steps, full_b, dev)
+    cells_full = lm_word_cells(lay.rows, lay.docs, e_s, n_dk, v)
     parts_full = sweep_bytes(lay.rows, lay.docs, uni_full[0], v, k, k, steps,
-                             1)[1]
+                             cells_full, 1)[1]
     del uni_full
     full = full_chunk(
         "mhw_sweep_fused", lambda u: kmf.mhw_sweep_fused(
             prob, alias, mass, dp, shared.n_wk, shared.n_k, prior, lay.rows,
             lay.docs, e_s, n_dk, *u, beta=cfg.beta, beta_bar=beta_bar),
         gen, dev, k, steps, full_b, parts_full,
-        lm_sweep_ops(lay.rows, lay.docs, n_dk, v, k, steps),
+        lm_sweep_ops(lay.rows, lay.docs, n_dk, v, cells_full, steps),
         chunk_figures(lay.rows, lay.docs, n_dk, v), label)
     report.append({
         "name": "mhw_sweep_fused", "route": "cuda",
@@ -529,10 +567,11 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
         "bound_bytes_ms": bound(bytes1, 0)[0],
         "bound_ops_ms": bound(0, ops1)[0], "ops": ops1,
         "ops_parts": ops_parts1,
-        "ops_note": "per distinct word the LM row, per token its document's "
-                    "non-zero topics and its own; each division counted as "
-                    "one",
+        "ops_note": "the LM entry at each (word, topic) cell that a token "
+                    "of the word weighs; per token its document's non-zero "
+                    "topics and its own; each division counted as one",
         "library_ms": None, "tokens": SWEEP_SLICE,
+        "n_wk_cells": cells1, "full_chunk_n_wk_cells": cells_full,
         "mismatch_rate": mismatch,
         "max_abs_err": int((z_kernel - z_plain).abs().max()),
         "bytes": bytes1, "bytes_parts": parts1, **full})
@@ -679,27 +718,29 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
     ms4 = time_ms(lambda: kmf.pdp_sweep_fused(*args4, **hyper), 10)
     plain4 = time_ms(lambda: pdp.sorted_chain_pdp(*args4, **hyper), 2)
     torch.cuda.empty_cache()
-    bytes4, parts4, _, _ = sweep_bytes(rows4, docs4, uni[0], v, k,
-                                                 e_out, cfg.mh_steps, 2)
+    steps = cfg.mh_steps
+    m_cells, nnz4 = pdp_word_cells(rows4, shared.m_wk, v)
+    bytes4, parts4 = sweep_bytes(rows4, docs4, uni[0], v, k, e_out, steps,
+                                 m_cells + nnz4, 2)
     stirl_bytes = stirl.numel() * 4
     bytes4 += stirl_bytes
     parts4["stirling_table"] = stirl_bytes
-    steps = cfg.mh_steps
-    ops_parts4 = pdp_sweep_ops(rows4, docs4, n_dk, shared.m_wk, v, k, steps)
+    ops_parts4 = pdp_sweep_ops(rows4, docs4, n_dk, v, k, nnz4, steps)
     ops4 = sum(ops_parts4.values())
     b4, by4 = bound(bytes4, ops4)
     # The launch the main path runs: the whole chunk.
     full_b = lay.rows.shape[0]
     uni_full = ops._step_uniforms(gen, e_out, steps, full_b, dev)
+    m_full, nnz_full = pdp_word_cells(lay.rows, shared.m_wk, v)
     parts_full = sweep_bytes(lay.rows, lay.docs, uni_full[0], v, k, e_out,
-                             steps, 2)[1]
+                             steps, m_full + nnz_full, 2)[1]
     parts_full["stirling_table"] = stirl_bytes
     del uni_full
     full = full_chunk(
         "pdp_sweep_fused", lambda u: kmf.pdp_sweep_fused(
             *tabs, lay.rows, lay.docs, e_s, n_dk, *u, **hyper),
         gen, dev, e_out, steps, full_b, parts_full,
-        pdp_sweep_ops(lay.rows, lay.docs, n_dk, shared.m_wk, v, k, steps),
+        pdp_sweep_ops(lay.rows, lay.docs, n_dk, v, k, nnz_full, steps),
         chunk_figures(lay.rows, lay.docs, n_dk, v), "")
     report.append({
         "name": "pdp_sweep_fused", "route": "cuda",
@@ -714,6 +755,8 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
                     "per token its document's non-zero topics and its own; "
                     "each log and exp counted as one",
         "library_ms": None, "tokens": PDP_SWEEP_SLICE,
+        "m_wk_cells": m_cells, "s_wk_cells": nnz4,
+        "full_chunk_m_wk_cells": m_full, "full_chunk_s_wk_cells": nnz_full,
         "mismatch_rate": mismatch, "moved_share": moved,
         "clamp_check": clamp,
         "max_abs_err": max_err4,

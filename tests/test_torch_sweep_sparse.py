@@ -43,10 +43,12 @@ LAYOUTS = ["mixed", "single_topic_doc", "own_count_one", "padding_inside",
 
 
 # ------------------------------------------------------------------ cases
-def _layout(kind: str, rng, k: int):
+def _layout(kind: str, rng, k: int, n_docs: int = 12):
     """(v, per-token words, docs, topics) of a chunk, in sorted order, with
-    rows ≥ v as padding."""
-    n_docs, per_doc = 12, 8
+    rows ≥ v as padding; past one kernel tile (128 positions for kernel 1,
+    256 for kernel 4), ``padding_inside`` also pads the two positions
+    around every multiple of 128."""
+    per_doc = 8
     v = 256 if kind == "singletons" else 40
     b = n_docs * per_doc
     docs = np.repeat(np.arange(n_docs), per_doc)
@@ -66,6 +68,7 @@ def _layout(kind: str, rng, k: int):
     words, docs, z = words[order], docs[order], z[order]
     if kind == "padding_inside":
         pad = rng.random(b) < 0.15
+        pad[127::128] = pad[128::128] = True
         words = np.where(pad, v, words)
     return v, words.astype(np.int32), docs.astype(np.int32), z
 
@@ -91,14 +94,15 @@ def _uniforms(rng, e_out, steps, b):
 
 
 def lm_case(kind: str, prior_kind: str, seed: int = 0, k: int = 16,
-            dense: bool = False):
-    """Arguments of ``mhw.sorted_chain`` for one layout, and its keywords;
-    ``dense`` gives every document every topic."""
+            dense: bool = False, n_docs: int = 12):
+    """Arguments of ``mhw.sorted_chain`` for one layout of ``n_docs``
+    documents of 8 tokens, and its keywords; ``dense`` gives every document
+    every topic."""
     rng = np.random.default_rng(seed + 17 * LAYOUTS.index(kind))
     steps = 3
-    v, rows, docs, z = _layout(kind, rng, k)
+    v, rows, docs, z = _layout(kind, rng, k, n_docs)
     real = rows < v
-    n_dk = _doc_counts(docs, z, real, 12, k, rng,
+    n_dk = _doc_counts(docs, z, real, n_docs, k, rng,
                        extra=kind != "single_topic_doc", dense=dense)
     n_wk = rng.poisson(0.7, size=(v, k)).astype(np.float32)
     np.add.at(n_wk, (rows[real], z[real]), 1.0)
@@ -121,15 +125,15 @@ def lm_case(kind: str, prior_kind: str, seed: int = 0, k: int = 16,
 
 
 def pdp_case(kind: str, n_max: int, seed: int = 0, k: int = 16,
-             dense: bool = False):
+             dense: bool = False, n_docs: int = 12):
     """Arguments of ``pdp.sorted_chain_pdp`` for one layout (consistent
     m/s counts with the CRP repair), and its keywords."""
     rng = np.random.default_rng(seed + 31 * LAYOUTS.index(kind))
     steps = 3
-    v, rows, docs, z = _layout(kind, rng, k)
+    v, rows, docs, z = _layout(kind, rng, k, n_docs)
     real = rows < v
     r = (rng.random(rows.shape[0]) < 0.5).astype(np.int64)
-    n_dk = _doc_counts(docs, z, real, 12, k, rng,
+    n_dk = _doc_counts(docs, z, real, n_docs, k, rng,
                        extra=kind != "single_topic_doc", dense=dense)
     m = np.floor(rng.gamma(0.3, size=(v, k)) * 12).astype(np.float32)
     s = np.floor(m * rng.uniform(0.1, 0.9, size=(v, k)))
@@ -437,6 +441,35 @@ def test_kernels_with_more_visited_topics_than_the_warp_keeps(family,
     got = fn(*_on(args, cuda_device), **kw).cpu()
     assert float((got != want).float().mean()) <= 0.01
     assert bool((got != args[9 if family != "pdp" else 12]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one_word", "padding_inside", "mixed"])
+@pytest.mark.parametrize("family", ["lda", "hdp", "pdp"])
+def test_kernels_on_runs_across_tiles(family, kind, cuda_device):
+    """640 positions (80 documents): a word's run crosses the kernels'
+    tiles (five of 128 positions for kernel 1, three blocks of 256 for
+    kernel 4), so a tile starts inside a run and rebuilds its factors,
+    and with ``padding_inside`` a padding segment sits at every tile
+    boundary; the chains agree with plain as above."""
+    from repro_torch.kernels import mhw_fused
+    if family == "pdp":
+        args, kw = pdp_case(kind, 64, n_docs=80)
+        want = pdp.sorted_chain_pdp(*args, **kw)
+        fn, rows, e0 = mhw_fused.pdp_sweep_fused, args[10], args[12]
+    else:
+        args, kw = lm_case(kind, family, n_docs=80)
+        want = mhw.sorted_chain(*args, **kw)
+        fn, rows, e0 = mhw_fused.mhw_sweep_fused, args[7], args[9]
+    real = (rows < args[4].shape[0]).numpy()
+    assert rows.shape[0] == 640
+    if kind == "padding_inside":
+        assert not real[[127, 128, 255, 256, 383, 384]].any()
+    else:                   # the first word's run crosses 128 and 256
+        assert real.all() and bool((rows[:257] == rows[0]).all())
+    got = fn(*_on(args, cuda_device), **kw).cpu()
+    assert float((got != want).float().mean()) <= 0.01
+    assert bool((got != e0).any())
 
 
 @pytest.mark.cuda

@@ -11,71 +11,36 @@ on one card.  Each root runs in a process of its own (the package names
 collide): it builds that checkout's kernels, makes chip_smoke.py's corpus
 (K=1024, V=131072, 65,536 documents of 256 tokens), sets up the LDA and
 then the PDP trainer (two clients, BSP) at their initial state, and times
-kernel 1 (``mhw_sweep_fused``) and kernel 4 (``pdp_sweep_fused``) with
-CUDA events on client 0's first sorted chunk (2,097,152 positions) once
-with S = mh_steps uniform rows and once with S = 0, where the MH step loop
-does not run: the difference is the steps' share.  It also prints the
-chunk's figures that bound a sparse design: non-zero topics per document
-(k_d), real tokens per distinct word, the longest run of one word, and
-the (tile of 128 positions, word) segments.  Each root's result is one
-``SPLIT`` JSON line; all of them also go to chiprun_out/sweep_split.json.
+kernel 1 (``mhw_sweep_fused``) and kernel 4 (``pdp_sweep_fused``) on
+client 0's first sorted chunk (2,097,152 positions) with this checkout's
+``chip_smoke.split_ms`` (S = mh_steps uniform rows, and S = 0) and
+reports the chunk with its ``chip_smoke.chunk_figures``: the measuring
+code is this checkout's for every root, only the kernels are the root's.
+Each root's result is one ``SPLIT`` JSON line; all of them also go to
+chiprun_out/sweep_split.json.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-TILE = 128
-
-
-def time_ms(fn, reps: int) -> float:
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def chunk_figures(rows, v: int, n_dk) -> dict:
-    import torch
-    real = rows < v
-    r = rows[real]
-    _, runs = torch.unique_consecutive(r, return_counts=True)
-    pos = torch.arange(rows.shape[0], device=rows.device)
-    starts = real & ((pos % TILE == 0)
-                     | torch.cat([real[:1], rows[1:] != rows[:-1]]))
-    k_d = (n_dk != 0).sum(1).float()
-    n_real = int(real.sum())
-    return {"positions": int(rows.shape[0]), "real_tokens": n_real,
-            "distinct_words": int(runs.numel()),
-            "tokens_per_word": n_real / max(1, int(runs.numel())),
-            "longest_run": int(runs.max()),
-            "tile": TILE, "tile_word_segments": int(starts.sum()),
-            "k_d_mean": float(k_d.mean()), "k_d_max": int(k_d.max()),
-            "docs": int(n_dk.shape[0])}
+HERE = Path(__file__).resolve().parents[1]
 
 
 def worker(root: Path) -> dict:
-    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(HERE))
+    import chip_smoke                   # puts this checkout's src on the path
+    sys.path.insert(0, str(root / "src"))   # ... behind the root's
     import torch
 
+    from repro_torch.core import lda, pdp, stirling
     from repro_torch.data import segment
     from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
-    from repro_torch.core import lda, pdp, stirling
     from repro_torch.engine import Trainer, TrainerConfig
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mhw_fused as kmf
 
     dev = torch.device("cuda")
@@ -94,24 +59,19 @@ def worker(root: Path) -> dict:
         e = tr.family.encode(cfg, tr.locals_[0])[:, bounds[0]:bounds[1]]
         return lay, segment.sort_values(lay, e.reshape(-1))
 
-    def split(fn, e_out, steps, b):
-        res = {}
-        for s in (steps, 0):
-            uni = ops._step_uniforms(gen, e_out, s, b, dev)
-            res[f"ms_S{s}"] = time_ms(lambda: fn(uni), 5)
-        return res
-
     cfg = lda.LDAConfig(n_topics=1024, vocab_size=131072)
     tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
     tables, stale = tr.family.build_alias(cfg, tr.shared)
     shared, n_dk = tr.shared, tr.locals_[0].n_dk
     lay, z = chunk(tr, cfg)
     prior = tr.family.sparse_prior(cfg, shared)
-    out["mhw_sweep_fused"] = split(lambda uni: kmf.mhw_sweep_fused(
+    ms = chip_smoke.split_ms(lambda uni: kmf.mhw_sweep_fused(
         *tables, stale, shared.n_wk, shared.n_k, prior, lay.rows, lay.docs,
         z, n_dk, *uni, beta=cfg.beta, beta_bar=cfg.beta * cfg.vocab_size),
-        cfg.n_topics, cfg.mh_steps, lay.rows.shape[0])
-    out["lda_chunk"] = chunk_figures(lay.rows, cfg.vocab_size, n_dk)
+        gen, dev, cfg.n_topics, cfg.mh_steps, lay.rows.shape[0])
+    out["mhw_sweep_fused"] = {f"ms_S{s}": t for s, t in ms.items()}
+    out["lda_chunk"] = chip_smoke.chunk_figures(lay.rows, lay.docs, n_dk,
+                                                cfg.vocab_size)
     del tr, tables, stale, shared, n_dk, lay, z
     torch.cuda.empty_cache()
 
@@ -122,17 +82,13 @@ def worker(root: Path) -> dict:
     lay, e = chunk(tr, pcfg)
     stirl = stirling.as_tensor(pcfg.stirling_n_max, pcfg.discount, dev)
     prior = tr.family.sparse_prior(pcfg, shared)
-    out["pdp_sweep_fused"] = split(lambda uni: kmf.pdp_sweep_fused(
+    ms = chip_smoke.split_ms(lambda uni: kmf.pdp_sweep_fused(
         *tables, stale, shared.m_wk, shared.s_wk, shared.m_k, shared.s_k,
         stirl, prior, lay.rows, lay.docs, e, n_dk, *uni,
         b=pcfg.concentration, a=pcfg.discount, gamma=pcfg.gamma,
         gamma_bar=pcfg.gamma * pcfg.vocab_size),
-        2 * pcfg.n_topics, pcfg.mh_steps, lay.rows.shape[0])
-    m_rows = shared.m_wk[torch.unique(lay.rows[lay.rows < pcfg.vocab_size]
-                                      .long())]
-    out["pdp_chunk"] = {
-        "word_row_nonzero_topics_mean": float((m_rows != 0).sum(1)
-                                              .float().mean())}
+        gen, dev, 2 * pcfg.n_topics, pcfg.mh_steps, lay.rows.shape[0])
+    out["pdp_sweep_fused"] = {f"ms_S{s}": t for s, t in ms.items()}
     return out
 
 
@@ -141,7 +97,7 @@ def main(argv: list[str]) -> int:
         print("SPLIT " + json.dumps(worker(Path(argv[1]).resolve())),
               flush=True)
         return 0
-    roots = argv or [str(Path(__file__).resolve().parents[1])]
+    roots = argv or [str(HERE)]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -158,7 +114,7 @@ def main(argv: list[str]) -> int:
                     if x.startswith("SPLIT "))
         print(line, flush=True)
         results.append(json.loads(line[6:]))
-    out = Path(__file__).resolve().parents[1] / "chiprun_out"
+    out = HERE / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "sweep_split.json").write_text(json.dumps(
         {"card": card, "runs": results}, indent=1))
