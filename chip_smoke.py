@@ -19,6 +19,10 @@ Phases; any failure raises and the script exits non-zero:
    figures (non-zero topics per document, tokens per word, longest run)
    and the dense design's time; and the document-list build that each
    sweep launch runs first, against its plain version on a client's n_dk.
+   Kernel 2 also bit for bit on adversarial rows (zeros, one-hot, all
+   equal, inf, inf and NaN, residuals at exactly 1.0, denormals) at K=1024,
+   at K=1023 and above its staged route's width limit (the per-lane
+   kernel); its time is printed beside the per-lane design's.
 4. LDA training at full size: K=1024 over V=131072 on ~12.6M tokens, two
    clients, BSP, 4 rounds with full alias rebuilds then 3 rounds of
    incremental rebuilds.  After every round: consistency_error() == 0.0,
@@ -43,7 +47,8 @@ Phases; any failure raises and the script exits non-zero:
    memory beside LDA's.
 9. LDA with fused_alias_build=True: kernel 6 against its plain version
    (tables and stale matrix bit-equal), timed beside kernel 2 on the same
-   statistics; then 3 cadence rounds with the checks of phase 4.
+   statistics, and on phase 3's adversarial rows at the same widths; then
+   3 cadence rounds with the checks of phase 4.
 10. Draws: kernels 7, 8 and 9 through ops.sample_rows_sorted,
    ops.sample_rows and ops.mh_accept on a real sorted chunk of that
    trainer with its tables, each against its plain version.
@@ -110,6 +115,15 @@ LM_ROW_OPS, LM_TOKEN_OPS, LM_STEP_OPS = 3, 17, 21
 # table), printed on the SWEEP lines beside this run's for reference, not
 # compared in one call and kept out of the kernels JSON.
 DENSE_FULL_CHUNK_MS = {"mhw_sweep_fused": 8.53, "pdp_sweep_fused": 34.53}
+# Times of kernels 2 and 6 in their per-lane design (one lane a row, the
+# pairing on device memory), from this script's run before the staged
+# redesign on another call and card (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md's kernel table), printed on the ALIAS lines beside this run's
+# for reference, not compared in one call and kept out of the kernels JSON.
+PER_LANE_MS = {"alias_build": 12.45, "alias_build (hdp)": 12.26,
+               "alias_build width 2K": 26.28, "alias_build_fused": 12.70}
+ADVERSARIAL_ROWS = 301          # not a multiple of any plan's rows a block
+ADVERSARIAL_ROWS_WIDE = 37
 
 
 def card_line() -> str:
@@ -195,40 +209,158 @@ def check_tables(name, p, prob, alias, mass, prob_ref, alias_ref, mass_ref):
             "mass_rel_err_max": float(delta.max())}
 
 
+def adversarial_rows(k: int, n_rows: int, seed: int) -> np.ndarray:
+    """(n_rows, k) float32 rows for the corner cases of the alias builds,
+    then seeded random rows: all zeros (the uniform fallback); one-hot at
+    the first, the last and a middle entry; all equal, at 1 and at 0.25
+    (no small entry); one inf; one inf and one NaN; halves, ones and
+    one-and-a-halves, whose pairing puts residuals at exactly 1.0 (the
+    edge of the small test) wherever scaled stays exact; denormals, with
+    zeros and alone; then sparse gamma rows, some with a spike."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for kind in ("zeros", "one_hot", "equal", "inf", "residual",
+                 "denormal"):
+        for variant in range(3):
+            row = np.zeros(k, np.float32)
+            if kind == "one_hot":
+                row[(0, k - 1, k // 2)[variant]] = 1.0
+            elif kind == "equal":
+                row[:] = (1.0, 0.25, 3.0)[variant]
+            elif kind == "inf":
+                row[:] = rng.gamma(0.5, size=k)
+                row[k // 3] = np.inf
+                if variant:
+                    row[(2 * k) // 3 if variant == 1 else 0] = np.nan
+            elif kind == "residual":
+                m = max(1, k // (4 + variant))
+                row[:] = 1.0
+                row[:m] = 0.5
+                row[k - m:] = 1.5
+                if 2 * m > k:
+                    row[:] = 1.0
+            elif kind == "denormal":
+                tiny = np.float32(1e-40) * np.arange(1, k + 1, dtype=np.float32)
+                row[:] = np.where(rng.random(k) < 0.5, tiny, 0.0)
+                if variant == 1:
+                    row[:] = np.float32(1.4e-45)
+                elif variant == 2:
+                    row[0] = 1.0
+            elif variant:
+                break
+            rows.append(row)
+    while len(rows) < n_rows:
+        row = rng.gamma(0.3, size=k) * (rng.random(k) < 0.6)
+        if rng.random() < 0.3:
+            row[rng.integers(k)] = 100.0 * row.sum() + 1.0
+        rows.append(row.astype(np.float32))
+    return np.stack(rows[:n_rows])
+
+
+def per_lane_line(name: str, ms: float) -> None:
+    print(f"ALIAS {name}: {ms:.3f} ms; per-lane design {PER_LANE_MS[name]} "
+          "ms (an earlier run, on another call and card)", flush=True)
+
+
+def adversarial_check(name: str, dev) -> dict:
+    """Kernel 2 (``alias_build``) or 6 (``alias_build_fused``) against
+    its plain version, bit for bit, on ``adversarial_rows`` at full width
+    (K=1024), at K=1023 (not a multiple of 32 or 4) and at the width above
+    the staged route's limit (per lane), R=301 rows (37 above the limit).
+    Kernel 6 takes the rows as n_wk with α = 1, β = 0 and n_k = 1, where
+    its formula passes them through unchanged.  Returns the widths
+    checked."""
+    from repro_torch.core import alias as alias_mod
+    from repro_torch.kernels import alias_build as kab
+    from repro_torch.kernels import ref
+
+    fused = name == "alias_build_fused"
+    above = kab.staged_max_width(fused) + 1
+    widths, n_rows = (1024, 1023, above), []
+    for k in widths:
+        n = ADVERSARIAL_ROWS if k <= 4096 else ADVERSARIAL_ROWS_WIDE
+        n_rows.append(n)
+        rows = torch.as_tensor(adversarial_rows(k, n, seed=k), device=dev)
+        if fused:
+            ones = torch.ones(k, device=dev)
+            got = kab.alias_build_fused(rows, ones, alpha=1.0, beta=0.0,
+                                        beta_bar=0.0)
+            want = ref.alias_build_fused_ref(rows, ones, alpha=1.0, beta=0.0,
+                                             vocab_size=n)
+        else:
+            got = kab.alias_build(rows)
+            want = alias_mod.build(rows)
+        for part, g, w in zip(("prob", "alias", "mass"), got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(
+                    f"{name} on adversarial rows at K={k}: "
+                    f"{int((g.view(torch.int32) != w.view(torch.int32)).sum())}"
+                    f" {part} entries differ from plain")
+    out = {"widths": list(widths), "rows": n_rows,
+           "staged_max_width": above - 1, "bit_equal": True}
+    print(f"ADVERSARIAL {name} {json.dumps(out)}", flush=True)
+    return out
+
+
 def profile_round(trainer, label: str) -> None:
-    """One more round under torch.profiler: device time by kernel and the
-    device's busy share of the round's wall time.  Its launches are not
-    main-path launches, so the counters are restored afterwards."""
-    from torch.profiler import ProfilerActivity, profile
+    """Two more rounds under torch.profiler, the second measured: device
+    time by kernel and the device's busy share of the round's wall time.
+    A profiled window loses its first device records: in the fused-LDA
+    round the counters showed kernel 6's launch while the trace started
+    ~6 ms in, after kernel 6 and the stale-matrix kernels behind it, and a
+    warm-up kernel with a 50 ms pause first did not help.  So the first
+    round fills the window's start, and only the device events that start
+    inside the second round's ``record_function`` range are read.  Every
+    alias build the measured round launched must be among them.  These
+    launches are not main-path launches, so the counters are restored
+    afterwards."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.kernels import _build
     saved = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
         trainer.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+        before = dict(_build.LAUNCHES)
+        with record_function("measured round"):
+            t = time.perf_counter()
+            trainer.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    builds = sum(n - before.get(name, 0) for name, n in _build.LAUNCHES.items()
+                 if name.startswith("alias_build"))
     _build.LAUNCHES.clear()
     _build.LAUNCHES.update(saved)
-    rows = []
-    for e in prof.key_averages():
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    start = next(e for e in events if e.name == "measured round"
+                 and e.device_type != cuda).time_range.start
+    by_name: dict[str, list] = {}
+    for e in events:
         # Device-side entries only (kernels, copies); the host ops that
-        # launched them report the same time again.
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # launched them report the same time again, and the range itself
+        # has a device-side copy too.
+        if (e.device_type != cuda or e.name == "measured round"
+                or e.time_range.start < start):
             continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key[:90]))
-    rows.sort(reverse=True)
+        row = by_name.setdefault(e.name[:90], [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                  reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    traced = sum(n for _, n, name in rows if "alias_build" in name)
     print(f"PROFILE {label} cadence round: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.1f} ms, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; alias builds traced "
+          f"{traced} of {builds} launched")
     for ms, n, k in rows[:15]:
         print(f"  {ms:9.2f} ms {n:6d} x {k}")
+    if traced != builds:
+        raise AssertionError(f"{label}: the profiled round launched {builds} "
+                             f"alias builds, the trace holds {traced}")
 
 
 def held_out_docs(phi: np.ndarray, n_docs: int, doc_len: int, seed: int):
@@ -468,6 +600,7 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
         "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
         "library_ms": None, "bytes": bytes2, **stats2})
     print(f"KERNEL alias_build{label} {json.dumps(report[-1])}", flush=True)
+    per_lane_line("alias_build" + label, ms2)
 
     # Kernel 3: gather build of R rows; its rows must equal the full build's.
     g = kab.alias_build_gather_fused(shared.n_wk, shared.n_k, prior, rows_k3,
@@ -647,6 +780,7 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
                            "bound_by": by2, "bytes": bytes2, **stats2}
     print(f"KERNEL alias_build width 2K {json.dumps(report2['width_2k'])}",
           flush=True)
+    per_lane_line("alias_build width 2K", ms2)
 
     # Kernel 5: the R rows with the largest m_wk + s_wk mass.
     rows5 = torch.argsort(-(shared.m_wk + shared.s_wk).sum(1), stable=True)[
@@ -818,8 +952,11 @@ def fused_kernel(tr, cfg) -> dict:
         "library_ms": None, "bytes": bytes6,
         "bytes_parts": {"n_wk": v * k * 4, "n_k": k * 4,
                         "prob_alias": v * k * 8, "mass": v * 4},
-        "alias_build_unfused_ms": ms2, "grouping": grouping, **stats6}
+        "alias_build_unfused_ms": ms2, "grouping": grouping,
+        "adversarial": adversarial_check("alias_build_fused",
+                                         shared.n_wk.device), **stats6}
     print(f"KERNEL alias_build_fused {json.dumps(entry)}", flush=True)
+    per_lane_line("alias_build_fused", ms6)
     return entry
 
 
@@ -1082,6 +1219,7 @@ def main() -> int:
     prior = torch.full((k,), cfg.alpha, dtype=torch.float32, device=dev)
     report = lm_kernels(dev, tr, cfg, ccfg, lda.dense_probs(cfg, shared),
                         prior, rows3)
+    report[0]["adversarial"] = adversarial_check("alias_build", dev)
     report.append(doc_list_kernel(tr.locals_[0].n_dk))
     del shared
     first = {"cadence": tr}

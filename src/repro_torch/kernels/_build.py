@@ -58,6 +58,10 @@ SIGNATURES = {
     "alias_sample_sorted": ("alias_sample", [P] * 5 + [L, I, I, P, P]),
     "mh_accept": ("mh_accept", [P] * 7 + [L, P, P]),
 }
+# C functions that launch nothing: no stream, never counted in LAUNCHES.
+QUERIES = {
+    "alias_build_staged_max_width": ("alias_build", [I]),
+}
 
 
 def reset_launches() -> None:
@@ -109,7 +113,7 @@ def build_all() -> float:
 
 def function(name: str):
     """The C entry point ``name`` with its argument types declared."""
-    stem, argtypes = SIGNATURES[name]
+    stem, argtypes = SIGNATURES[name] if name in SIGNATURES else QUERIES[name]
     if stem not in _LIBS:
         out = _target(CSRC / f"{stem}.cu")
         if not out.exists():

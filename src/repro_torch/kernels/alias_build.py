@@ -1,7 +1,10 @@
 """Wrappers of the alias-build kernels in ``csrc/alias_build.cu``.
 
 * :func:`alias_build` replaces ``repro/kernels/alias_build.py::alias_build``
-  (kernel 2); the port sends full builds through it.
+  (kernel 2); the port sends full builds through it.  Rows up to
+  :func:`staged_max_width` wide are staged once in shared memory; wider
+  rows run on the per-lane kernel, from the same entry point and counted
+  under the same name.
 * :func:`alias_build_gather_fused` replaces
   ``repro/kernels/alias_build.py::alias_build_gather_fused`` (kernel 3),
   the incremental rebuild of the changed rows for the LM families.
@@ -13,7 +16,7 @@
 * :func:`alias_build_fused` replaces
   ``repro/kernels/alias_build.py::alias_build_fused`` (kernel 6), the full
   LDA build that forms the dense term α·(n_wk+β)/(n_k+β̄) itself
-  (``LDAConfig(fused_alias_build=True)``).
+  (``LDAConfig(fused_alias_build=True)``), with the same two width routes.
 
 All take CUDA tensors only and never fall back to the plain versions
 (``core/alias.py::build``, ``kernels/ref.py``); ``kernels/ops.py`` routes
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import launch
+from repro_torch.kernels._build import function, launch
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
@@ -37,6 +40,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def staged_max_width(fused: bool = False) -> int:
+    """The widest K that kernel 2 (or kernel 6, ``fused``) stages in shared
+    memory on the current card; its entry point sends wider rows to the
+    per-lane kernel.  Builds the kernels on first use."""
+    return function("alias_build_staged_max_width")(int(fused))
 
 
 def _build_rows(name: str, p: torch.Tensor):

@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
-* No module of ``src/repro_torch``, nor ``chip_smoke.py`` or
-  ``tools/torch_sweep_split.py``, imports ``jax`` or the reference package
-  ``repro`` (an AST scan of every import).
+* No module of ``src/repro_torch``, nor ``chip_smoke.py``,
+  ``tools/torch_sweep_split.py`` or ``tools/torch_alias_split.py``, imports
+  ``jax`` or the reference package ``repro`` (an AST scan of every
+  import).
 * ``Trainer``, the family sweep and ``ops.*`` run on ``cuda`` by default
   and raise when there is no card and the CPU was not asked for.
 * On the card (tests marked ``cuda``, skipped here without one): a CUDA
@@ -26,7 +27,8 @@ from repro_torch.kernels import _build, ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_sweep_split.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_sweep_split.py",
+    ROOT / "tools" / "torch_alias_split.py"]
 
 
 def _imports(path: Path) -> list[str]:
@@ -51,7 +53,7 @@ def test_scan_covers_the_package():
     assert {"trainer.py", "family.py", "ops.py", "chip_smoke.py",
             "alias_build.py", "mhw_fused.py", "pdp.py", "stirling.py",
             "hdp.py", "alias_sample.py", "mh_accept.py", "doc_topics.py",
-            "torch_sweep_split.py"} <= names
+            "torch_sweep_split.py", "torch_alias_split.py"} <= names
 
 
 def _no_card(monkeypatch):
