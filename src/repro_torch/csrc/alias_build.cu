@@ -26,7 +26,7 @@
 //   shared memory bounds that number (a row needs ~6 bytes an entry).
 //   What the design does.  A warp owns a few rows at a time (the plan
 //   below sizes rows per warp and warps per block from K and the card's
-//   shared memory: about twelve warps a block, as many rows each as fit,
+//   shared memory: about sixteen warps a block, as many rows each as fit,
 //   since on the H100 the warps hide each other's chain latency better
 //   than more rows a warp do; every warp walks its own rows, the grid is
 //   one wave of blocks) and, for each group of rows:
@@ -42,15 +42,15 @@
 //     original smalls are consumed in ascending order, so the lane scans
 //     them from the mask four entries at a time, the rows of a warp in
 //     step, and a small consumed by a large that stays large keeps its
-//     scaled value as prob, in place: the common step is one subtraction
-//     from the large's residual.  The alias of a large that turns small
-//     is the next large below it, so the scale pass writes that link into
-//     each large slot's alias; a turn only stores the residual as prob and
-//     follows the link (preloaded two ahead).  A group of four with at
-//     most one turn that the next large absorbs is taken with selects,
-//     any other entry by entry.  The larges at and below the one current
-//     at the end were never consumed, and a small slot whose alias is
-//     still itself was never assigned: both get prob = 1, alias = self;
+//     scaled value as prob, in place: a group in which the large does not
+//     turn small costs four subtractions and a store of its aliases.  The
+//     alias of a large that turns small is the next large below it, so
+//     the scale pass writes that link into each large slot's alias, and a
+//     group with a turn goes entry by entry, each turned large storing its
+//     residual as prob and handing on to its link.  The larges at and
+//     below the one current at the end were never consumed, and a small
+//     slot whose alias is still itself was never assigned: both get
+//     prob = 1, alias = self;
 //   * writes prob and alias with coalesced 16-byte streaming stores: the
 //     outputs are written once, no init pass, no scattered stores.
 //   Width: a row takes (K4 + 4)*6 bytes plus its mask words (K4 = K
@@ -58,7 +58,7 @@
 //   indices are 16-bit, so K <= 32768.  On an H100 (227 KB a block) that
 //   is K <= 32768 for kernel 2 and K <= 22,952 for kernel 6
 //   (alias_build_staged_max_width reports it for the card at hand); at
-//   K = 1024 an SM holds 36 rows (12 warps of 3), at 2048 16 (16 warps of
+//   K = 1024 an SM holds 36 rows (18 warps of 2), at 2048 18 (18 warps of
 //   1).  Wider rows go to the per-lane kernels below, from the same entry
 //   points.
 //
@@ -243,8 +243,8 @@ int blocks_for(long rows) {
 
 // -------------------------------------------------------- staged route
 constexpr int kMaxStagedWidth = 32768;   // alias indices held in 16 bits
-constexpr int kTargetWarps = 12;         // warps a block, rows allowing
-constexpr int kMaxWarps = 16;
+constexpr int kTargetWarps = 16;         // warps a block, rows allowing
+constexpr int kMaxWarps = 24;
 
 // Floats of a staged row: K rounded up to 4, plus 4, so rows start on
 // 16 bytes and consecutive rows start 4 banks apart.
@@ -381,14 +381,10 @@ __device__ int chain_row(float* s, unsigned short* a, const unsigned* m,
                          int k, int n_small, int j) {
   int n_large = k - n_small;
   if (n_small == 0 || n_large == 0) return k;
-  const int last = k - 1;
   const unsigned tail = (k & 31) ? (1u << (k & 31)) - 1u : kFull;
   float r = s[j];
-  int nl = a[j];
-  float nlv = s[min(nl, last)];
-  int nnl = a[min(nl, last)];
-  float nnlv = s[min(nnl, last)];
   unsigned bits = 0;
+#pragma unroll 4
   for (int c = 0; c < k; c += 4) {
     if ((c & 31) == 0) {
       bits = m[c >> 5];
@@ -397,47 +393,36 @@ __device__ int chain_row(float* s, unsigned short* a, const unsigned* m,
     const unsigned g = (bits >> (c & 31)) & 15u;
     const float4 x4 = *reinterpret_cast<const float4*>(s + c);
     const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-    float t = r, turned_at = 0.f;
-    bool turned = false, slow = false;
-    unsigned short by[4];              // the large that takes each small
+    // The group at once while the large stays large.
+    float t = r;
+    bool turns = false;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool small = (g >> e) & 1u;
       const float u = t - (1.f - x[e]);
-      const bool turns = small && u < 1.f;
-      const float taken = nlv - (1.f - u);   // the next large takes it
-      by[e] = (unsigned short)(turned ? nl : j);
-      slow |= turns && (turned || taken < 1.f);
-      turned_at = turns && !turned ? u : turned_at;
-      t = small ? (turns ? taken : u) : t;
-      turned |= turns;
+      turns |= small && u < 1.f;
+      t = small ? u : t;
     }
-    slow |= turned && n_large == 1;
-    if (!slow) {
+    if (!turns) {
       r = t;
+      const unsigned short jj = (unsigned short)j;
       if (g == 15u) {
-        *reinterpret_cast<ushort4*>(a + c) =
-            make_ushort4(by[0], by[1], by[2], by[3]);
+        *reinterpret_cast<ushort4*>(a + c) = make_ushort4(jj, jj, jj, jj);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if ((g >> e) & 1u) a[c + e] = by[e];
+          if ((g >> e) & 1u) a[c + e] = jj;
       }
-      if (turned) s[j] = turned_at;
-      j = turned ? nl : j;
-      n_large -= turned;
-      nl = turned ? nnl : nl;
-      nlv = turned ? nnlv : nlv;
-      nnl = a[min(nl, last)];
-      nnlv = s[min(nnl, last)];
       continue;
     }
+    // A large turns small in this group: entry by entry, each turned
+    // large taken by the next one (its link) while they turn.
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (!((g >> e) & 1u)) continue;
       a[c + e] = (unsigned short)j;
       r = r - (1.f - x[e]);
-      while (r < 1.f) {          // j turns small; the next large takes it
+      while (r < 1.f) {
         if (n_large == 1) return j;
         --n_large;
         s[j] = r;
@@ -446,10 +431,6 @@ __device__ int chain_row(float* s, unsigned short* a, const unsigned* m,
         r = s[j] - (1.f - si);
       }
     }
-    nl = a[j];
-    nlv = s[min(nl, last)];
-    nnl = a[min(nl, last)];
-    nnlv = s[min(nnl, last)];
   }
   return j;
 }

@@ -11,9 +11,9 @@ pairing on a row staged in shared memory, with a traversal of their own:
   by a large that stays large keeps its scaled value as prob;
 * a large that turns small has the next large below it as its alias, so
   the alias array starts with that link at every large slot (self at the
-  smalls), and a turn only stores the residual as prob and follows the
-  link; a group with at most one turn that the next large absorbs is
-  taken at once, any other entry by entry;
+  smalls); a group in which the large does not turn small is taken at
+  once, a group with a turn entry by entry, each turned large storing its
+  residual as prob and handing on to its link;
 * the larges at and below the one current at the end were never consumed,
   and a small slot whose alias is still itself was never assigned: both
   get prob = 1 and alias = self.
@@ -61,49 +61,30 @@ def _chain(s, a, mk, k, n_small, j):
     hits)."""
     one = np.float32(1.0)
     n_large = k - n_small
-    last = k - 1
     tail = (1 << (k & 31)) - 1 if k & 31 else FULL
     hits = 0
     r = s[j]
-    nl = a[j]
-    nlv = s[min(nl, last)]
-    nnl = a[min(nl, last)]
-    nnlv = s[min(nnl, last)]
     for c in range(0, k, 4):
         if c % 32 == 0:
             bits = mk[c // 32] & (tail if c + 32 >= k else FULL)
         g = (bits >> (c % 32)) & 15
         x = s[c:c + 4]
-        # At most one turn, absorbed by the next large: with selects.
-        t, turned_at, turned, slow, at_one = r, one, False, False, 0
-        by = [j] * 4
+        # The group at once while the large stays large.
+        t, turns, at_one = r, False, 0
         for e in range(4):
-            small = bool(g >> e & 1)
-            u = np.float32(t - np.float32(one - x[e]))
-            turns = small and bool(u < one)
-            taken = np.float32(nlv - np.float32(one - u))
-            by[e] = nl if turned else j
-            slow |= turns and (turned or bool(taken < one))
-            if turns and not turned:
-                turned_at = u
-            if small:
-                at_one += bool(u == one) + (turns and bool(taken == one))
-                t = taken if turns else u
-            turned |= turns
-        slow |= turned and n_large == 1
-        if not slow:
+            if g >> e & 1:
+                t = np.float32(t - np.float32(one - x[e]))
+                turns |= bool(t < one)
+                at_one += bool(t == one)
+        if not turns:
             hits += at_one
             r = t
             for e in range(4):
                 if g >> e & 1:
-                    a[c + e] = by[e]
-            if turned:
-                s[j] = turned_at
-                j, nl, nlv = nl, nnl, nnlv
-                n_large -= 1
-            nnl = a[min(nl, last)]
-            nnlv = s[min(nnl, last)]
+                    a[c + e] = j
             continue
+        # A large turns small: entry by entry, each turned large taken by
+        # its link while they turn.
         for e in range(4):
             if not g >> e & 1:
                 continue
@@ -119,10 +100,6 @@ def _chain(s, a, mk, k, n_small, j):
                 j = a[j]
                 r = np.float32(s[j] - np.float32(one - si))
                 hits += bool(r == one)
-        nl = a[j]
-        nlv = s[min(nl, last)]
-        nnl = a[min(nl, last)]
-        nnlv = s[min(nnl, last)]
     return j, hits
 
 
