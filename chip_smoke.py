@@ -11,26 +11,33 @@ Phases; any failure raises and the script exits non-zero:
 2. build: the kernels under src/repro_torch/csrc, one nvcc per source.
 3. LDA kernels against their plain PyTorch versions, on the card, at the
    main path's shapes, built from the full-size corpus's own statistics:
-   alias build (V=131072, K=1024), gather build (R=4096 rows) and the
-   sweep (a 262,144-token slice of a real chunk), each timed with CUDA
+   alias build (V=131072, K=1024), gather build (R=4096 rows; timed also
+   at R=64, the trainer's default, and 512, on the device's clock beside
+   the per-lane design's times) and the sweep (a 262,144-token slice of a
+   real chunk), each timed with CUDA
    events beside its plain version and its bounds; the sweep also on the
    whole chunk (2,097,152 positions, the launch the main path runs) with
    and without its MH steps, beside its bound on that launch, the chunk's
    figures (non-zero topics per document, tokens per word, longest run)
    and the dense design's time; and the document-list build that each
    sweep launch runs first, against its plain version on a client's n_dk.
-   Kernel 2 also bit for bit on adversarial rows (zeros, one-hot, all
-   equal, inf, inf and NaN, residuals at exactly 1.0, denormals) at K=1024,
-   at K=1023 and above its staged route's width limit (the per-lane
-   kernel); its time is printed beside the per-lane design's.
+   Kernels 2 and 3 also bit for bit on adversarial rows (zeros, one-hot,
+   all equal, inf, inf and NaN, residuals at exactly 1.0, denormals) at
+   K=1024, at K=1023 and above their staged route's width limit (the
+   per-lane kernels); their times are printed beside the per-lane
+   design's.
 4. LDA training at full size: K=1024 over V=131072 on ~12.6M tokens, two
    clients, BSP, 4 rounds with full alias rebuilds then 3 rounds of
    incremental rebuilds.  After every round: consistency_error() == 0.0,
-   no projection violations; held-out perplexity must fall.
+   no projection violations; held-out perplexity must fall.  After each
+   mode, two more of its rounds run under torch.profiler (PROFILE lines:
+   device time by kernel, idle share).
 5. PDP kernels, from the PDP trainer's initial state on the same corpus:
    the alias build at width 2K on the full (V, 2K) dense term, the
    compacted-rows build of the R=4096 rows with the largest m_wk+s_wk mass
-   (bit-equal to its plain version and to the full build's rows), and the
+   (bit-equal to its plain version and to the full build's rows; timed as
+   kernel 3 is, at R=64, 512 and 4096; on adversarial rows also at its
+   width 2048), and the
    PDP sweep on a 131,072-token slice of client 0's first chunk, once
    with the main path's Stirling table and once with a table small enough
    that its clamps bind; and on the whole chunk as in phase 3.
@@ -122,8 +129,27 @@ DENSE_FULL_CHUNK_MS = {"mhw_sweep_fused": 8.53, "pdp_sweep_fused": 34.53}
 # for reference, not compared in one call and kept out of the kernels JSON.
 PER_LANE_MS = {"alias_build": 12.45, "alias_build (hdp)": 12.26,
                "alias_build width 2K": 26.28, "alias_build_fused": 12.70}
+# Kernels 3 and 5 in their per-lane design at the R rows that the KERNEL
+# lines time them at, on the device's clock (device_ms): the mean of two
+# runs of the tree before their staged redesign, in one call of
+# tools/torch_alias_split.py on another card (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md's kernel table), printed on the ALIAS lines beside this run's
+# for reference, not compared in one call and kept out of the kernels JSON.
+PER_LANE_MS.update({
+    "alias_build_gather_fused R=64": 2.011,
+    "alias_build_gather_fused R=512": 2.188,
+    "alias_build_gather_fused R=4096": 2.971,
+    "alias_build_gather_fused (hdp) R=64": 2.009,
+    "alias_build_gather_fused (hdp) R=512": 2.179,
+    "alias_build_gather_fused (hdp) R=4096": 3.264,
+    "alias_build_rows R=64": 2.031, "alias_build_rows R=512": 3.205,
+    "alias_build_rows R=4096": 6.291})
+INCREMENTAL_ROWS = (64, 512, 4096)   # the trainer's default, and GATHER_ROWS
+# Device cycles (~1 ms) that device_ms spins before each timed run.
+SPIN_CYCLES = 2_000_000
 ADVERSARIAL_ROWS = 301          # not a multiple of any plan's rows a block
 ADVERSARIAL_ROWS_WIDE = 37
+PROFILE_TAIL = ("alias_build", "sort", "memcpy")   # shown beyond the top 15
 PROFILE_ATTEMPTS = 3            # profiled windows before a lost record fails
 
 
@@ -147,6 +173,28 @@ def time_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs on the device's
+    clock, CUDA events: each run is queued behind a spin of the device
+    (``torch.cuda._sleep``) that outlasts the host's work of queuing it
+    (allocation, ctypes, the launch), so only the device's time counts,
+    which for a launch of tens of microseconds ``time_ms`` would overstate.
+    ``fn`` must not synchronise with the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -258,40 +306,86 @@ def adversarial_rows(k: int, n_rows: int, seed: int) -> np.ndarray:
     return np.stack(rows[:n_rows])
 
 
+INCREMENTAL_MS_NOTE = (
+    "ms: the launch on the device's clock (device_ms; kernel 3 through "
+    "its C entry point, without its wrapper's host syncs); call_ms: a "
+    "call of the wrapper, CUDA events around it, as the other kernels' "
+    "ms; by_rows at the trainer's default R=64, 512 and R=4096")
+
+
+def gather_entry(n_wk, n_k, prior, rows, beta: float, beta_bar: float):
+    """Kernel 3 launched through its C entry point as its wrapper launches
+    it, into outputs allocated once, without the wrapper's checks, whose
+    host syncs (``rows.min()``/``rows.max()``) ``device_ms`` cannot hide.
+    Not counted in ``LAUNCHES``."""
+    from repro_torch.kernels import _build
+
+    r, k = rows.shape[0], n_wk.shape[1]
+    dev = n_wk.device
+    out = [torch.empty((r, k), dtype=torch.float32, device=dev),
+           torch.empty((r, k), dtype=torch.int32, device=dev),
+           torch.empty((r,), dtype=torch.float32, device=dev),
+           torch.empty((r, k), dtype=torch.float32, device=dev)]
+    fn = _build.function("alias_build_gather_fused")
+
+    def run():
+        err = fn(n_wk.data_ptr(), n_k.data_ptr(), prior.data_ptr(),
+                 rows.data_ptr(), r, k, beta, beta_bar,
+                 *(t.data_ptr() for t in out),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"alias_build_gather_fused failed: error "
+                               f"{err}")
+    return run
+
+
 def per_lane_line(name: str, ms: float) -> None:
     print(f"ALIAS {name}: {ms:.3f} ms; per-lane design {PER_LANE_MS[name]} "
           "ms (an earlier run, on another call and card)", flush=True)
 
 
 def adversarial_check(name: str, dev) -> dict:
-    """Kernel 2 (``alias_build``) or 6 (``alias_build_fused``) against
-    its plain version, bit for bit, on ``adversarial_rows`` at full width
-    (K=1024), at K=1023 (not a multiple of 32 or 4) and at the width above
-    the staged route's limit (per lane), R=301 rows (37 above the limit).
-    Kernel 6 takes the rows as n_wk with α = 1, β = 0 and n_k = 1, where
-    its formula passes them through unchanged.  Returns the widths
-    checked."""
+    """Kernel 2 (``alias_build``), 3 (``alias_build_gather_fused``), 5
+    (``alias_build_rows``) or 6 (``alias_build_fused``) against its plain
+    version, bit for bit, on ``adversarial_rows`` at full width (K=1024;
+    kernel 5 also at its main path's 2048), at K=1023 (not a multiple of
+    32 or 4) and at the width above the staged route's limit (per lane),
+    R=301 rows (37 above the limit).  Kernels 3 and 6 take the rows as
+    n_wk with β = 0, n_k = 1 and a prior (kernel 3) or α (kernel 6) of 1,
+    where their formulas pass them through unchanged; kernel 3 gathers all
+    of them in a seeded order.  Returns the widths checked."""
     from repro_torch.core import alias as alias_mod
     from repro_torch.kernels import alias_build as kab
     from repro_torch.kernels import ref
 
-    fused = name == "alias_build_fused"
-    above = kab.staged_max_width(fused) + 1
-    widths, n_rows = (1024, 1023, above), []
+    kernel = {"alias_build": 2, "alias_build_gather_fused": 3,
+              "alias_build_rows": 5, "alias_build_fused": 6}[name]
+    above = kab.staged_max_width(kernel) + 1
+    widths = (1024, 1023) + ((2048,) if kernel == 5 else ()) + (above,)
+    n_rows = []
     for k in widths:
         n = ADVERSARIAL_ROWS if k <= 4096 else ADVERSARIAL_ROWS_WIDE
         n_rows.append(n)
         rows = torch.as_tensor(adversarial_rows(k, n, seed=k), device=dev)
-        if fused:
-            ones = torch.ones(k, device=dev)
+        ones = torch.ones(k, device=dev)
+        if kernel == 6:
             got = kab.alias_build_fused(rows, ones, alpha=1.0, beta=0.0,
                                         beta_bar=0.0)
             want = ref.alias_build_fused_ref(rows, ones, alpha=1.0, beta=0.0,
                                              vocab_size=n)
+        elif kernel == 3:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(k)
+            idx = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+            got = kab.alias_build_gather_fused(rows, ones, ones, idx,
+                                               beta=0.0, beta_bar=0.0)
+            want = ref.alias_build_gather_fused_ref(rows, ones, ones, idx,
+                                                    beta=0.0, beta_bar=0.0)
         else:
-            got = kab.alias_build(rows)
+            build = kab.alias_build if kernel == 2 else kab.alias_build_rows
+            got = build(rows)
             want = alias_mod.build(rows)
-        for part, g, w in zip(("prob", "alias", "mass"), got, want):
+        for part, g, w in zip(("prob", "alias", "mass", "dense"), got, want):
             if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
                 raise AssertionError(
                     f"{name} on adversarial rows at K={k}: "
@@ -303,9 +397,10 @@ def adversarial_check(name: str, dev) -> dict:
     return out
 
 
-def profile_round(trainer, label: str) -> None:
-    """Two more rounds under torch.profiler, the second measured: device
-    time by kernel and the device's busy share of the round's wall time.
+def profile_round(trainer, label: str, mode: str) -> None:
+    """Two more rounds of the trainer's ``mode`` (cadence or incremental)
+    under torch.profiler, the second measured: device time by kernel and
+    the device's busy share of the round's wall time.
     A profiled window may lose device records: in the fused-LDA round the
     counters showed kernel 6's launch while the trace started ~6 ms in, and
     a warm-up kernel with a 50 ms pause first did not help; one HDP round
@@ -354,7 +449,7 @@ def profile_round(trainer, label: str) -> None:
                      if "alias_build" in name)
         if traced == builds:
             break
-        print(f"PROFILE {label} window {attempt}: the measured round "
+        print(f"PROFILE {label} {mode} window {attempt}: the measured round "
               f"launched {builds} alias builds, the trace holds {traced}"
               + ("" if span else " (no device-side range)"), flush=True)
     _build.LAUNCHES.clear()
@@ -362,16 +457,30 @@ def profile_round(trainer, label: str) -> None:
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"PROFILE {label} cadence round: wall {wall_ms:.1f} ms, device "
+    print(f"PROFILE {label} {mode} round: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.1f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; alias builds traced "
           f"{traced} of {builds} launched; profiled windows {attempt}")
-    for ms, n, k in rows[:15]:
+    # The 15 costliest entries, then the alias build, sorts and copies
+    # below them by name: an incremental round's tail.
+    tail = [r for r in rows[15:] if any(
+        key in r[2].lower() for key in PROFILE_TAIL)]
+    for ms, n, k in rows[:15] + tail:
         print(f"  {ms:9.2f} ms {n:6d} x {k}")
+    # Host syncs: each tensor-to-host read waits for the device there.
+    host = [e.time_range for e in events
+            if e.name == "measured round" and e.device_type != cuda]
+    for op in ("aten::_local_scalar_dense", "aten::nonzero"):
+        calls = [e.time_range.elapsed_us() / 1e3 for e in events
+                 if e.name == op and e.device_type != cuda and host
+                 and host[0].start <= e.time_range.start <= host[0].end]
+        print(f"  host syncs {op}: {len(calls)} calls, {sum(calls):.2f} ms "
+              "on the host's clock (waits included)")
     if traced != builds:
-        raise AssertionError(f"{label}: in {PROFILE_ATTEMPTS} profiled "
-                             f"windows the measured round launched {builds} "
-                             f"alias builds, the trace held {traced}")
+        raise AssertionError(f"{label} {mode}: in {PROFILE_ATTEMPTS} "
+                             "profiled windows the measured round launched "
+                             f"{builds} alias builds, the trace held "
+                             f"{traced}")
 
 
 def held_out_docs(phi: np.ndarray, n_docs: int, doc_len: int, seed: int):
@@ -631,23 +740,36 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
     stats3 = check_tables("alias_build_gather_fused" + label, g_r[3], g[0],
                           g[1], g[2], g_r[0], g_r[1], g_r[2])
 
-    def run3(fn):
-        return lambda: fn(shared.n_wk, shared.n_k, prior, rows_k3,
+    def run3(fn, sel):
+        return lambda: fn(shared.n_wk, shared.n_k, prior, sel,
                           beta=cfg.beta, beta_bar=beta_bar)
-    ms3 = time_ms(run3(kab.alias_build_gather_fused), 10)
-    plain3 = time_ms(run3(ref.alias_build_gather_fused_ref), 2)
-    r = GATHER_ROWS
-    # Reads the R gathered n_wk rows, n_k, prior and rows; writes prob,
-    # alias and dense (R, K) and mass (R,).
-    bytes3 = r * k * 4 + 2 * k * 4 + r * 4 + r * k * 12 + r * 4
-    b3, by3 = bound(bytes3, 0)
+
+    def bytes3(r):
+        # Reads the R gathered n_wk rows, n_k, prior and rows; writes
+        # prob, alias and dense (R, K) and mass (R,).
+        return r * k * 4 + 2 * k * 4 + r * 4 + r * k * 12 + r * 4
+    by_rows = {}
+    for r in INCREMENTAL_ROWS:
+        sel = rows_k3[:r]
+        by_rows[str(r)] = {
+            "ms": device_ms(gather_entry(shared.n_wk, shared.n_k, prior,
+                                         sel, cfg.beta, beta_bar), 20),
+            "call_ms": time_ms(run3(kab.alias_build_gather_fused, sel), 10),
+            "bound_ms": bound(bytes3(r), 0)[0]}
+        per_lane_line(f"alias_build_gather_fused{label} R={r}",
+                      by_rows[str(r)]["ms"])
+    plain3 = time_ms(run3(ref.alias_build_gather_fused_ref, rows_k3), 2)
+    b3, by3 = bound(bytes3(GATHER_ROWS), 0)
     report.append({
         "name": "alias_build_gather_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:379",
-        "ms": ms3, "plain_ms": plain3, "bound_ms": b3, "bound_by": by3,
-        "library_ms": None, "bytes": bytes3, "partial_equals_full": True,
-        **stats3})
+        "ms": by_rows[str(GATHER_ROWS)]["ms"],
+        "call_ms": by_rows[str(GATHER_ROWS)]["call_ms"],
+        "ms_note": INCREMENTAL_MS_NOTE, "rows": GATHER_ROWS,
+        "plain_ms": plain3, "bound_ms": b3, "bound_by": by3,
+        "library_ms": None, "bytes": bytes3(GATHER_ROWS),
+        "by_rows": by_rows, "partial_equals_full": True, **stats3})
     print(f"KERNEL alias_build_gather_fused{label} "
           f"{json.dumps(report[-1])}", flush=True)
 
@@ -811,19 +933,32 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
         raise AssertionError("alias_build_rows differs from the full "
                              "build's rows")
     stats5 = check_tables("alias_build_rows", p_rows, *t5, *t5_r)
-    ms5 = time_ms(lambda: kab.alias_build_rows(p_rows), 10)
+
+    def bytes5(r):
+        # Reads the (R, 2K) block; writes prob and alias (R, 2K) and mass.
+        return r * e_out * 12 + r * 4
+    by_rows = {}
+    for r in INCREMENTAL_ROWS:
+        block = p_rows[:r]
+        by_rows[str(r)] = {
+            "ms": device_ms(lambda: kab.alias_build_rows(block), 20),
+            "call_ms": time_ms(lambda: kab.alias_build_rows(block), 10),
+            "bound_ms": bound(bytes5(r), 0)[0]}
+        per_lane_line(f"alias_build_rows R={r}", by_rows[str(r)]["ms"])
     plain5 = time_ms(lambda: alias_mod.build(p_rows), 2)
-    r = GATHER_ROWS
-    # Reads the (R, 2K) block; writes prob and alias (R, 2K) and mass (R,).
-    bytes5 = r * e_out * 12 + r * 4
-    b5, by5 = bound(bytes5, 0)
+    b5, by5 = bound(bytes5(GATHER_ROWS), 0)
     report.append({
         "name": "alias_build_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:336",
-        "ms": ms5, "plain_ms": plain5, "bound_ms": b5, "bound_by": by5,
-        "library_ms": None, "bytes": bytes5, "rows": r, "width": e_out,
-        "partial_equals_full": True, **stats5})
+        "ms": by_rows[str(GATHER_ROWS)]["ms"],
+        "call_ms": by_rows[str(GATHER_ROWS)]["call_ms"],
+        "ms_note": INCREMENTAL_MS_NOTE, "plain_ms": plain5,
+        "bound_ms": b5, "bound_by": by5, "library_ms": None,
+        "bytes": bytes5(GATHER_ROWS), "rows": GATHER_ROWS, "width": e_out,
+        "by_rows": by_rows, "partial_equals_full": True,
+        "adversarial": adversarial_check("alias_build_rows", dev),
+        **stats5})
     print(f"KERNEL alias_build_rows {json.dumps(report[-1])}", flush=True)
 
     # Kernel 4: a slice of client 0's first chunk.
@@ -1164,8 +1299,7 @@ def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
             "perplexity": ppl, "launches": launched,
             "alias_builds": trainer.alias_builds}
         print(f"TRAIN {label}-{name} {json.dumps(summary)}", flush=True)
-        if name == "cadence":
-            profile_round(trainer, label)
+        profile_round(trainer, label, name)
         del trainer
         torch.cuda.empty_cache()
     counts = dict(_build.LAUNCHES)
@@ -1231,6 +1365,8 @@ def main() -> int:
     report = lm_kernels(dev, tr, cfg, ccfg, lda.dense_probs(cfg, shared),
                         prior, rows3)
     report[0]["adversarial"] = adversarial_check("alias_build", dev)
+    report[1]["adversarial"] = adversarial_check("alias_build_gather_fused",
+                                                 dev)
     report.append(doc_list_kernel(tr.locals_[0].n_dk))
     del shared
     first = {"cadence": tr}

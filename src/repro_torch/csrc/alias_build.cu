@@ -18,21 +18,32 @@
 // s_j - (1 - s_i)) is the plain version's, compiled with --fmad=false, so
 // the tables are bit-equal to core/alias.py::build.
 //
-// Full builds, kernels 2 and 6: rows staged once in shared memory.
+// Every build runs on rows staged once in shared memory (the staged
+// route); rows wider than it takes run per lane (below).
 //   What bounds them.  The function moves 12 bytes an entry (p in, prob
-//   and alias out), 0.48 ms at 131072x1024 on an H100; but each row's
-//   pairing is a chain of up to K dependent steps, so the time is the
-//   chain's latency times the rows an SM holds in flight at once, and
-//   shared memory bounds that number (a row needs ~6 bytes an entry).
+//   and alias out; kernel 3 also writes its dense row), 0.48 ms at
+//   131072x1024 on an H100; but each row's pairing is a chain of up to K
+//   dependent steps, so the time is the chain's latency times the rows an
+//   SM holds in flight at once, and shared memory bounds that number (a
+//   row needs ~6 bytes an entry).  An incremental build of a few thousand
+//   rows is one wave or less: its floor is one chain's latency.
 //   What the design does.  A warp owns a few rows at a time (the plan
 //   below sizes rows per warp and warps per block from K and the card's
 //   shared memory: about sixteen warps a block, as many rows each as fit,
 //   since on the H100 the warps hide each other's chain latency better
 //   than more rows a warp do; every warp walks its own rows, the grid is
-//   one wave of blocks) and, for each group of rows:
-//   * stages the rows with coalesced 16-byte cp.async copies; kernel 6
-//     then forms (alpha*(n_wk+beta))/(n_k+beta_bar) in place, with
-//     n_k+beta_bar read from shared memory, filled once a block;
+//   one wave of blocks; rows that fill less than one wave are spread over
+//   every SM, a row a warp where the SMs hold that many warps) and, for
+//   each group of rows:
+//   * stages the rows with coalesced 16-byte cp.async copies: kernels 2
+//     and 5 the dense rows, kernel 6 its n_wk rows, kernel 3 the n_wk rows
+//     its row indices name (a gather: any order).  Kernel 6 then forms
+//     (alpha*(n_wk+beta))/(n_k+beta_bar) in place, kernel 3
+//     prior*((n_wk+beta)/(n_k+beta_bar)) (the division grouped first, as
+//     lda.dense_probs does, so partial and full rebuilds agree bit for bit)
+//     and stores it to its `dense` output before the row is scaled; the
+//     per-topic arrays (n_k+beta_bar, and kernel 3's prior) are read from
+//     shared memory, filled once a block;
 //   * sums each row's mass left to right in one lane, the rows of the
 //     group on different lanes at once (the plain order; no tree);
 //   * forms scaled in place with the whole warp, a bit an entry for
@@ -54,30 +65,32 @@
 //   * writes prob and alias with coalesced 16-byte streaming stores: the
 //     outputs are written once, no init pass, no scattered stores.
 //   Width: a row takes (K4 + 4)*6 bytes plus its mask words (K4 = K
-//   rounded up to 4), kernel 6's block (K4 + 4)*4 bytes more, and alias
-//   indices are 16-bit, so K <= 32768.  On an H100 (227 KB a block) that
-//   is K <= 32768 for kernel 2 and K <= 22,952 for kernel 6
-//   (alias_build_staged_max_width reports it for the card at hand); at
-//   K = 1024 an SM holds 36 rows (18 warps of 2), at 2048 18 (18 warps of
-//   1).  Wider rows go to the per-lane kernels below, from the same entry
-//   points.
+//   rounded up to 4), and a block (K4 + 4)*4 bytes more for each of its
+//   per-topic arrays (none for kernels 2 and 5, one for kernel 6, two for
+//   kernel 3); alias indices are 16-bit, so K <= 32768.  On an H100 (227
+//   KB a block) that is K <= 32768 for kernels 2 and 5, K <= 22,952 for
+//   kernel 6 and K <= 16,452 for kernel 3 (alias_build_staged_max_width
+//   reports each kernel's limit for the card at hand); at K = 1024 an SM
+//   holds 36 rows (18 warps of 2), at 2048 18 (18 warps of 1).  Kernel 3's
+//   4096 rows at K = 1024 are less than a wave: 256 blocks of 16 warps, a
+//   row each, two blocks an SM.  A lone row's chain still takes ~75 us
+//   there (most groups of a frequent word's row turn a large), so a wave's
+//   latency, not the byte bound, is the floor of an incremental build.
+//   Kernel 5 is kernel 2 on a compacted block of gathered changed rows
+//   (the generic incremental rebuild, PDP's).  The TPU kernel pads the
+//   block to its row tile and trims the result; here any number of rows
+//   is taken as it is.  Its own entry point lets the wrapper count its
+//   launches apart from full builds.
 //
-// Per-lane builds, kernels 3 and 5 and rows wider than the staged route:
-// one warp owns 32 rows.  Each lane sums its own row left to right; the
-// count of small entries and the prob=1/alias=self initialisation run with
-// all 32 lanes on one row at a time, coalesced; then every lane runs the
-// pairing of its own row on device memory, finding the next original
-// small/large with two monotone scans of the row that recompute
-// scaled = p/mass*K from the input.
-// Kernel 3 first writes prior*((n_wk+beta)/(n_k+beta_bar)) of each
-// gathered row into its `dense` output (the division grouped first, as
-// lda.dense_probs does, so partial and full rebuilds agree bit for bit),
+// Per-lane builds, rows wider than the staged route: one warp owns 32
+// rows.  Each lane sums its own row left to right; the count of small
+// entries and the prob=1/alias=self initialisation run with all 32 lanes
+// on one row at a time, coalesced; then every lane runs the pairing of its
+// own row on device memory, finding the next original small/large with two
+// monotone scans of the row that recompute scaled = p/mass*K from the
+// input.  Kernel 3 first writes each gathered row's dense term to `dense`,
 // then runs the same row build on it.
-// Kernel 5 is the build of a compacted block of gathered changed rows (the
-// generic incremental rebuild, PDP's).  The TPU kernel pads the block to
-// its row tile and trims the result; here a warp takes any 32 rows, so the
-// entry launches the per-lane kernel on the R rows as they are.  Its own
-// entry point lets the wrapper count its launches apart from full builds.
+//
 // Kernel 6's grouping is the TPU kernel's, the product first; it is not
 // lda.dense_probs's alpha*((n_wk+beta)/(n_k+beta_bar)), so its tables
 // differ from kernel 2's on the unfused term in the last place.  The TPU
@@ -245,6 +258,7 @@ int blocks_for(long rows) {
 constexpr int kMaxStagedWidth = 32768;   // alias indices held in 16 bits
 constexpr int kTargetWarps = 16;         // warps a block, rows allowing
 constexpr int kMaxWarps = 24;
+constexpr int kMaxSpreadBlocks = 4;      // blocks an SM below one wave
 
 // Floats of a staged row: K rounded up to 4, plus 4, so rows start on
 // 16 bytes and consecutive rows start 4 banks apart.
@@ -260,23 +274,28 @@ struct Plan {
   int rows_per_warp;   // 0: the row does not fit; use the per-lane route
   int warps;
   int warp_bytes;      // shared memory of one warp's rows
-  int block_bytes;     // the block's own part (kernel 6's denominators)
+  int block_bytes;     // the block's own part: its per-topic arrays
   int smem;            // dynamic shared memory a block
 };
 
-Plan make_plan(int k, bool fused, int smem_max) {
+// Scaled/prob (4 bytes), alias (2) and the mask of a staged row, rounded
+// up to 16 bytes so that every warp's part starts on 16 bytes.
+long row_bytes(int k) {
+  return ((long)row_stride(k) * 6 + (long)mask_stride(k) * 4 + 15) & ~15L;
+}
+
+// The full plan of a kernel whose block keeps `arrays` per-topic arrays
+// of row_stride(k) floats (0: kernels 2 and 5, 1: kernel 6, 2: kernel 3).
+Plan make_plan(int k, int arrays, int smem_max) {
   Plan p{0, 0, 0, 0, 0};
-  // Scaled/prob (4 bytes), alias (2) and the mask, rounded up to 16 bytes
-  // so that every warp's part starts on 16 bytes.
-  const long row_bytes =
-      ((long)row_stride(k) * 6 + (long)mask_stride(k) * 4 + 15) & ~15L;
-  p.block_bytes = fused ? row_stride(k) * 4 : 0;
+  const long bytes = row_bytes(k);
+  p.block_bytes = arrays * row_stride(k) * 4;
   if (k < 1 || k > kMaxStagedWidth) return p;
-  const long fit = ((long)smem_max - p.block_bytes) / row_bytes;
+  const long fit = ((long)smem_max - p.block_bytes) / bytes;
   if (fit < 1) return p;
   p.rows_per_warp = (int)std::min(32L, std::max(1L, fit / kTargetWarps));
   p.warps = (int)std::min((long)kMaxWarps, fit / p.rows_per_warp);
-  p.warp_bytes = (int)(row_bytes * p.rows_per_warp);
+  p.warp_bytes = (int)(bytes * p.rows_per_warp);
   p.smem = p.block_bytes + p.warps * p.warp_bytes;
   return p;
 }
@@ -301,8 +320,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Stage sources.  A warp copies input row r (k entries) into shared s
-// with stage(); once the copies have landed, finish() turns each copy
-// into the row's dense term in place.
+// with stage(); once the copies have landed, finish() turns the copy of
+// row r into the row's dense term in place.
 __device__ __forceinline__ void copy_row(const float* __restrict__ src,
                                          float* s, int k, int lane,
                                          bool vec) {
@@ -321,7 +340,7 @@ struct StageDense {
   __device__ void stage(long r, float* s, int k, int lane) const {
     copy_row(p + r * (long)k, s, k, lane, kVec);
   }
-  __device__ void finish(float*, int, int) const {}
+  __device__ void finish(long, float*, int, int) const {}
 };
 
 // kernel 6: (alpha*(n_wk+beta))/(n_k+beta_bar), the denominators formed
@@ -339,7 +358,7 @@ struct StageFusedLda {
   __device__ void stage(long r, float* s, int k, int lane) const {
     copy_row(n_wk + r * (long)k, s, k, lane, kVec);
   }
-  __device__ void finish(float* s, int k, int lane) const {
+  __device__ void finish(long, float* s, int k, int lane) const {
     // Rows and denominators start on 16 bytes in shared memory, so the
     // four-wide pass is safe for any K; entries past K are never read.
     for (int c = lane * 4; c < k; c += 128) {
@@ -351,6 +370,56 @@ struct StageFusedLda {
       y.z = (alpha * (x.z + beta)) / d.z;
       y.w = (alpha * (x.w + beta)) / d.w;
       *reinterpret_cast<float4*>(s + c) = y;
+    }
+  }
+};
+
+// kernel 3: prior*((n_wk+beta)/(n_k+beta_bar)) of n_wk row rows[r], the
+// prior and the denominators formed once a block into shared memory; the
+// term is also stored to row r of `dense`.
+template <bool kVec>
+struct StageGather {
+  const float* __restrict__ n_wk;
+  const float* __restrict__ n_k;
+  const float* __restrict__ prior;
+  const int* __restrict__ rows;
+  float beta, beta_bar;
+  float* __restrict__ dense;
+  const float* pri;   // set by block_setup
+  const float* den;
+  __device__ void block_setup(float* d, int k) {
+    float* e = d + row_stride(k);
+    for (int c = threadIdx.x; c < k; c += blockDim.x) {
+      d[c] = prior[c];
+      e[c] = n_k[c] + beta_bar;
+    }
+    pri = d;
+    den = e;
+  }
+  __device__ void stage(long r, float* s, int k, int lane) const {
+    copy_row(n_wk + (long)rows[r] * k, s, k, lane, kVec);
+  }
+  __device__ void finish(long r, float* s, int k, int lane) const {
+    float* out = dense + r * (long)k;
+    if (kVec) {
+      for (int c = lane * 4; c < k; c += 128) {
+        const float4 x = *reinterpret_cast<const float4*>(s + c);
+        const float4 p = *reinterpret_cast<const float4*>(pri + c);
+        const float4 d = *reinterpret_cast<const float4*>(den + c);
+        float4 y;
+        y.x = p.x * ((x.x + beta) / d.x);
+        y.y = p.y * ((x.y + beta) / d.y);
+        y.z = p.z * ((x.z + beta) / d.z);
+        y.w = p.w * ((x.w + beta) / d.w);
+        *reinterpret_cast<float4*>(s + c) = y;
+        __stcs(reinterpret_cast<float4*>(out + c), y);
+      }
+    } else {
+      for (int c = lane; c < k; c += 32) {
+        const float y = pri[c] * ((s[c] + beta) / den[c]);
+        s[c] = y;
+        __stcs(out + c, y);
+      }
     }
   }
 };
@@ -589,7 +658,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       src.stage(row0 + q, rows_s + q * stride, k, lane);
     if (kVec) cp_async_wait_all();
     __syncwarp();
-    for (int q = 0; q < n; ++q) src.finish(rows_s + q * stride, k, lane);
+    for (int q = 0; q < n; ++q)
+      src.finish(row0 + q, rows_s + q * stride, k, lane);
     __syncwarp();
 
     // The mass of row `lane`, left to right in one lane.
@@ -646,49 +716,60 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
-// Launch the staged kernel with `plan`: one wave of blocks, each warp
-// walking its groups of rows.
+long ceil_div(long a, long b) { return (a + b - 1) / b; }
+
+// Launch the staged kernel.  With one wave of rows or more (every SM
+// holding as many blocks of the full plan as fit), as many blocks as the
+// SMs hold at once, each warp walking its groups of rows.  Below one wave
+// the rows are spread over every SM instead: the fewest rows a warp (one,
+// where the SMs hold a warp a row), then the fewest blocks an SM, such
+// that every warp takes one group and all the blocks are resident at once.
 template <class Stage, bool kVec>
-int launch_staged(Stage src, int r, int k, const Plan& plan, float* prob,
+int launch_staged(Stage src, int r, int k, const Plan& full, float* prob,
                   int* alias, float* mass, cudaStream_t stream) {
   auto kernel = alias_build_staged_kernel<Stage, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, full.smem);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, plan.warps * 32, plan.smem);
-  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long groups = ((long)r + plan.rows_per_warp - 1) / plan.rows_per_warp;
-  const long want = (groups + plan.warps - 1) / plan.warps;
-  const int grid = (int)std::max(1L, std::min(want, (long)sms * std::max(1, per_sm)));
-  kernel<<<grid, plan.warps * 32, plan.smem, stream>>>(src, r, k, plan, prob,
-                                                       alias, mass);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// The widest K that the staged route of kernel 2 (fused = 0) or kernel 6
-// (fused = 1) takes on the current card; wider rows run per lane.
-extern "C" int alias_build_staged_max_width(int fused) {
-  const int smem = device_smem_max();
-  int lo = 0, hi = kMaxStagedWidth;
-  while (lo < hi) {                       // the fit is monotone in K
-    const int mid = (lo + hi + 1) / 2;
-    if (make_plan(mid, fused != 0, smem).rows_per_warp > 0) lo = mid;
-    else hi = mid - 1;
+  auto resident = [&](const Plan& p) {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &n, kernel, p.warps * 32, p.smem) == cudaSuccess ? n : 0;
+  };
+  auto launch = [&](const Plan& p, long grid) {
+    kernel<<<(int)std::max(1L, grid), p.warps * 32, p.smem, stream>>>(
+        src, r, k, p, prob, alias, mass);
+    return (int)cudaGetLastError();
+  };
+  const long full_rows = (long)full.warps * full.rows_per_warp;
+  const long wave = (long)sms * std::max(1, resident(full));   // blocks
+  if (r < wave * full_rows) {
+    for (int rpw = 1; rpw <= full.rows_per_warp; ++rpw) {
+      const long groups = ceil_div(r, rpw);
+      for (int b = 1; b <= kMaxSpreadBlocks; ++b) {
+        const long w = ceil_div(groups, (long)sms * b);
+        if (w > kMaxWarps || w * rpw > full_rows) continue;
+        Plan p = full;
+        p.rows_per_warp = rpw;
+        p.warps = (int)w;
+        p.warp_bytes = (int)(row_bytes(k) * rpw);
+        p.smem = p.block_bytes + p.warps * p.warp_bytes;
+        if (resident(p) >= b) return launch(p, ceil_div(groups, w));
+      }
+    }
   }
-  return lo;
+  return launch(full, std::min(ceil_div(ceil_div(r, full.rows_per_warp),
+                                        full.warps), wave));
 }
 
-extern "C" int alias_build(const float* p, int r, int k, float* prob,
-                           int* alias, float* mass, void* stream) {
+// Kernels 2 and 5: the rows of p as they are.
+int build_dense(const float* p, int r, int k, float* prob, int* alias,
+                float* mass, cudaStream_t st) {
   if (r <= 0) return (int)cudaGetLastError();
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Plan plan = make_plan(k, false, device_smem_max());
+  const Plan plan = make_plan(k, 0, device_smem_max());
   if (plan.rows_per_warp == 0) {
     alias_build_kernel<<<blocks_for(r), kWarpsPerBlock * 32, 0, st>>>(
         p, r, k, prob, alias, mass);
@@ -701,12 +782,30 @@ extern "C" int alias_build(const float* p, int r, int k, float* prob,
                                                  plan, prob, alias, mass, st);
 }
 
+}  // namespace
+
+// The widest K that the staged route takes on the current card for a
+// kernel whose block keeps `arrays` per-topic arrays (0: kernels 2 and 5,
+// 1: kernel 6, 2: kernel 3); wider rows run per lane.
+extern "C" int alias_build_staged_max_width(int arrays) {
+  const int smem = device_smem_max();
+  int lo = 0, hi = kMaxStagedWidth;
+  while (lo < hi) {                       // the fit is monotone in K
+    const int mid = (lo + hi + 1) / 2;
+    if (make_plan(mid, arrays, smem).rows_per_warp > 0) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+extern "C" int alias_build(const float* p, int r, int k, float* prob,
+                           int* alias, float* mass, void* stream) {
+  return build_dense(p, r, k, prob, alias, mass, (cudaStream_t)stream);
+}
+
 extern "C" int alias_build_rows(const float* p, int r, int k, float* prob,
                                 int* alias, float* mass, void* stream) {
-  if (r > 0)
-    alias_build_kernel<<<blocks_for(r), kWarpsPerBlock * 32, 0,
-                         (cudaStream_t)stream>>>(p, r, k, prob, alias, mass);
-  return (int)cudaGetLastError();
+  return build_dense(p, r, k, prob, alias, mass, (cudaStream_t)stream);
 }
 
 extern "C" int alias_build_gather_fused(const float* n_wk, const float* n_k,
@@ -715,12 +814,25 @@ extern "C" int alias_build_gather_fused(const float* n_wk, const float* n_k,
                                         float beta_bar, float* prob,
                                         int* alias, float* mass,
                                         float* dense, void* stream) {
-  if (r > 0)
-    alias_build_gather_kernel<<<blocks_for(r), kWarpsPerBlock * 32, 0,
-                                (cudaStream_t)stream>>>(
+  if (r <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Plan plan = make_plan(k, 2, device_smem_max());
+  if (plan.rows_per_warp == 0) {
+    alias_build_gather_kernel<<<blocks_for(r), kWarpsPerBlock * 32, 0, st>>>(
         n_wk, n_k, prior, rows, r, k, beta, beta_bar, prob, alias, mass,
         dense);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  if (k % 4 == 0 && aligned16(n_wk) && aligned16(prob) && aligned16(alias) &&
+      aligned16(dense))
+    return launch_staged<StageGather<true>, true>(
+        StageGather<true>{n_wk, n_k, prior, rows, beta, beta_bar, dense,
+                          nullptr, nullptr},
+        r, k, plan, prob, alias, mass, st);
+  return launch_staged<StageGather<false>, false>(
+      StageGather<false>{n_wk, n_k, prior, rows, beta, beta_bar, dense,
+                         nullptr, nullptr},
+      r, k, plan, prob, alias, mass, st);
 }
 
 extern "C" int alias_build_fused(const float* n_wk, const float* n_k, int v,
@@ -729,7 +841,7 @@ extern "C" int alias_build_fused(const float* n_wk, const float* n_k, int v,
                                  float* mass, void* stream) {
   if (v <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  const Plan plan = make_plan(k, true, device_smem_max());
+  const Plan plan = make_plan(k, 1, device_smem_max());
   if (plan.rows_per_warp == 0) {
     alias_build_fused_kernel<<<blocks_for(v), kWarpsPerBlock * 32, 0, st>>>(
         n_wk, n_k, v, k, alpha, beta, beta_bar, prob, alias, mass);

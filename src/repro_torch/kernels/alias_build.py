@@ -1,10 +1,7 @@
 """Wrappers of the alias-build kernels in ``csrc/alias_build.cu``.
 
 * :func:`alias_build` replaces ``repro/kernels/alias_build.py::alias_build``
-  (kernel 2); the port sends full builds through it.  Rows up to
-  :func:`staged_max_width` wide are staged once in shared memory; wider
-  rows run on the per-lane kernel, from the same entry point and counted
-  under the same name.
+  (kernel 2); the port sends full builds through it.
 * :func:`alias_build_gather_fused` replaces
   ``repro/kernels/alias_build.py::alias_build_gather_fused`` (kernel 3),
   the incremental rebuild of the changed rows for the LM families.
@@ -16,7 +13,11 @@
 * :func:`alias_build_fused` replaces
   ``repro/kernels/alias_build.py::alias_build_fused`` (kernel 6), the full
   LDA build that forms the dense term α·(n_wk+β)/(n_k+β̄) itself
-  (``LDAConfig(fused_alias_build=True)``), with the same two width routes.
+  (``LDAConfig(fused_alias_build=True)``).
+
+Each stages its rows once in shared memory up to
+:func:`staged_max_width` wide; wider rows run on the per-lane kernels,
+from the same entry point and counted under the same name.
 
 All take CUDA tensors only and never fall back to the plain versions
 (``core/alias.py::build``, ``kernels/ref.py``); ``kernels/ops.py`` routes
@@ -42,11 +43,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def staged_max_width(fused: bool = False) -> int:
-    """The widest K that kernel 2 (or kernel 6, ``fused``) stages in shared
+# Per-topic arrays that each kernel's block keeps in shared memory beside
+# its rows: kernel 6 its denominators, kernel 3 those and its prior.
+_BLOCK_ARRAYS = {2: 0, 5: 0, 6: 1, 3: 2}
+
+
+def staged_max_width(kernel: int = 2) -> int:
+    """The widest K that kernel ``kernel`` (2, 3, 5 or 6) stages in shared
     memory on the current card; its entry point sends wider rows to the
     per-lane kernel.  Builds the kernels on first use."""
-    return function("alias_build_staged_max_width")(int(fused))
+    return function("alias_build_staged_max_width")(_BLOCK_ARRAYS[kernel])
 
 
 def _build_rows(name: str, p: torch.Tensor):

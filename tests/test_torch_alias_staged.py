@@ -230,7 +230,7 @@ def _equal_bits(got, want) -> bool:
 def _width(k, fused: bool) -> int:
     from repro_torch.kernels import alias_build as kab
 
-    return kab.staged_max_width(fused) + 1 if k == "above" else k
+    return kab.staged_max_width(6 if fused else 2) + 1 if k == "above" else k
 
 
 @pytest.mark.cuda
