@@ -12,9 +12,9 @@ Phases; any failure raises and the script exits non-zero:
 3. LDA kernels against their plain PyTorch versions, on the card, at the
    main path's shapes, built from the full-size corpus's own statistics:
    alias build (V=131072, K=1024), gather build (R=4096 rows; timed also
-   at R=64, the trainer's default, and 512, on the device's clock beside
-   the per-lane design's times) and the sweep (a 262,144-token slice of a
-   real chunk), each timed with CUDA
+   at R=64, the trainer's default, and 512, a call beside the per-lane
+   design's and on the device's clock) and the sweep (a 262,144-token
+   slice of a real chunk), each timed with CUDA
    events beside its plain version and its bounds; the sweep also on the
    whole chunk (2,097,152 positions, the launch the main path runs) with
    and without its MH steps, beside its bound on that launch, the chunk's
@@ -68,6 +68,7 @@ The last lines are the kernels JSON, the card, and the result JSON.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -130,23 +131,22 @@ DENSE_FULL_CHUNK_MS = {"mhw_sweep_fused": 8.53, "pdp_sweep_fused": 34.53}
 PER_LANE_MS = {"alias_build": 12.45, "alias_build (hdp)": 12.26,
                "alias_build width 2K": 26.28, "alias_build_fused": 12.70}
 # Kernels 3 and 5 in their per-lane design at the R rows that the KERNEL
-# lines time them at, on the device's clock (device_ms): the mean of two
-# runs of the tree before their staged redesign, in one call of
-# tools/torch_alias_split.py on another card (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md's kernel table), printed on the ALIAS lines beside this run's
-# for reference, not compared in one call and kept out of the kernels JSON.
+# lines time them at: a call of the C entry point as
+# tools/torch_alias_split.py times it (time_ms), the mean of two runs of
+# the tree before their staged redesign in one call of that tool on
+# another card (NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table),
+# printed on the ALIAS lines beside this run's for reference, not
+# compared in one call and kept out of the kernels JSON.
 PER_LANE_MS.update({
-    "alias_build_gather_fused R=64": 2.011,
-    "alias_build_gather_fused R=512": 2.188,
-    "alias_build_gather_fused R=4096": 2.971,
-    "alias_build_gather_fused (hdp) R=64": 2.009,
-    "alias_build_gather_fused (hdp) R=512": 2.179,
-    "alias_build_gather_fused (hdp) R=4096": 3.264,
-    "alias_build_rows R=64": 2.031, "alias_build_rows R=512": 3.205,
-    "alias_build_rows R=4096": 6.291})
+    "alias_build_gather_fused R=64": 2.082,
+    "alias_build_gather_fused R=512": 2.297,
+    "alias_build_gather_fused R=4096": 3.063,
+    "alias_build_gather_fused (hdp) R=64": 2.077,
+    "alias_build_gather_fused (hdp) R=512": 2.262,
+    "alias_build_gather_fused (hdp) R=4096": 3.343,
+    "alias_build_rows R=64": 2.081, "alias_build_rows R=512": 3.325,
+    "alias_build_rows R=4096": 6.397})
 INCREMENTAL_ROWS = (64, 512, 4096)   # the trainer's default, and GATHER_ROWS
-# Device cycles (~1 ms) that device_ms spins before each timed run.
-SPIN_CYCLES = 2_000_000
 ADVERSARIAL_ROWS = 301          # not a multiple of any plan's rows a block
 ADVERSARIAL_ROWS_WIDE = 37
 PROFILE_TAIL = ("alias_build", "sort", "memcpy")   # shown beyond the top 15
@@ -182,25 +182,29 @@ def time_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs on the device's
-    clock, CUDA events: each run is queued behind a spin of the device
-    (``torch.cuda._sleep``) that outlasts the host's work of queuing it
-    (allocation, ctypes, the launch), so only the device's time counts,
-    which for a launch of tens of microseconds ``time_ms`` would overstate.
-    ``fn`` must not synchronise with the device."""
+    """Median milliseconds, on the device's clock, of the alias-build
+    kernels that ``reps`` calls of ``fn`` launch, one a call: their CUDA
+    records in a torch.profiler trace.  The host's work of a call
+    (allocation, checks and the syncs they make, the launch), which
+    ``time_ms`` counts, is left out.  A trace that lost most records (see
+    ``profile_round``) is taken again, up to ``PROFILE_ATTEMPTS`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == cuda and "alias_build" in e.name]
+        if 2 * len(times) > reps:
+            return statistics.median(times)
+    raise AssertionError(f"device_ms: {len(times)} of {reps} alias-build "
+                         "launches traced")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -306,42 +310,11 @@ def adversarial_rows(k: int, n_rows: int, seed: int) -> np.ndarray:
     return np.stack(rows[:n_rows])
 
 
-INCREMENTAL_MS_NOTE = (
-    "ms: the launch on the device's clock (device_ms; kernel 3 through "
-    "its C entry point, without its wrapper's host syncs); call_ms: a "
-    "call of the wrapper, CUDA events around it, as the other kernels' "
-    "ms; by_rows at the trainer's default R=64, 512 and R=4096")
-
-
-def gather_entry(n_wk, n_k, prior, rows, beta: float, beta_bar: float):
-    """Kernel 3 launched through its C entry point as its wrapper launches
-    it, into outputs allocated once, without the wrapper's checks, whose
-    host syncs (``rows.min()``/``rows.max()``) ``device_ms`` cannot hide.
-    Not counted in ``LAUNCHES``."""
-    from repro_torch.kernels import _build
-
-    r, k = rows.shape[0], n_wk.shape[1]
-    dev = n_wk.device
-    out = [torch.empty((r, k), dtype=torch.float32, device=dev),
-           torch.empty((r, k), dtype=torch.int32, device=dev),
-           torch.empty((r,), dtype=torch.float32, device=dev),
-           torch.empty((r, k), dtype=torch.float32, device=dev)]
-    fn = _build.function("alias_build_gather_fused")
-
-    def run():
-        err = fn(n_wk.data_ptr(), n_k.data_ptr(), prior.data_ptr(),
-                 rows.data_ptr(), r, k, beta, beta_bar,
-                 *(t.data_ptr() for t in out),
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"alias_build_gather_fused failed: error "
-                               f"{err}")
-    return run
-
-
-def per_lane_line(name: str, ms: float) -> None:
-    print(f"ALIAS {name}: {ms:.3f} ms; per-lane design {PER_LANE_MS[name]} "
-          "ms (an earlier run, on another call and card)", flush=True)
+def per_lane_line(name: str, ms: float, dev_ms: float | None = None) -> None:
+    on_device = "" if dev_ms is None else f" ({dev_ms:.3f} on the device)"
+    print(f"ALIAS {name}: {ms:.3f} ms a call{on_device}; per-lane design "
+          f"{PER_LANE_MS[name]} ms a call (an earlier run, on another call "
+          "and card)", flush=True)
 
 
 def adversarial_check(name: str, dev) -> dict:
@@ -751,13 +724,12 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
     by_rows = {}
     for r in INCREMENTAL_ROWS:
         sel = rows_k3[:r]
-        by_rows[str(r)] = {
-            "ms": device_ms(gather_entry(shared.n_wk, shared.n_k, prior,
-                                         sel, cfg.beta, beta_bar), 20),
-            "call_ms": time_ms(run3(kab.alias_build_gather_fused, sel), 10),
-            "bound_ms": bound(bytes3(r), 0)[0]}
+        run = run3(kab.alias_build_gather_fused, sel)
+        by_rows[str(r)] = {"ms": time_ms(run, 10),
+                           "device_ms": device_ms(run, 20),
+                           "bound_ms": bound(bytes3(r), 0)[0]}
         per_lane_line(f"alias_build_gather_fused{label} R={r}",
-                      by_rows[str(r)]["ms"])
+                      by_rows[str(r)]["ms"], by_rows[str(r)]["device_ms"])
     plain3 = time_ms(run3(ref.alias_build_gather_fused_ref, rows_k3), 2)
     b3, by3 = bound(bytes3(GATHER_ROWS), 0)
     report.append({
@@ -765,8 +737,8 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:379",
         "ms": by_rows[str(GATHER_ROWS)]["ms"],
-        "call_ms": by_rows[str(GATHER_ROWS)]["call_ms"],
-        "ms_note": INCREMENTAL_MS_NOTE, "rows": GATHER_ROWS,
+        "device_ms": by_rows[str(GATHER_ROWS)]["device_ms"],
+        "rows": GATHER_ROWS,
         "plain_ms": plain3, "bound_ms": b3, "bound_by": by3,
         "library_ms": None, "bytes": bytes3(GATHER_ROWS),
         "by_rows": by_rows, "partial_equals_full": True, **stats3})
@@ -940,11 +912,12 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
     by_rows = {}
     for r in INCREMENTAL_ROWS:
         block = p_rows[:r]
-        by_rows[str(r)] = {
-            "ms": device_ms(lambda: kab.alias_build_rows(block), 20),
-            "call_ms": time_ms(lambda: kab.alias_build_rows(block), 10),
-            "bound_ms": bound(bytes5(r), 0)[0]}
-        per_lane_line(f"alias_build_rows R={r}", by_rows[str(r)]["ms"])
+        run = functools.partial(kab.alias_build_rows, block)
+        by_rows[str(r)] = {"ms": time_ms(run, 10),
+                           "device_ms": device_ms(run, 20),
+                           "bound_ms": bound(bytes5(r), 0)[0]}
+        per_lane_line(f"alias_build_rows R={r}", by_rows[str(r)]["ms"],
+                      by_rows[str(r)]["device_ms"])
     plain5 = time_ms(lambda: alias_mod.build(p_rows), 2)
     b5, by5 = bound(bytes5(GATHER_ROWS), 0)
     report.append({
@@ -952,8 +925,8 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:336",
         "ms": by_rows[str(GATHER_ROWS)]["ms"],
-        "call_ms": by_rows[str(GATHER_ROWS)]["call_ms"],
-        "ms_note": INCREMENTAL_MS_NOTE, "plain_ms": plain5,
+        "device_ms": by_rows[str(GATHER_ROWS)]["device_ms"],
+        "plain_ms": plain5,
         "bound_ms": b5, "bound_by": by5, "library_ms": None,
         "bytes": bytes5(GATHER_ROWS), "rows": GATHER_ROWS, "width": e_out,
         "by_rows": by_rows, "partial_equals_full": True,

@@ -258,7 +258,6 @@ int blocks_for(long rows) {
 constexpr int kMaxStagedWidth = 32768;   // alias indices held in 16 bits
 constexpr int kTargetWarps = 16;         // warps a block, rows allowing
 constexpr int kMaxWarps = 24;
-constexpr int kMaxSpreadBlocks = 4;      // blocks an SM below one wave
 
 // Floats of a staged row: K rounded up to 4, plus 4, so rows start on
 // 16 bytes and consecutive rows start 4 banks apart.
@@ -721,9 +720,9 @@ long ceil_div(long a, long b) { return (a + b - 1) / b; }
 // Launch the staged kernel.  With one wave of rows or more (every SM
 // holding as many blocks of the full plan as fit), as many blocks as the
 // SMs hold at once, each warp walking its groups of rows.  Below one wave
-// the rows are spread over every SM instead: the fewest rows a warp (one,
-// where the SMs hold a warp a row), then the fewest blocks an SM, such
-// that every warp takes one group and all the blocks are resident at once.
+// the rows are spread over every SM instead, a row a warp: the fewest
+// blocks an SM, up to as many as the SMs hold, that are resident at once
+// and give every row a warp of its own.
 template <class Stage, bool kVec>
 int launch_staged(Stage src, int r, int k, const Plan& full, float* prob,
                   int* alias, float* mass, cudaStream_t stream) {
@@ -747,18 +746,20 @@ int launch_staged(Stage src, int r, int k, const Plan& full, float* prob,
   const long full_rows = (long)full.warps * full.rows_per_warp;
   const long wave = (long)sms * std::max(1, resident(full));   // blocks
   if (r < wave * full_rows) {
-    for (int rpw = 1; rpw <= full.rows_per_warp; ++rpw) {
-      const long groups = ceil_div(r, rpw);
-      for (int b = 1; b <= kMaxSpreadBlocks; ++b) {
-        const long w = ceil_div(groups, (long)sms * b);
-        if (w > kMaxWarps || w * rpw > full_rows) continue;
-        Plan p = full;
-        p.rows_per_warp = rpw;
-        p.warps = (int)w;
-        p.warp_bytes = (int)(row_bytes(k) * rpw);
-        p.smem = p.block_bytes + p.warps * p.warp_bytes;
-        if (resident(p) >= b) return launch(p, ceil_div(groups, w));
-      }
+    Plan p = full;          // within the full plan's shared memory
+    p.rows_per_warp = 1;
+    p.warp_bytes = (int)row_bytes(k);
+    auto size = [&](long warps) {
+      p.warps = (int)warps;
+      p.smem = p.block_bytes + p.warps * p.warp_bytes;
+    };
+    size(1);
+    const int most = resident(p);        // one-warp blocks an SM holds
+    for (int b = 1; b <= most; ++b) {
+      const long w = ceil_div(r, (long)sms * b);
+      if (w > std::min((long)kMaxWarps, full_rows)) continue;
+      size(w);
+      if (resident(p) >= b) return launch(p, ceil_div(r, w));
     }
   }
   return launch(full, std::min(ceil_div(ceil_div(r, full.rows_per_warp),

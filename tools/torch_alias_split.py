@@ -29,8 +29,9 @@ each incremental build at R = 64 (the trainer's default
 ``alias_rebuild_rows``), 512 and 4096 (chip_smoke.py's).  Each case is
 timed three ways: ``ms``, CUDA events around a call (``chip_smoke.time_ms``,
 which counts the host's work of queuing the launch); ``device_ms``, the
-launch alone on the device's clock (``chip_smoke.device_ms``); and
-``enqueue_us``, the host microseconds a call takes to queue it.  Each root's
+kernel alone on the device's clock, from its profiler records
+(``chip_smoke.device_ms``); and ``enqueue_us``, the host microseconds a
+call takes to queue it.  Each root's
 outputs are compared with the plain version's (``core.alias.build``,
 ``kernels/ref.py``) and reported as ``bit_equal``;
 a copy ablated on purpose may differ.  Each root's result is one
