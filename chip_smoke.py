@@ -21,6 +21,8 @@ Phases; any failure raises and the script exits non-zero:
    figures (non-zero topics per document, tokens per word, longest run)
    and the dense design's time; and the document-list build that each
    sweep launch runs first, against its plain version on a client's n_dk.
+   Every kernel is timed as a call (CUDA events) and on the device's
+   clock (``device_ms``: its profiler records, the host's work left out).
    Kernels 2 and 3 also bit for bit on adversarial rows (zeros, one-hot,
    all equal, inf, inf and NaN, residuals at exactly 1.0, denormals) at
    K=1024, at K=1023 and above their staged route's width limit (the
@@ -58,7 +60,9 @@ Phases; any failure raises and the script exits non-zero:
    3 cadence rounds with the checks of phase 4.
 10. Draws: kernels 7, 8 and 9 through ops.sample_rows_sorted,
    ops.sample_rows and ops.mh_accept on a real sorted chunk of that
-   trainer with its tables, each against its plain version.
+   trainer with its tables, each against its plain version; kernels 7
+   and 8 beside their byte bound and the bytes a card with 32-byte
+   sectors moves at least (``sector_bytes``).
 
 Each path (lda, pdp, hdp, lda-fused, draws) is driven with the launch
 counters zeroed just before it and read just after, and every kernel of
@@ -151,6 +155,7 @@ ADVERSARIAL_ROWS = 301          # not a multiple of any plan's rows a block
 ADVERSARIAL_ROWS_WIDE = 37
 PROFILE_TAIL = ("alias_build", "sort", "memcpy")   # shown beyond the top 15
 PROFILE_ATTEMPTS = 3            # profiled windows before a lost record fails
+PROFILE_PAD, PROFILE_PAD_S = 200, 0.1   # device_ms's window opening
 
 
 def card_line() -> str:
@@ -181,30 +186,54 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
-    """Median milliseconds, on the device's clock, of the alias-build
-    kernels that ``reps`` calls of ``fn`` launch, one a call: their CUDA
-    records in a torch.profiler trace.  The host's work of a call
-    (allocation, checks and the syncs they make, the launch), which
-    ``time_ms`` counts, is left out.  A trace that lost most records (see
-    ``profile_round``) is taken again, up to ``PROFILE_ATTEMPTS`` times."""
+def device_ms(fn, reps: int, symbol: str = "alias_build") -> float:
+    """Median milliseconds, on the device's clock, of the kernels whose
+    symbol contains ``symbol`` that ``reps`` calls of ``fn`` launch, one a
+    call: their CUDA records in a torch.profiler trace.  The host's work of
+    a call (allocation, checks and the syncs they make, the launch), which
+    ``time_ms`` counts, is left out.  Late in a run a window may lose its
+    first records (see ``profile_round``: ten kernel-2 calls of HDP's phase
+    kept their last two), so it opens with ``PROFILE_PAD`` small launches
+    over at least ``PROFILE_PAD_S`` seconds and ``reps`` more calls, and
+    only the last ``reps`` records are read; a window with fewer is taken
+    again, up to ``PROFILE_ATTEMPTS`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
     fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            t, n = time.perf_counter(), 0
+            while n < PROFILE_PAD or time.perf_counter() - t < PROFILE_PAD_S:
+                pad.add_(1.0)
+                n += 1
+            for _ in range(2 * reps):
                 fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                 if e.device_type == cuda and "alias_build" in e.name]
-        if 2 * len(times) > reps:
-            return statistics.median(times)
-    raise AssertionError(f"device_ms: {len(times)} of {reps} alias-build "
+        records = sorted((e.time_range for e in prof.events()
+                          if e.device_type == cuda and symbol in e.name),
+                         key=lambda r: r.start)
+        if len(records) >= reps:
+            return statistics.median(r.elapsed_us() / 1e3
+                                     for r in records[-reps:])
+    raise AssertionError(f"device_ms: {len(records)} of {2 * reps} {symbol} "
                          "launches traced")
+
+
+def enqueue_us(run, calls: int = 50) -> float:
+    """Host microseconds a call of ``run`` takes to enqueue its launch, the
+    device held busy meanwhile so that the queue never waits."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t = time.perf_counter()
+    for _ in range(calls):
+        run()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -596,21 +625,34 @@ def split_ms(run, gen, dev, e_out: int, steps: int, b: int) -> dict:
     return ms_s
 
 
+SWEEP_SYMBOLS = {"mhw_sweep_fused": "mhw_sweep_kernel",
+                 "pdp_sweep_fused": "pdp_sweep_kernel"}
+
+
 def full_chunk(name, run, gen, dev, e_out, steps, b, bytes_full, ops_full,
                figures, label) -> dict:
     """A sweep kernel on a full chunk of ``b`` positions with and without
-    its MH steps (``split_ms``), beside its bound on that launch; the
-    dense design's time is printed, not returned."""
+    its MH steps (``split_ms``), beside its bound on that launch, and with
+    them on the device's clock (the sweep kernel alone: not the list build
+    before it, nor kernel 4's per-topic table); the dense design's time is
+    printed, not returned."""
+    from repro_torch.kernels import ops
+
     ms_s = split_ms(run, gen, dev, e_out, steps, b)
+    uni = ops._step_uniforms(torch.Generator(device=dev).manual_seed(0),
+                             e_out, steps, b, dev)
+    dev_ms = device_ms(lambda: run(uni), 5, SWEEP_SYMBOLS[name])
+    del uni
     nbytes, nops = sum(bytes_full.values()), sum(ops_full.values())
     b_full, by_full = bound(nbytes, nops)
     print(f"SWEEP {name}{label} full chunk ({b} positions): "
-          f"{ms_s[steps]:.3f} ms with S={steps}, {ms_s[0]:.3f} ms with S=0; "
+          f"{ms_s[steps]:.3f} ms with S={steps} ({dev_ms:.3f} on the "
+          f"device), {ms_s[0]:.3f} ms with S=0; "
           f"bound {b_full:.4f} ms ({by_full}); dense design "
           f"{DENSE_FULL_CHUNK_MS[name]} ms (an earlier run, on another call "
           f"and card); chunk {json.dumps(figures)}", flush=True)
     return {"full_chunk_tokens": b, "full_chunk_ms": ms_s[steps],
-            "full_chunk_ms_S0": ms_s[0],
+            "full_chunk_device_ms": dev_ms, "full_chunk_ms_S0": ms_s[0],
             "full_chunk_bound_ms": b_full, "full_chunk_bound_by": by_full,
             "full_chunk_bound_bytes_ms": bound(nbytes, 0)[0],
             "full_chunk_bound_ops_ms": bound(0, nops)[0],
@@ -639,6 +681,8 @@ def doc_list_kernel(n_dk) -> dict:
             "from plain")
     del words, counts, want_w, want_c, valid
     ms = time_ms(lambda: doc_topics.doc_topic_lists(n_dk), 20)
+    dev_ms = device_ms(lambda: doc_topics.doc_topic_lists(n_dk), 20,
+                       "doc_topics_kernel")
     plain = time_ms(lambda: ref.doc_topic_lists_ref(n_dk), 3)
     parts = {"n_dk": d * k * 4, "words": d * ref.doc_words(k) * 8,
              "counts": int(k_d.sum()) * 2}
@@ -651,9 +695,9 @@ def doc_list_kernel(n_dk) -> dict:
         "replaces_note": "no TPU kernel of its own: the lists of each "
                          "document's non-zero topics that kernels 1 and 4 "
                          "(mhw_fused.py:153, :322) read in place of n_dk rows",
-        "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
-        "library_ms": None, "bytes": nbytes, "bytes_parts": parts,
-        "docs": d, "k_d_mean": float(k_d.float().mean()),
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": b,
+        "bound_by": by, "library_ms": None, "bytes": nbytes,
+        "bytes_parts": parts, "docs": d, "k_d_mean": float(k_d.float().mean()),
         "k_d_max": int(k_d.max()), "max_abs_err": 0}
     print(f"KERNEL doc_topic_lists {json.dumps(entry)}", flush=True)
     return entry
@@ -682,6 +726,7 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
                           prob_r, alias_r, mass_r)
     del prob_r, alias_r, mass_r
     ms2 = time_ms(lambda: kab.alias_build(dp), 5)
+    dev2 = device_ms(lambda: kab.alias_build(dp), 5)
     plain2 = time_ms(lambda: alias_mod.build(dp), 2)
     # Reads p; writes prob and alias (V, K) and mass (V,).
     bytes2 = v * k * 4 + v * k * 8 + v * 4
@@ -690,8 +735,8 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
         "name": "alias_build", "route": "cuda",
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:186",
-        "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
-        "library_ms": None, "bytes": bytes2, **stats2})
+        "ms": ms2, "device_ms": dev2, "plain_ms": plain2, "bound_ms": b2,
+        "bound_by": by2, "library_ms": None, "bytes": bytes2, **stats2})
     print(f"KERNEL alias_build{label} {json.dumps(report[-1])}", flush=True)
     per_lane_line("alias_build" + label, ms2)
 
@@ -774,6 +819,9 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
                              f"differ (> {SWEEP_MISMATCH_TOL})")
     ms1 = time_ms(lambda: kmf.mhw_sweep_fused(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 10)
+    dev1 = device_ms(lambda: kmf.mhw_sweep_fused(*args1, beta=cfg.beta,
+                                                 beta_bar=beta_bar), 10,
+                     "mhw_sweep_kernel")
     plain1 = time_ms(lambda: mhw.sorted_chain(*args1, beta=cfg.beta,
                                               beta_bar=beta_bar), 3)
     steps = cfg.mh_steps
@@ -801,7 +849,8 @@ def lm_kernels(dev, tr, cfg, ccfg, dp, prior, rows_k3, label="") -> list:
         "name": "mhw_sweep_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/mhw_fused.cu",
         "replaces": "src/repro/kernels/mhw_fused.py:153",
-        "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
+        "ms": ms1, "device_ms": dev1, "plain_ms": plain1, "bound_ms": b1,
+        "bound_by": by1,
         "bound_bytes_ms": bound(bytes1, 0)[0],
         "bound_ops_ms": bound(0, ops1)[0], "ops": ops1,
         "ops_parts": ops_parts1,
@@ -877,10 +926,12 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
                           alias_r, mass_r)
     del prob_r, alias_r, mass_r
     ms2 = time_ms(lambda: kab.alias_build(dp), 5)
+    dev2 = device_ms(lambda: kab.alias_build(dp), 5)
     plain2 = time_ms(lambda: alias_mod.build(dp), 2)
     bytes2 = v * e_out * 12 + v * 4
     b2, by2 = bound(bytes2, 0)
     report2["width_2k"] = {"rows": v, "width": e_out, "ms": ms2,
+                           "device_ms": dev2,
                            "plain_ms": plain2, "bound_ms": b2,
                            "bound_by": by2, "bytes": bytes2, **stats2}
     print(f"KERNEL alias_build width 2K {json.dumps(report2['width_2k'])}",
@@ -969,6 +1020,8 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
     torch.cuda.empty_cache()
     clamp = clamp_check(args4, rows4, shared, cfg, hyper, dev)
     ms4 = time_ms(lambda: kmf.pdp_sweep_fused(*args4, **hyper), 10)
+    dev4 = device_ms(lambda: kmf.pdp_sweep_fused(*args4, **hyper), 10,
+                     "pdp_sweep_kernel")
     plain4 = time_ms(lambda: pdp.sorted_chain_pdp(*args4, **hyper), 2)
     torch.cuda.empty_cache()
     steps = cfg.mh_steps
@@ -999,7 +1052,8 @@ def pdp_kernels(dev, tr, cfg, ccfg, report2: dict) -> list[dict]:
         "name": "pdp_sweep_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/pdp_fused.cu",
         "replaces": "src/repro/kernels/mhw_fused.py:322",
-        "ms": ms4, "plain_ms": plain4, "bound_ms": b4, "bound_by": by4,
+        "ms": ms4, "device_ms": dev4, "plain_ms": plain4, "bound_ms": b4,
+        "bound_by": by4,
         "bound_bytes_ms": bound(bytes4, 0)[0],
         "bound_ops_ms": bound(0, ops4)[0], "ops": ops4,
         "ops_parts": ops_parts4,
@@ -1057,6 +1111,7 @@ def fused_kernel(tr, cfg) -> dict:
             ((prob2 != prob) | (alias2 != alias)).any(1).sum())}
     del prob2, alias2
     ms6 = time_ms(run6, 5)
+    dev6 = device_ms(run6, 5)
     ms2 = time_ms(lambda: kab.alias_build(dp), 5)
     del dp
     plain6 = time_ms(lambda: ref.alias_build_fused_ref(*args, **hyper), 2)
@@ -1067,7 +1122,8 @@ def fused_kernel(tr, cfg) -> dict:
         "name": "alias_build_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/alias_build.cu",
         "replaces": "src/repro/kernels/alias_build.py:273",
-        "ms": ms6, "plain_ms": plain6, "bound_ms": b6, "bound_by": by6,
+        "ms": ms6, "device_ms": dev6, "plain_ms": plain6, "bound_ms": b6,
+        "bound_by": by6,
         "library_ms": None, "bytes": bytes6,
         "bytes_parts": {"n_wk": v * k * 4, "n_k": k * 4,
                         "prob_alias": v * k * 8, "mass": v * 4},
@@ -1079,20 +1135,15 @@ def fused_kernel(tr, cfg) -> dict:
     return entry
 
 
-def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
-    """Phase 10, the draws path: kernels 7, 8 and 9 through their ``ops``
-    entry points on client 0's first sorted chunk that has masked tail
-    positions (the layout's sentinels) of the LDA trainer ``tr``, with its
-    tables: sorted draws (kernel 7), the same draws
-    shuffled (kernel 8), and a Metropolis step (kernel 9) whose candidate
-    is the slot draw (a uniform proposal, so log q = −log K at both
-    states) against the stale row as target, log p at (row, slot) and
-    (row, z).  The counters are zeroed just before and read just after;
-    then each kernel is held against its plain version and timed."""
+def draw_inputs(dev, tr, cfg, ccfg) -> dict:
+    """The draws path's inputs: client 0's first sorted chunk that has
+    masked tail positions (the layout's sentinels) of the LDA trainer
+    ``tr``, with its tables and stale matrix; seeded slots, coins and
+    accept uniforms; the same draws shuffled (``*_sh``, by ``perm``); and a
+    Metropolis step whose candidate is the slot draw (a uniform proposal,
+    so log q = −log K at both states) against the stale row as target, log
+    p at (row, slot) and (row, z)."""
     from repro_torch.data import segment
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import alias_sample as kas
-    from repro_torch.kernels import mh_accept as kma
 
     v, k = cfg.vocab_size, cfg.n_topics
     chunk = next(c for c, lay in enumerate(tr.layouts[0])
@@ -1101,8 +1152,6 @@ def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
     tables, stale = tr.pstate.tables, tr.pstate.stale
     rows = lay.rows
     b = rows.shape[0]
-    real = rows < v
-    n_real = int(real.sum())
     bounds = segment.chunk_bounds(ccfg.doc_len, cfg.sorted_chunks)
     z = segment.sort_values(
         lay, tr.locals_[0].z[:, bounds[chunk]:bounds[chunk + 1]].reshape(-1))
@@ -1114,10 +1163,60 @@ def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
     u = torch.rand(b, generator=gen, device=dev)
     perm = torch.randperm(b, generator=gen, device=dev)
     r = rows.clamp_max(v - 1).long()
-    lp_c = torch.log(stale[r, slot.long()] + 1e-30)
-    lp_z = torch.log(stale[r, z.long()] + 1e-30)
-    lq = torch.full((b,), -math.log(k), device=dev)
-    rows_sh, slot_sh, coin_sh = rows[perm], slot[perm], coin[perm]
+    return {"lay": lay, "tables": tables, "rows": rows, "slot": slot,
+            "coin": coin, "u": u, "perm": perm, "z": z, "r": r,
+            "real": rows < v,
+            "lp_c": torch.log(stale[r, slot.long()] + 1e-30),
+            "lp_z": torch.log(stale[r, z.long()] + 1e-30),
+            "lq": torch.full((b,), -math.log(k), device=dev),
+            "rows_sh": rows[perm], "slot_sh": slot[perm],
+            "coin_sh": coin[perm]}
+
+
+def draw_bytes(inp: dict, k: int) -> tuple[dict, dict]:
+    """Bytes the draws of kernels 7 and 8 must move, and the bytes a card
+    with 32-byte sectors moves at least.  The first: rows and the result
+    for every position; slot and coin for real draws (a sentinel's result
+    is 0 without them); prob at each distinct (row, slot) entry the real
+    draws name, and alias at those where the coin took the alias.  The
+    second: the same streams, and 32 bytes for each distinct sector of
+    those prob and alias entries."""
+    b, real = inp["rows"].shape[0], inp["real"]
+    n_real = int(real.sum())
+    key = inp["r"][real] * k + inp["slot"][real].long()
+    took_alias = ~(inp["coin"][real] < inp["tables"].prob.view(-1)[key])
+    streams = {"rows_out": b * 8, "slot_coin": n_real * 8}
+    parts = dict(streams,
+                 prob_points=int(torch.unique(key).numel()) * 4,
+                 alias_points=int(torch.unique(key[took_alias]).numel()) * 4)
+    sectors = dict(streams,
+                   prob_sectors=int(torch.unique(key // 8).numel()) * 32,
+                   alias_sectors=int(torch.unique(
+                       key[took_alias] // 8).numel()) * 32)
+    return parts, sectors
+
+
+def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
+    """Phase 10, the draws path: kernels 7, 8 and 9 through their ``ops``
+    entry points on ``draw_inputs``: sorted draws (kernel 7), the same
+    draws shuffled (kernel 8), and a Metropolis step (kernel 9).  The
+    counters are zeroed just before and read just after; then each kernel
+    is held against its plain version and timed, as a call and on the
+    device's clock."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import alias_sample as kas
+    from repro_torch.kernels import mh_accept as kma
+
+    k = cfg.n_topics
+    inp = draw_inputs(dev, tr, cfg, ccfg)
+    lay, tables = inp["lay"], inp["tables"]
+    rows, slot, coin, u, z = (inp[n] for n in ("rows", "slot", "coin", "u",
+                                               "z"))
+    rows_sh, slot_sh, coin_sh = inp["rows_sh"], inp["slot_sh"], inp["coin_sh"]
+    lp_c, lp_z, lq, perm, real = (inp[n] for n in ("lp_c", "lp_z", "lq",
+                                                   "perm", "real"))
+    b = rows.shape[0]
+    n_real = int(real.sum())
     torch.cuda.synchronize()
 
     _build.reset_launches()
@@ -1162,49 +1261,53 @@ def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
             raise AssertionError(f"mh_accept: {n_differ} states differ, not "
                                  "all at a log rounding tie")
 
-    # Bytes each draw must move: rows and the result for every position;
-    # slot and coin for real draws (a sentinel's result is 0 without
-    # them); prob at each distinct (row, slot) entry the real draws name,
-    # and alias at those where the coin took the alias.
-    key = r[real] * k + slot[real].long()
-    took_alias = coin[real] >= tables.prob[r[real], slot[real].long()]
-    parts = {"rows_out": b * 8, "slot_coin": n_real * 8,
-             "prob_points": int(torch.unique(key).numel()) * 4,
-             "alias_points": int(torch.unique(key[took_alias]).numel()) * 4}
+    parts, sector_parts = draw_bytes(inp, k)
     bytes78 = sum(parts.values())
     b78, by78 = bound(bytes78, 0)
+    sector78 = sum(sector_parts.values())
     bytes9 = b * 32                     # seven 4-byte inputs, one output
     b9, by9 = bound(bytes9, 0)
-    ms7 = time_ms(lambda: kas.alias_sample_sorted(
-        tables.prob, tables.alias, rows, slot, coin), 20)
+    calls = {
+        "alias_sample_sorted": lambda: kas.alias_sample_sorted(
+            tables.prob, tables.alias, rows, slot, coin),
+        "alias_sample": lambda: kas.alias_sample(
+            tables.prob, tables.alias, rows_sh, slot_sh, coin_sh),
+        "mh_accept": lambda: kma.mh_accept(z, slot, lp_z, lp_c, lq, lq, u)}
+    symbols = {"alias_sample_sorted": "alias_sample_kernel",
+               "alias_sample": "alias_sample_batch_kernel",
+               "mh_accept": "mh_accept_kernel"}
+    timed = {n: {"ms": time_ms(fn, 20),
+                 "device_ms": device_ms(fn, 20, symbols[n])}
+             for n, fn in calls.items()}
     plain7 = time_ms(lambda: ref.alias_sample_sorted_ref(
         tables.prob, tables.alias, rows, slot, coin), 5)
-    ms8 = time_ms(lambda: kas.alias_sample(
-        tables.prob, tables.alias, rows_sh, slot_sh, coin_sh), 20)
     plain8 = time_ms(lambda: ref.alias_sample_ref(
         tables.prob, tables.alias, rows_sh, slot_sh, coin_sh), 5)
-    ms9 = time_ms(lambda: kma.mh_accept(z, slot, lp_z, lp_c, lq, lq, u), 20)
     plain9 = time_ms(lambda: ref.mh_accept_ref(z, slot, lp_z, lp_c, lq, lq,
                                                u), 5)
     common = {"route": "cuda", "library_ms": None, "draws": b,
               "real_draws": n_real}
+    sectors = {"bytes": bytes78, "bytes_parts": parts,
+               "sector_bytes": sector78, "sector_bytes_parts": sector_parts,
+               "sector_ms": bound(sector78, 0)[0]}
     report = [
         {"name": "alias_sample_sorted",
          "source": "src/repro_torch/csrc/alias_sample.cu",
          "replaces": "src/repro/kernels/alias_sample.py:137",
-         "ms": ms7, "plain_ms": plain7, "bound_ms": b78, "bound_by": by78,
-         "bytes": bytes78, "bytes_parts": parts, "max_abs_err": 0,
+         **timed["alias_sample_sorted"], "plain_ms": plain7,
+         "bound_ms": b78, "bound_by": by78, **sectors, "max_abs_err": 0,
          "sentinels_zero": b - n_real, **common},
         {"name": "alias_sample",
          "source": "src/repro_torch/csrc/alias_sample.cu",
          "replaces": "src/repro/kernels/alias_sample.py:71",
-         "ms": ms8, "plain_ms": plain8, "bound_ms": b78, "bound_by": by78,
-         "bytes": bytes78, "bytes_parts": parts, "max_abs_err": 0,
+         **timed["alias_sample"], "plain_ms": plain8,
+         "bound_ms": b78, "bound_by": by78, **sectors, "max_abs_err": 0,
          "input": "the sorted draws shuffled", **common},
         {"name": "mh_accept",
          "source": "src/repro_torch/csrc/mh_accept.cu",
          "replaces": "src/repro/kernels/mh_accept.py:36",
-         "ms": ms9, "plain_ms": plain9, "bound_ms": b9, "bound_by": by9,
+         **timed["mh_accept"], "plain_ms": plain9,
+         "bound_ms": b9, "bound_by": by9,
          "bytes": bytes9, "bytes_parts": {"inputs": b * 28, "out": b * 4},
          "states_differing": n_differ,
          "max_abs_err": int((z9 - want9).abs().max()),

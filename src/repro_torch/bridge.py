@@ -9,7 +9,9 @@ config object itself, read by field name; nothing of the reference
 package is imported.  Families are told apart by the reference config's
 class name (``LDAConfig``, ``PDPConfig`` or ``HDPConfig``); state
 converters take the port's family (or its NamedTuple class), LDA by
-default.
+default.  Like every entry point of the port, the converters put their
+tensors on ``cuda`` unless the caller passes ``device="cpu"``
+(:func:`repro_torch.device.resolve`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.core import hdp, lda, pdp
 from repro_torch.core.alias import AliasTable
 from repro_torch.data.segment import SortedLayout
@@ -46,9 +49,10 @@ def config_to(cfg, ref_cls: type):
     return ref_cls(**dataclasses.asdict(cfg))
 
 
-def from_numpy(cls, arrays: Mapping[str, Any], device="cpu"):
+def from_numpy(cls, arrays: Mapping[str, Any], device=None):
     """A port NamedTuple ``cls`` from numpy arrays keyed by field name."""
-    return cls(**{f: torch.tensor(np.asarray(arrays[f]), device=device)
+    dev = device_mod.resolve(device)
+    return cls(**{f: torch.tensor(np.asarray(arrays[f]), device=dev)
                   for f in cls._fields})
 
 
@@ -62,25 +66,26 @@ def _cls(kind, attr: str) -> type:
     return kind if isinstance(kind, type) else getattr(kind, attr)
 
 
-def shared_from(arrays, device="cpu", kind=lda.SharedStats):
+def shared_from(arrays, device=None, kind=lda.SharedStats):
     """Shared statistics of ``kind`` (a family or its ``shared_cls``)."""
     return from_numpy(_cls(kind, "shared_cls"), arrays, device)
 
 
-def local_from(arrays, device="cpu", kind=lda.LocalState):
+def local_from(arrays, device=None, kind=lda.LocalState):
     """Local state of ``kind`` (a family or its ``local_cls``)."""
     return from_numpy(_cls(kind, "local_cls"), arrays, device)
 
 
-def layout_from(arrays, device="cpu") -> SortedLayout:
+def layout_from(arrays, device=None) -> SortedLayout:
     return from_numpy(SortedLayout, arrays, device)
 
 
-def proposal_from(table_arrays, stale, device="cpu"
+def proposal_from(table_arrays, stale, device=None
                   ) -> tuple[AliasTable, torch.Tensor]:
     """(AliasTable, stale dense matrix) from the reference's arrays."""
-    return (from_numpy(AliasTable, table_arrays, device),
-            torch.tensor(np.asarray(stale), device=device))
+    dev = device_mod.resolve(device)
+    return (from_numpy(AliasTable, table_arrays, dev),
+            torch.tensor(np.asarray(stale), device=dev))
 
 
 def proposal_to(tables: AliasTable, stale: torch.Tensor

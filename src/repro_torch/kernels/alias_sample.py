@@ -9,10 +9,11 @@ Both compute the same function, one draw per entry: ``slot`` if
 ``coin < prob[row, slot]``, else ``alias[row, slot]``, and 0 for rows
 outside [0, V) (the sorted layout's padding sentinels).  The TPU kernel's
 ``vstart``/``vcount`` window only chose which table tiles to stage in
-VMEM; a CUDA thread reads its own entry, so the sorted variant needs no
-window and differs only in the launch count it adds to.  Slots must lie
-in [0, K).  CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to
-``kernels/ref.py``.
+VMEM; a CUDA thread reads its own entries, so the sorted variant needs no
+window.  Kernel 8 has a body of its own for a stream in any order: each
+thread takes four draws and issues their gathers together.  Slots must lie
+in [0, K).  No draw, no launch.  CUDA tensors only; ``kernels/ops.py``
+routes CPU tensors to ``kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ def _draw(name: str, prob, alias, rows, slot, coin) -> torch.Tensor:
                               ("coin", coin, torch.float32, (b,))):
         _check(arg, t, dt, shape)
     out = torch.empty((b,), dtype=torch.int32, device=prob.device)
-    launch(name, prob.data_ptr(), alias.data_ptr(), rows.data_ptr(),
-           slot.data_ptr(), coin.data_ptr(), b, v, k, out.data_ptr())
+    if b:
+        launch(name, prob.data_ptr(), alias.data_ptr(), rows.data_ptr(),
+               slot.data_ptr(), coin.data_ptr(), b, v, k, out.data_ptr())
     return out
 
 

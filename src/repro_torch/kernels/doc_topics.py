@@ -18,7 +18,8 @@ from repro_torch.kernels.ref import doc_words
 def doc_topic_lists(n_dk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """n_dk (D, K) f32 → words (D, W, 2) i32 and counts (D, K) i16, as
     ``doc_topic_lists_ref`` (counts past each document's k_d unwritten).
-    The capacity is K a document, so nothing is read back to the host."""
+    The capacity is K a document, so nothing is read back to the host.
+    No document, no launch."""
     if n_dk.dim() != 2:
         raise ValueError(f"n_dk must be (D, K), got {tuple(n_dk.shape)}")
     _check("n_dk", n_dk, torch.float32)
@@ -26,6 +27,7 @@ def doc_topic_lists(n_dk: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     words = torch.empty((d, doc_words(k), 2), dtype=torch.int32,
                         device=n_dk.device)
     counts = torch.empty((d, k), dtype=torch.int16, device=n_dk.device)
-    launch("doc_topic_lists", n_dk.data_ptr(), d, k, words.data_ptr(),
-           counts.data_ptr())
+    if d:
+        launch("doc_topic_lists", n_dk.data_ptr(), d, k, words.data_ptr(),
+               counts.data_ptr())
     return words, counts

@@ -105,7 +105,8 @@ def test_dense_probs_and_rows_match_reference():
     theta0 = np.random.default_rng(2).dirichlet(np.full(8, 0.3)).astype(
         np.float32)
     rshared = rshared._replace(theta0=jnp.asarray(theta0))
-    shared = bridge.shared_from(_np_of(rshared), kind=family.get("hdp"))
+    shared = bridge.shared_from(_np_of(rshared), device="cpu",
+                                kind=family.get("hdp"))
     want = np.asarray(ref_hdp.dense_probs(rcfg, rshared))
     got = hdp.dense_probs(cfg, shared)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -145,8 +146,8 @@ def test_resample_tables_matches_reference(crt_max, zero_topic):
                                                    key)
     u = jax.random.uniform(key, (tokens.shape[0], 8, crt_max))
     fam = family.get("hdp")
-    local = bridge.local_from(_np_of(rlocal), kind=fam)
-    shared = bridge.shared_from(_np_of(rshared), kind=fam)
+    local = bridge.local_from(_np_of(rlocal), device="cpu", kind=fam)
+    shared = bridge.shared_from(_np_of(rshared), device="cpu", kind=fam)
     got_local, got_m_k = hdp.resample_tables(cfg, local, shared,
                                              uniforms=_t(u))
     np.testing.assert_array_equal(got_local.m_dk.numpy(),
@@ -209,9 +210,10 @@ def test_sweep_sorted_matches_reference_with_injected_uniforms(chunks):
             jnp.asarray(a) for a in uniforms(c, lay, tb)))
 
     fam = family.get("hdp")
-    local = bridge.local_from(_np_of(rlocal), kind=fam)
-    shared = bridge.shared_from(_np_of(rshared), kind=fam)
-    tables, stale = bridge.proposal_from(_np_of(rtables), rstale)
+    local = bridge.local_from(_np_of(rlocal), device="cpu", kind=fam)
+    shared = bridge.shared_from(_np_of(rshared), device="cpu", kind=fam)
+    tables, stale = bridge.proposal_from(_np_of(rtables), rstale,
+                                          device="cpu")
     tables2, stale2 = fam.build_alias(cfg, shared)
     for a, b in zip(tables, tables2):
         assert torch.equal(a, b)
@@ -245,7 +247,7 @@ def test_local_projection_matches_reference():
     rfam, fam = ref_family.get("hdp"), family.get("hdp")
     rlocal = ref_hdp.LocalState(z=jnp.asarray(z), n_dk=jnp.asarray(n_dk),
                                 m_dk=jnp.asarray(m_dk))
-    local = bridge.local_from(_np_of(rlocal), kind=fam)
+    local = bridge.local_from(_np_of(rlocal), device="cpu", kind=fam)
     want_v = float(rfam.count_local_violations(rlocal))
     assert want_v > 0
     assert fam.count_local_violations(local) == want_v

@@ -1,11 +1,11 @@
 """The port stands alone and never falls back.
 
-* No module of ``src/repro_torch``, nor ``chip_smoke.py``,
-  ``tools/torch_sweep_split.py`` or ``tools/torch_alias_split.py``, imports
-  ``jax`` or the reference package ``repro`` (an AST scan of every
-  import).
-* ``Trainer``, the family sweep and ``ops.*`` run on ``cuda`` by default
-  and raise when there is no card and the CPU was not asked for.
+* No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the
+  ``tools/torch_*.py`` scripts, imports ``jax`` or the reference package
+  ``repro`` (an AST scan of every import).
+* ``Trainer``, the family sweep, ``ops.*`` and the ``bridge`` converters
+  run on ``cuda`` by default and raise when there is no card and the CPU
+  was not asked for.
 * On the card (tests marked ``cuda``, skipped here without one): a CUDA
   tensor handed to a kernel wrapper reaches the kernel, as the launch
   counters show, and each kernel agrees with its plain version.
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import bridge
 from repro_torch import device as device_mod
 from repro_torch.core import alias, family, hdp, lda, mhw, pdp, stirling
 from repro_torch.engine import Trainer, TrainerConfig
@@ -27,8 +28,7 @@ from repro_torch.kernels import _build, ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_sweep_split.py",
-    ROOT / "tools" / "torch_alias_split.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
 def _imports(path: Path) -> list[str]:
@@ -53,7 +53,9 @@ def test_scan_covers_the_package():
     assert {"trainer.py", "family.py", "ops.py", "chip_smoke.py",
             "alias_build.py", "mhw_fused.py", "pdp.py", "stirling.py",
             "hdp.py", "alias_sample.py", "mh_accept.py", "doc_topics.py",
-            "torch_sweep_split.py", "torch_alias_split.py"} <= names
+            "torch_sweep_split.py", "torch_alias_split.py",
+            "torch_round_split.py", "torch_kernel_split.py",
+            "bridge.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -80,6 +82,34 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         device_mod.resolve()
     assert device_mod.resolve("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("conv", ["from_numpy", "shared_from", "local_from",
+                                  "layout_from", "proposal_from"])
+def test_bridge_requires_card_unless_cpu_asked(conv, monkeypatch):
+    """The converters that carry the reference's state across put it on
+    ``cuda`` unless ``device="cpu"`` is passed, and raise with no card."""
+    _no_card(monkeypatch)
+    cfg, tokens, mask = _small()
+    fam = family.get("lda")
+    local, shared = fam.init_state(cfg, tokens, mask, (0,))
+    tables, stale = fam.build_alias(cfg, shared)
+    lay = fam.build_sorted_layouts(cfg, tokens, mask)[0]
+    fns = {
+        "from_numpy": lambda **kw: bridge.from_numpy(
+            lda.SharedStats, bridge.to_numpy(shared), **kw),
+        "shared_from": lambda **kw: bridge.shared_from(
+            bridge.to_numpy(shared), **kw),
+        "local_from": lambda **kw: bridge.local_from(
+            bridge.to_numpy(local), **kw),
+        "layout_from": lambda **kw: bridge.layout_from(
+            bridge.to_numpy(lay), **kw),
+        "proposal_from": lambda **kw: bridge.proposal_from(
+            bridge.to_numpy(tables), stale.numpy(), **kw)[0]}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[conv]()
+    got = fns[conv](device="cpu")
+    assert all(t.device.type == "cpu" for t in got)
 
 
 def test_trainer_requires_card_unless_cpu_asked(monkeypatch):

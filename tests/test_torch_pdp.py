@@ -123,7 +123,8 @@ def test_log_factors_and_dense_probs_near_reference(scale, n_max):
                              concentration=5.0)
     cfg = bridge.config_from(rcfg)
     rshared = _ref_shared(m, s)
-    shared = bridge.shared_from(_np_of(rshared), kind=pdp.SharedStats)
+    shared = bridge.shared_from(_np_of(rshared), device="cpu",
+                                kind=pdp.SharedStats)
     want_f = np.concatenate([np.asarray(x) for x in ref_pdp._log_factors(
         rcfg, ref_stirling.as_jax(n_max, rcfg.discount), rshared.m_wk,
         rshared.s_wk, rshared.m_k[None, :], rshared.s_k[None, :])], -1)
@@ -242,9 +243,10 @@ def test_sweep_sorted_matches_reference_with_injected_uniforms(chunks):
             jnp.asarray(a) for a in uniforms(c, lay, tb)))
 
     fam = family.get("pdp")
-    local = bridge.local_from(_np_of(rlocal), kind=fam)
-    shared = bridge.shared_from(_np_of(rshared), kind=fam)
-    tables, stale = bridge.proposal_from(_np_of(rtables), rstale)
+    local = bridge.local_from(_np_of(rlocal), device="cpu", kind=fam)
+    shared = bridge.shared_from(_np_of(rshared), device="cpu", kind=fam)
+    tables, stale = bridge.proposal_from(_np_of(rtables), rstale,
+                                          device="cpu")
     tt, tm = torch.as_tensor(tokens), torch.as_tensor(mask)
     lays = fam.build_sorted_layouts(cfg, tt, tm)
     for rl, gl in zip(rlays, lays):
@@ -352,7 +354,7 @@ def test_bridge_round_trip():
     for conv, nt, kind in ((bridge.shared_from, shared, fam),
                            (bridge.local_from, local, fam),
                            (bridge.shared_from, shared, pdp.SharedStats)):
-        got = bridge.to_numpy(conv(_np_of(nt), kind=kind))
+        got = bridge.to_numpy(conv(_np_of(nt), device="cpu", kind=kind))
         for f, want in _np_of(nt).items():
             np.testing.assert_array_equal(got[f], want, err_msg=f)
             assert got[f].dtype == want.dtype, f

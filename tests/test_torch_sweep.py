@@ -124,9 +124,10 @@ def test_sweep_sorted_matches_reference_with_injected_uniforms(chunks):
             jnp.asarray(a) for a in uniforms(c, lay, tb)))
 
     np_of = lambda nt: {f: np.asarray(getattr(nt, f)) for f in nt._fields}
-    local = bridge.local_from(np_of(rlocal))
-    shared = bridge.shared_from(np_of(rshared))
-    tables, stale = bridge.proposal_from(np_of(rtables), rstale)
+    local = bridge.local_from(np_of(rlocal), device="cpu")
+    shared = bridge.shared_from(np_of(rshared), device="cpu")
+    tables, stale = bridge.proposal_from(np_of(rtables), rstale,
+                                          device="cpu")
     fam = family.get("lda")
     tt, tm = torch.as_tensor(tokens), torch.as_tensor(mask)
     lays = fam.build_sorted_layouts(cfg, tt, tm)

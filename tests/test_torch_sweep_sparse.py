@@ -21,10 +21,19 @@ blocks) and must give the plain chain's draws bit for bit on adversarial
 layouts, for LDA's and HDP's priors and for PDP with a Stirling table
 small enough that factors become inf and weights NaN.  Tolerance: none.
 
+The list build (``csrc/doc_topics.cu``) has a traversal of its own:
+:func:`replay_doc_lists` runs it in numpy (a warp's 32 lanes, four topics
+a lane a pass, eight passes a batch; four ballots a pass; count slots in
+the batch's stage from the popcounts under the lane mask, the stage
+copied out after the batch at the running total; words interleaved from
+the ballots' bytes; the pad word in the last batch's free lane) and must
+equal the plain build bit for bit, counts up to each k_d, and write
+nothing past it.
+
 On the card (``cuda`` marker): the kernels on the same layouts against
 the plain chains, at most 1% of chains apart (the block-parallel cdf
 rounds otherwise than the left-to-right sum near a step), and the list
-kernel against its plain version, exactly.
+kernel against its plain version, exactly, on both of its load routes.
 """
 
 from __future__ import annotations
@@ -381,6 +390,120 @@ def test_plain_doc_lists_hold_n_dk():
     assert int(words[3, -1, 1]) == int((n_dk[3] != 0).sum())
 
 
+def adversarial_n_dk(d: int, k: int, seed: int) -> np.ndarray:
+    """(d, k) float32 counts: by row, all zeros; all non-zero; the values
+    the u16 cannot hold (fractions, negatives, NaN, inf, 65535 and above)
+    beside 65534 and −0.0, at topics on and off the 32-word edges; then
+    sparse random counts, some large."""
+    rng = np.random.default_rng(seed)
+    n_dk = (rng.integers(0, 4, size=(d, k))
+            * (rng.random((d, k)) < 0.2)).astype(np.float32)
+    if d > 0:
+        n_dk[0] = 0.0
+    if d > 1:
+        n_dk[1] = 1.0
+    if d > 2:
+        odd = [0.5, -2.0, np.nan, np.inf, 65535.0, 65534.0, 70000.0, -0.0,
+               -np.inf, 1e9]
+        at = [0, 31, 32, 63, 64, 69, 127, 128, 1023, 1024]
+        for t, x in zip(at, odd):
+            n_dk[2, t % k] = x
+    if d > 3:
+        big = rng.random((d - 3, k)) < 0.05
+        n_dk[3:][big] = rng.integers(65530, 65540, size=int(big.sum()))
+    return n_dk
+
+
+def _spread4(x: int) -> int:
+    """Bits 0..7 of x to bits 0, 4, ..., 28 (the kernel's spread4)."""
+    x &= 0xff
+    x = (x | (x << 12)) & 0x000f000f
+    x = (x | (x << 6)) & 0x03030303
+    return (x | (x << 3)) & 0x11111111
+
+
+def _encode(x: np.float32) -> int:
+    ok = x >= 0 and x < 65535 and x == np.trunc(x)
+    return int(x) if ok else 0xffff
+
+
+GARBAGE = 0x5a5a
+
+
+def replay_doc_lists(n_dk: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """doc_topics_kernel's traversal, warp by warp, in numpy: words (D, W,
+    2) int64 of u32 bits and prefixes, counts (D, K) with GARBAGE where the
+    kernel writes nothing."""
+    d_total, k = n_dk.shape
+    n_words = ref.doc_words(k)
+    words = np.full((d_total, n_words, 2), -1, np.int64)
+    counts = np.full((d_total, k), GARBAGE, np.int64)
+    lanes = np.arange(32)
+    below = (1 << lanes) - 1
+    g8 = 8 * (lanes & 3)
+    for d in range(d_total):
+        pre = 0
+        for base in range(0, k, 1024):
+            pre0 = pre
+            stage = np.full(1024, -1, np.int64)   # the warp's shared stage
+            wbits = np.zeros(32, np.int64)
+            wpre = np.zeros(32, np.int64)
+            for c in range(8):
+                t = base + 128 * c + 4 * lanes[:, None] + np.arange(4)
+                x = np.where(t < k, n_dk[d, np.minimum(t, k - 1)],
+                             np.float32(0))
+                nz = x != 0                               # (lane, element)
+                ballots = [int((nz[:, e] << lanes).sum()) for e in range(4)]
+                slot = pre - pre0 + sum(
+                    np.vectorize(lambda m: bin(m).count("1"))(bal & below)
+                    for bal in ballots)
+                for lane in range(32):
+                    s = int(slot[lane])
+                    for e in range(4):
+                        if nz[lane, e]:
+                            stage[s] = _encode(x[lane, e])
+                            s += 1
+                    if lane >> 2 == c:
+                        sh = int(g8[lane])
+                        wbits[lane] = sum(_spread4(bal >> sh) << e
+                                          for e, bal in enumerate(ballots))
+                        wpre[lane] = pre + sum(
+                            bin(bal & ((1 << sh) - 1)).count("1")
+                            for bal in ballots)
+                pre += sum(bin(bal).count("1") for bal in ballots)
+            assert (stage[:pre - pre0] >= 0).all()   # every staged slot set
+            counts[d, pre0:pre] = stage[:pre - pre0]
+            batch_words = min(32, (k - base + 31) // 32)
+            for lane in range(32):
+                if lane < batch_words:
+                    words[d, base // 32 + lane] = wbits[lane], wpre[lane]
+                elif lane == batch_words:
+                    words[d, n_words - 1] = 0, pre
+        if (n_words - 1) % 32 == 0:
+            words[d, n_words - 1] = 0, pre
+    return words, counts
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 70, 127, 128, 1023, 1024,
+                               1025])
+def test_doc_list_traversal_matches_plain(k):
+    """The kernel's traversal gives the plain build's words bit for bit and
+    its counts up to each document's k_d, and writes no count past k_d,
+    on all-zero, all-non-zero and adversarial rows."""
+    n_dk = adversarial_n_dk(5, k, seed=k)
+    words, counts = replay_doc_lists(n_dk)
+    want_w, want_c = ref.doc_topic_lists_ref(torch.as_tensor(n_dk))
+    want_w = want_w.numpy().astype(np.int64)
+    want_w[..., 0] &= 0xffffffff
+    np.testing.assert_array_equal(words, want_w)
+    k_d = want_w[:, -1, 1]
+    valid = np.arange(k)[None, :] < k_d[:, None]
+    want_c = want_c.numpy().astype(np.int64) & 0xffff
+    np.testing.assert_array_equal(counts[valid], want_c[valid])
+    assert (counts[~valid] == GARBAGE).all()
+    assert k_d[0] == 0 and k_d[1] == k
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda_device():
@@ -473,19 +596,24 @@ def test_kernels_on_runs_across_tiles(family, kind, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,k", [(9, 70), (300, 1024)])
-def test_doc_list_kernel_matches_plain(d, k, cuda_device):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d,k", [(9, 70), (300, 1024), (0, 1024), (1, 1),
+                                 (33, 1023), (64, 1025), (16, 4096)])
+def test_doc_list_kernel_matches_plain(d, k, offset, cuda_device):
+    """Both load routes: 16-byte loads where K % 4 == 0 and n_dk starts on
+    a 16-byte boundary; scalar loads where K % 4 != 0 or n_dk is a view
+    one float in (``offset``).  No document, no launch."""
     from repro_torch.kernels import doc_topics
-    rng = np.random.default_rng(k)
-    n_dk = (rng.integers(0, 4, size=(d, k))
-            * (rng.random((d, k)) < 0.2)).astype(np.float32)
-    n_dk[1, :] = 1.0
-    n_dk[2, :6] = [0.5, -2.0, np.nan, np.inf, 65535.0, 65534.0]
-    n_dk = torch.as_tensor(n_dk)
+    n_dk = torch.as_tensor(adversarial_n_dk(d, k, seed=k))
     want_w, want_c = ref.doc_topic_lists_ref(n_dk)
+    on_card = torch.empty(d * k + offset, device=cuda_device)
+    on_card = on_card[offset:].view(d, k)
+    on_card.copy_(n_dk)
     _build.reset_launches()
-    words, counts = doc_topics.doc_topic_lists(n_dk.to(cuda_device))
-    assert _build.LAUNCHES["doc_topic_lists"] == 1
+    words, counts = doc_topics.doc_topic_lists(on_card)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["doc_topic_lists"] == (1 if d else 0)
+    assert words.shape == want_w.shape and counts.shape == want_c.shape
     assert torch.equal(words.cpu(), want_w)
     k_d = want_w[:, -1, 1].long()
     valid = torch.arange(k)[None, :] < k_d[:, None]

@@ -143,11 +143,11 @@ def test_bridge_round_trip(corpus):
     for conv, nt in ((bridge.shared_from, shared),
                      (bridge.local_from, local),
                      (bridge.layout_from, lay)):
-        got = bridge.to_numpy(conv(arrays(nt)))
+        got = bridge.to_numpy(conv(arrays(nt), device="cpu"))
         for f, want in arrays(nt).items():
             np.testing.assert_array_equal(got[f], want, err_msg=f)
             assert got[f].dtype == want.dtype, f
-    t, s = bridge.proposal_from(arrays(tables), stale)
+    t, s = bridge.proposal_from(arrays(tables), stale, device="cpu")
     back_t, back_s = bridge.proposal_to(t, s)
     for f, want in arrays(tables).items():
         np.testing.assert_array_equal(back_t[f], want)

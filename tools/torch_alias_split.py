@@ -46,7 +46,6 @@ import hashlib
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -181,18 +180,6 @@ def main(argv: list[str]) -> int:
             return out
         return run
 
-    def enqueue_us(run, calls=50):
-        """Host microseconds a call takes to enqueue its launch, the
-        device held busy meanwhile so that the queue never waits."""
-        torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)
-        t = time.perf_counter()
-        for _ in range(calls):
-            run()
-        us = (time.perf_counter() - t) / calls * 1e6
-        torch.cuda.synchronize()
-        return us
-
     prior_lda = torch.full((k,), cfg.alpha, dtype=torch.float32, device=dev)
     k3_inputs = {"lda": (n_wk, n_k, prior_lda, top_rows(n_wk.sum(1)),
                          cfg.beta),
@@ -230,7 +217,7 @@ def main(argv: list[str]) -> int:
             reps = 5 if name[:2] in ("k2", "k6") else 20
             out[name] = {"ms": chip_smoke.time_ms(run, reps),
                          "device_ms": chip_smoke.device_ms(run, reps),
-                         "enqueue_us": enqueue_us(run),
+                         "enqueue_us": chip_smoke.enqueue_us(run),
                          "bit_equal": equal}
         print("ALIAS_SPLIT " + json.dumps(out), flush=True)
         results.append(out)
