@@ -1273,7 +1273,7 @@ def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
         "alias_sample": lambda: kas.alias_sample(
             tables.prob, tables.alias, rows_sh, slot_sh, coin_sh),
         "mh_accept": lambda: kma.mh_accept(z, slot, lp_z, lp_c, lq, lq, u)}
-    symbols = {"alias_sample_sorted": "alias_sample_kernel",
+    symbols = {"alias_sample_sorted": "alias_sample_sorted_kernel",
                "alias_sample": "alias_sample_batch_kernel",
                "mh_accept": "mh_accept_kernel"}
     timed = {n: {"ms": time_ms(fn, 20),

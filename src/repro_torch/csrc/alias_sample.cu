@@ -15,14 +15,19 @@
 // a whole 32-byte sector, so the floor the card can reach is the streams
 // plus 32 bytes a distinct (row, sector) gathered.
 //
-// Kernel 7 (alias_sample_kernel): one thread per draw, adjacent threads
-// on adjacent draws, so the stream reads and the write are coalesced; the
-// alias entry is read only when the coin rejects the slot.  The TPU
-// kernels staged (tile_v, K) table tiles in VMEM, the sorted one skipping
-// tiles with no resident draws through the scalar-prefetched
-// vstart/vcount window; here a thread reads its own entries and nothing
-// is staged.  In a sorted stream neighbouring draws share a row, so their
-// gathers fall in the same few cache lines.
+// Kernel 7 (alias_sample_sorted_kernel), for the token-sorted stream:
+// one thread per draw, adjacent threads on adjacent draws, so the streams
+// are read and the draws written as whole lines a warp (evict-first, as
+// kernel 8's); slot and coin are read only for a real row, so the
+// sentinel tail reads its rows alone, and the alias entry only when the
+// coin rejects the slot.  The TPU kernel staged (tile_v, K) table tiles in
+// VMEM through its scalar-prefetched vstart/vcount window; here a thread
+// reads its own entries and nothing is staged.  In a sorted stream a
+// warp's draws share one or two rows, whose sectors many draws read, so
+// the long runs' gathers hit L1 and L2; the short runs' gathers, 32-byte
+// sectors missed to device memory at random, bound the kernel.  Staging
+// the long runs' rows in shared memory was tried and ran slower on an
+// NVIDIA H100 (PERF.md, "Designs tried" for kernel 7).
 //
 // Kernel 8 (alias_sample_batch_kernel), for an unsorted stream, where
 // every gather is a sector of its own: a thread takes kDraws adjacent
@@ -47,22 +52,23 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void alias_sample_kernel(const float* __restrict__ prob,
-                                    const int* __restrict__ alias,
-                                    const int* __restrict__ rows,
-                                    const int* __restrict__ slot,
-                                    const float* __restrict__ coin, long b,
-                                    int v, int k, int* __restrict__ out) {
+__global__ void alias_sample_sorted_kernel(const float* __restrict__ prob,
+                                           const int* __restrict__ alias,
+                                           const int* __restrict__ rows,
+                                           const int* __restrict__ slot,
+                                           const float* __restrict__ coin,
+                                           long b, int v, int k,
+                                           int* __restrict__ out) {
   const long i = (long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= b) return;
-  const int r = rows[i];
+  const int r = __ldcs(rows + i);
   if (r < 0 || r >= v) {
-    out[i] = 0;
+    __stcs(out + i, 0);
     return;
   }
-  const int s = slot[i];
+  const int s = __ldcs(slot + i);
   const long at = (long)r * k + s;
-  out[i] = coin[i] < prob[at] ? s : alias[at];
+  __stcs(out + i, __ldcs(coin + i) < __ldg(prob + at) ? s : __ldg(alias + at));
 }
 
 constexpr int kDraws = 4;          // a multiple of 4: whole int4 vectors
@@ -159,8 +165,8 @@ extern "C" int alias_sample_sorted(const float* prob, const int* alias,
                                    const float* coin, long b, int v, int k,
                                    int* out, void* stream) {
   if (b > 0)
-    alias_sample_kernel<<<(unsigned)((b + kThreads - 1) / kThreads),
-                          kThreads, 0, (cudaStream_t)stream>>>(
+    alias_sample_sorted_kernel<<<(unsigned)((b + kThreads - 1) / kThreads),
+                                 kThreads, 0, (cudaStream_t)stream>>>(
         prob, alias, rows, slot, coin, b, v, k, out);
   return (int)cudaGetLastError();
 }

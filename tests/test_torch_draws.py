@@ -14,7 +14,11 @@ and one alias a rejected one, none for a sentinel.  Tolerance: none.
 
 On the card (``cuda`` marker): kernels 7 and 8 on the same cases against
 the plain version, bit for bit, also on streams one element off a 16-byte
-boundary; no draw, no launch.
+boundary; no draw, no launch.  Kernel 7 also on sorted streams whose runs
+are long (Zipf lengths, up to thousands of draws of one row, −1 sentinels
+first and V sentinels last) at K = 24, 1021, 1024, 2048 and 8192, with
+streams and tables aligned and one element off, and on an unsorted stream
+of long runs with sentinels at −1 and 2V among them.
 """
 
 from __future__ import annotations
@@ -103,8 +107,8 @@ def _off(t: torch.Tensor, offset: int, dev) -> torch.Tensor:
     storage (off a 16-byte boundary when ``offset`` is 1)."""
     buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
     view = buf[offset:]
-    view.copy_(t)
-    return view
+    view.copy_(t.reshape(-1))
+    return view.view(t.shape)
 
 
 @pytest.mark.cuda
@@ -128,4 +132,70 @@ def test_draw_kernels_match_plain(name, b, offset, cuda_device):
     got = getattr(kas, name)(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[name] == (1 if b else 0)
+    assert torch.equal(got.cpu(), want)
+
+
+def tables_of(k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    p = rng.gamma(0.3, size=(V, k)) * (rng.random((V, k)) < 0.6)
+    return alias.build(torch.as_tensor(p, dtype=torch.float32))
+
+
+def long_runs(k: int, b: int, seed: int):
+    """A sorted stream of B draws with Zipf run lengths, −1 sentinels first
+    and V sentinels last; seeded slots and coins."""
+    rng = np.random.default_rng(seed)
+    counts = rng.zipf(1.3, size=V).astype(np.float64)
+    counts = np.floor(counts / counts.sum() * b * 0.8).astype(np.int64)
+    rows = np.concatenate([np.full(7, -1), np.repeat(np.arange(V), counts)])
+    rows = np.concatenate([rows, np.full(max(0, b - rows.shape[0]), V)])[:b]
+    return (torch.as_tensor(rows, dtype=torch.int32),
+            torch.as_tensor(rng.integers(0, k, size=b), dtype=torch.int32),
+            torch.as_tensor(rng.random(b).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables_off", [0, 1])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [1, 4097, 65539])
+@pytest.mark.parametrize("k", [24, 1021, 1024, 2048, 8192])
+def test_sorted_kernel_on_long_runs(k, b, offset, tables_off, cuda_device):
+    """Kernel 7 bit for bit on sorted streams with long runs; streams and
+    tables aligned and one element off a 16-byte boundary."""
+    from repro_torch.kernels import alias_sample as kas
+
+    tables = tables_of(k, k)
+    rows, slot, coin = long_runs(k, b, seed=b + k)
+    want = ref.alias_sample_sorted_ref(tables.prob, tables.alias, rows,
+                                       slot, coin)
+    args = [_off(t, tables_off, cuda_device)
+            for t in (tables.prob, tables.alias)] + [
+        _off(t, offset, cuda_device) for t in (rows, slot, coin)]
+    _build.reset_launches()
+    got = kas.alias_sample_sorted(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["alias_sample_sorted"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_on_an_unsorted_stream(cuda_device):
+    """Kernel 7 on a stream in no order, with long runs and sentinels at −1
+    and 2V among its rows: the same draws."""
+    from repro_torch.kernels import alias_sample as kas
+
+    tables = tables_of(1024, 9)
+    rng = np.random.default_rng(9)
+    runs = rng.choice([-1, 2 * V, *range(V)], size=3000)
+    lengths = rng.integers(1, 300, size=3000)
+    rows = torch.as_tensor(np.repeat(runs, lengths), dtype=torch.int32)
+    b = rows.shape[0]
+    slot = torch.as_tensor(rng.integers(0, 1024, size=b), dtype=torch.int32)
+    coin = torch.as_tensor(rng.random(b).astype(np.float32))
+    want = ref.alias_sample_sorted_ref(tables.prob, tables.alias, rows,
+                                       slot, coin)
+    got = kas.alias_sample_sorted(
+        *(t.to(cuda_device) for t in (tables.prob, tables.alias, rows, slot,
+                                      coin)))
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)

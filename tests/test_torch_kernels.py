@@ -176,6 +176,44 @@ def test_alias_sample_sorted_matches_pallas(v, k, b, n_pad, seed):
                                device="cpu")
 
 
+
+@pytest.mark.parametrize("k,runs,seed", [
+    (16, [(3, 150), (4, 2), (9, 100)], 7),          # runs across tiles
+    (7, [(0, 64), (1, 63), (2, 65), (3, 1)], 8),     # K % 4 != 0
+    (24, [(5, 40), (6, 40), (7, 48)], 9),            # then sentinel tiles
+    (8, [(int(r), 1) for r in range(30)], 10)])      # runs of one draw
+def test_alias_sample_sorted_long_runs_match_pallas(k, runs, seed):
+    """Kernel 7's plain version equals the tile-skipping TPU kernel's on
+    sorted streams of long runs (V = 32, tile_b = 64): runs crossing
+    tiles, a tile of one row, and tiles of sentinels only (vcount 0)."""
+    v, tile_v, tile_b = 32, 8, 64
+    rng = np.random.default_rng(seed)
+    p = rng.gamma(0.3, size=(v, k)) * (rng.random((v, k)) < 0.7)
+    t = alias.build(torch.as_tensor(p.astype(np.float32)))
+    rows = np.concatenate([np.full(n, r) for r, n in runs])
+    b = 5 * tile_b
+    rows = np.concatenate([rows, np.full(b - rows.shape[0], v)])
+    rows = rows.astype(np.int32)
+    slot = rng.integers(0, k, size=b).astype(np.int32)
+    coin = rng.random(b).astype(np.float32)
+    rs = rows.reshape(-1, tile_b)
+    has = rs[:, 0] < v
+    last = np.max(np.where(rs < v, rs, -1), axis=1)
+    vstart = np.where(has, rs[:, 0] // tile_v, 0).astype(np.int32)
+    vcount = np.where(has, last // tile_v - vstart + 1, 0).astype(np.int32)
+    assert (vcount == 0).any()
+    want = np.asarray(ref_sample.alias_sample_sorted(
+        jnp.asarray(t.prob.numpy()), jnp.asarray(t.alias.numpy()),
+        jnp.asarray(rows), jnp.asarray(slot), jnp.asarray(coin),
+        jnp.asarray(vstart), jnp.asarray(vcount), tile_v=tile_v,
+        tile_b=tile_b))
+    got = ops.sample_rows_sorted(
+        t, torch.as_tensor(rows), torch.as_tensor(vstart),
+        torch.as_tensor(vcount), tile_b=tile_b, uniforms=(
+            torch.as_tensor(slot), torch.as_tensor(coin)), device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[rows >= v] == 0).all()
+
 def test_sample_rows_generator_draws_its_streams():
     """With a generator the wrappers draw (slot, coin) in that order, so
     the same seed gives the draws of the injected streams."""
