@@ -64,9 +64,35 @@ Phases; any failure raises and the script exits non-zero:
    and 8 beside their byte bound and the bytes a card with 32-byte
    sectors moves at least (``sector_bytes``).
 
-Each path (lda, pdp, hdp, lda-fused, draws) is driven with the launch
-counters zeroed just before it and read just after, and every kernel of
-the path must have launched.
+Serving (each right after its family's training phase, from that
+phase's final trainer; ``serve_path``):
+
+4s. serve-lda: freeze phase 4's LDA (kernel 2), fold 256 documents of
+   256 tokens in with FoldInEngine(ServeConfig(max_slots=64,
+   max_len=256, n_sweeps=10)) (the list build and kernel 1 once a chunk a
+   step), and phase 4's 32 held-out documents; then the TCP service
+   (InferenceServer, 4 client threads × 32 documents, one
+   out-of-vocabulary request).  Checks: theta sums to 1, assignments in
+   range, 8 documents bit-equal to reference_fold_in on the card, one the
+   same alone as pooled, the snapshot unchanged, fold-in perplexity at
+   most QUALITY_TOL × family.perplexity, the launch counts, every TCP
+   checksum equal to the in-process engine's, the batcher alive; kernel 1
+   at the serving grid's shape against its plain version; and
+   save_snapshot / from_checkpoint at full width (bit-equal statistics,
+   equal tables), with the file's size and the seconds.
+6s, 8s. serve-pdp, serve-hdp: freeze phases 6's and 8's final
+   statistics (kernel 2 at width 2048 for PDP) and fold 64 documents in
+   (kernel 4, or kernel 1 with b1·θ0 and HDP's local projection), 4 of
+   them checked against reference_fold_in.
+9s. serve-lda-fused: freeze phase 9's fused LDA (kernel 6), fold 8
+   documents in, 2 checked.
+11. The launcher: ``python -m repro_torch.launch.serve --smoke`` in a
+   process of its own, its server process on cuda; it must exit 0.
+
+Each path (lda, pdp, hdp, lda-fused, draws, and serve-lda, serve-pdp,
+serve-hdp, serve-lda-fused) is driven with the launch counters zeroed
+just before it and read just after, and every kernel of the path must
+have launched; launches made only to check a path are left out.
 The last lines are the kernels JSON, the card, and the result JSON.
 """
 
@@ -156,6 +182,11 @@ ADVERSARIAL_ROWS_WIDE = 37
 PROFILE_TAIL = ("alias_build", "sort", "memcpy")   # shown beyond the top 15
 PROFILE_ATTEMPTS = 3            # profiled windows before a lost record fails
 PROFILE_PAD, PROFILE_PAD_S = 200, 0.1   # device_ms's window opening
+# The serving paths' engine: 64 documents a step, slots of 256 tokens,
+# 10 sweeps a document (the training-time evaluators' fold-in length).
+SERVE = {"max_slots": 64, "max_len": 256, "n_sweeps": 10}
+QUALITY_TOL = 1.25   # fold-in over family perplexity (bench_serve.py)
+LAUNCHER_TIMEOUT_S = 300
 
 
 def card_line() -> str:
@@ -454,8 +485,7 @@ def profile_round(trainer, label: str, mode: str) -> None:
         print(f"PROFILE {label} {mode} window {attempt}: the measured round "
               f"launched {builds} alias builds, the trace holds {traced}"
               + ("" if span else " (no device-side range)"), flush=True)
-    _build.LAUNCHES.clear()
-    _build.LAUNCHES.update(saved)
+    restore_counts(saved)
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -1317,11 +1347,442 @@ def draw_kernels(dev, tr, cfg, ccfg) -> tuple[list, dict]:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# Serving paths (phases 4s, 6s, 8s, 9s and the launcher)
+# ---------------------------------------------------------------------------
+
+def restore_counts(saved: dict) -> None:
+    """Put the launch counters back to ``saved``: launches made to check a
+    path, not to drive it, are left out of its counts."""
+    from repro_torch.kernels import _build
+    _build.LAUNCHES.clear()
+    _build.LAUNCHES.update(saved)
+
+
+def serve_requests(phi, n_docs: int, seed: int):
+    """Requests of ``held_out_docs`` documents, request seeds 1000+i."""
+    from repro_torch.serve import InferRequest
+    tokens, mask = held_out_docs(phi, n_docs, SERVE["max_len"], seed=seed)
+    lens = mask.sum(1)
+    return [InferRequest(uid=i, tokens=tokens[i, :lens[i]], seed=1000 + i)
+            for i in range(n_docs)]
+
+
+def drive_engine(eng, reqs) -> tuple[dict, dict]:
+    """``FoldInEngine.run`` with each step timed: CUDA events around it
+    (the span on the device's queue) and the host's clock (the time the
+    host takes to enqueue it; nothing in a step syncs)."""
+    events, host_ms, results = [], [], {}
+    queue = list(reqs)
+    t0 = time.perf_counter()
+    while queue or eng.live:
+        while queue and eng.admit(queue[0]):
+            queue.pop(0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        th = time.perf_counter()
+        eng.step()
+        host_ms.append((time.perf_counter() - th) * 1e3)
+        end.record()
+        events.append((start, end))
+        for res in eng.harvest():
+            results[res.uid] = res
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    return results, {
+        "docs": len(results), "steps": len(step_ms),
+        "wall_s": wall, "docs_per_s": len(results) / wall,
+        "step_ms_median": statistics.median(step_ms),
+        "step_ms_max": max(step_ms),
+        "step_host_ms_median": statistics.median(host_ms)}
+
+
+def profile_step(snap, reqs) -> dict:
+    """One engine step with every slot live, under torch.profiler after a
+    step of warm-up: the step's wall time, the device's busy time in it
+    (its kernels and copies, on the device's clock) and their costliest
+    entries, and the host's calls of the kind that launch work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import FoldInEngine, ServeConfig
+    cuda = torch.autograd.DeviceType.CUDA
+    eng = FoldInEngine(snap, ServeConfig(**SERVE))
+    for req in reqs[:SERVE["max_slots"]]:
+        eng.admit(req)
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name: dict[str, list] = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type == cuda:
+            row = by_name.setdefault(e.name[:60], [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchKernelExC"):
+            launches += 1
+    rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall_ms),
+            "device_entries": sum(r[1] for r in rows),
+            "host_launch_calls": launches, "slots": eng.live,
+            "top": [[round(ms, 4), n, k] for ms, n, k in rows[:6]]}
+
+
+def check_results(label, snap, reqs, results) -> None:
+    k = snap.n_topics
+    for req in reqs:
+        res = results[req.uid]
+        if not (abs(float(res.theta.sum()) - 1.0) <= 1e-4
+                and res.theta.shape == (k,)
+                and res.assignments.shape == (len(req.tokens),)
+                and ((res.assignments >= 0) & (res.assignments < k)).all()
+                and np.isfinite(res.theta).all()):
+            raise AssertionError(f"{label}: result {req.uid} malformed "
+                                 f"(theta sums to {res.theta.sum()})")
+
+
+def check_oracle(label, snap, reqs, results, n_check: int) -> int:
+    """``n_check`` documents, spread over the run, bit-equal (assignments
+    and theta) to ``reference_fold_in`` on the card; and the first one the
+    same alone as in the pooled run."""
+    from repro_torch.serve import FoldInEngine, ServeConfig, reference_fold_in
+    picks = np.linspace(0, len(reqs) - 1, n_check).astype(int)
+    for i in picks:
+        req = reqs[i]
+        _, theta, z = reference_fold_in(snap, req.tokens, req.seed,
+                                        n_sweeps=SERVE["n_sweeps"],
+                                        max_len=SERVE["max_len"])
+        got = results[req.uid]
+        if not (np.array_equal(got.assignments, z)
+                and np.array_equal(got.theta, theta)):
+            raise AssertionError(
+                f"{label}: document {req.uid} differs from reference_fold_in"
+                f" ({int((got.assignments != z).sum())} of {z.size} "
+                "assignments)")
+    solo = FoldInEngine(snap, ServeConfig(**SERVE)).run([reqs[picks[-1]]])
+    res = results[reqs[picks[-1]].uid]
+    if not (np.array_equal(solo[res.uid].assignments, res.assignments)
+            and np.array_equal(solo[res.uid].theta, res.theta)):
+        raise AssertionError(f"{label}: a document alone differs from the "
+                             "same document in the pooled run")
+    return len(picks)
+
+
+def serve_chunk_check(snap, reqs) -> dict:
+    """The sweep kernel of the family at the serving grid's shape (one
+    chunk of ``max_slots`` documents), held against its plain version on
+    the same inputs and timed beside it, with the list build first."""
+    from repro_torch.core import mhw, pdp, stirling
+    from repro_torch.data import segment
+    from repro_torch.kernels import ops
+    fam, cfg = snap.family, snap.cfg
+    s, l = SERVE["max_slots"], SERVE["max_len"]
+    dev = snap.device
+    tok = torch.zeros((s, l), dtype=torch.int32, device=dev)
+    mask = torch.zeros((s, l), dtype=torch.bool, device=dev)
+    for j, req in enumerate(reqs[:s]):
+        tok[j, :len(req.tokens)] = torch.as_tensor(req.tokens)
+        mask[j, :len(req.tokens)] = True
+    local, _ = fam.init_state(cfg, tok, mask, (7,))
+    lay = fam.build_sorted_layouts(cfg, tok, mask)[0]
+    e_out = fam.n_outcomes(cfg)
+    clen = l // cfg.sorted_chunks
+    e0 = segment.sort_values(lay, fam.encode(cfg, local)[:, :clen]
+                             .reshape(-1), fill=0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    uni = ops._step_uniforms(gen, e_out, cfg.mh_steps, lay.rows.shape[0],
+                             dev)
+    sh, t = snap.shared, snap.tables
+    if fam.name == "pdp":
+        stirl = stirling.as_tensor(cfg.stirling_n_max, cfg.discount, dev)
+        hyper = dict(b=cfg.concentration, a=cfg.discount, gamma=cfg.gamma,
+                     gamma_bar=cfg.gamma * cfg.vocab_size)
+        args = (*t, snap.stale, sh.m_wk, sh.s_wk, sh.m_k, sh.s_k, stirl,
+                fam.sparse_prior(cfg, sh), lay.rows, lay.docs, e0,
+                local.n_dk, *uni)
+        from repro_torch.kernels.mhw_fused import pdp_sweep_fused as kern
+        plain, name = pdp.sorted_chain_pdp, "pdp_sweep_fused"
+    else:
+        hyper = dict(beta=cfg.beta, beta_bar=cfg.beta * cfg.vocab_size)
+        args = (*t, snap.stale, sh.n_wk, sh.n_k, fam.sparse_prior(cfg, sh),
+                lay.rows, lay.docs, e0, local.n_dk, *uni)
+        from repro_torch.kernels.mhw_fused import mhw_sweep_fused as kern
+        plain, name = mhw.sorted_chain, "mhw_sweep_fused"
+    got = kern(*args, **hyper)
+    want = plain(*args, **hyper)
+    mismatch = float((got != want).float().mean())
+    if not mismatch <= SWEEP_MISMATCH_TOL:
+        raise AssertionError(f"{fam.name} serve chunk: {mismatch:.2e} of "
+                             f"chains differ (> {SWEEP_MISMATCH_TOL})")
+    v, k, steps = cfg.vocab_size, cfg.n_topics, cfg.mh_steps
+    if fam.name == "pdp":
+        cells, nnz = pdp_word_cells(lay.rows, sh.m_wk, v)
+        nbytes = sweep_bytes(lay.rows, lay.docs, uni[0], v, k, e_out, steps,
+                             cells + nnz, 2)[0] + stirl.numel() * 4
+        nops = sum(pdp_sweep_ops(lay.rows, lay.docs, local.n_dk, v, k, nnz,
+                                 steps).values())
+    else:
+        cells = lm_word_cells(lay.rows, lay.docs, e0, local.n_dk, v)
+        nbytes = sweep_bytes(lay.rows, lay.docs, uni[0], v, k, k, steps,
+                             cells, 1)[0]
+        nops = sum(lm_sweep_ops(lay.rows, lay.docs, local.n_dk, v, cells,
+                                steps).values())
+    b, by = bound(nbytes, nops)
+    return {"positions": int(lay.rows.shape[0]),
+            "real": int((lay.rows < cfg.vocab_size).sum()), "docs": s,
+            "mismatch_share": mismatch,
+            "ms": time_ms(lambda: kern(*args, **hyper), 20),
+            "device_ms": device_ms(lambda: kern(*args, **hyper), 10,
+                                   SWEEP_SYMBOLS[name]),
+            "plain_ms": time_ms(lambda: plain(*args, **hyper), 3),
+            "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": nops,
+            "figures": chunk_figures(lay.rows, lay.docs, local.n_dk, v)}
+
+
+def serve_over_tcp(snap, card) -> dict:
+    """4 client threads × 32 documents of ``requests_for`` against an
+    ``InferenceServer`` on 127.0.0.1; each checksum must equal the
+    in-process engine's; one out-of-vocabulary request gets an ERROR, and
+    the service answers after it; the batcher must be alive at the end."""
+    import threading
+
+    from repro_torch.kernels import _build
+    from repro_torch.net.protocol import ProtocolError
+    from repro_torch.serve import FoldInEngine, ServeConfig, result_checksum
+    from repro_torch.serve.client import InferenceClient, requests_for
+    from repro_torch.serve.server import InferenceServer
+
+    v = snap.vocab_size
+    parts = [requests_for(c, vocab_size=v, n_docs=32,
+                          max_len=SERVE["max_len"], corpus_seed=7,
+                          seed_base=1000) for c in range(4)]
+    srv = InferenceServer(snap, ServeConfig(**SERVE), max_queue=128).start()
+    addr = "%s:%d" % srv.address
+    got, lat_ms, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(part):
+        try:
+            with InferenceClient(addr, timeout=600.0) as cli:
+                for r in part:
+                    t0 = time.perf_counter()
+                    res = cli.infer(r.uid, r.tokens, seed=r.seed)
+                    with lock:
+                        lat_ms.append((time.perf_counter() - t0) * 1e3)
+                        got[res.uid] = result_checksum(res)
+        except Exception as e:          # any ERROR here was not asked for
+            with lock:
+                errors.append(f"{type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(p,))
+                   for p in parts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        oov = None
+        with InferenceClient(addr, timeout=60.0) as cli:
+            try:
+                cli.infer(99_999, np.asarray([v], np.int32))
+            except ProtocolError as e:
+                oov = str(e)
+        if oov is None or "out of range" not in oov:
+            raise AssertionError(f"out-of-vocabulary request: {oov!r}")
+        after = parts[0][0]
+        with InferenceClient(addr, timeout=600.0) as cli:
+            again = cli.infer(after.uid, after.tokens, seed=after.seed)
+        stats = srv.stats()
+        alive = srv.batcher_alive
+    finally:
+        srv.close()
+    if errors:
+        raise AssertionError(f"TCP clients got errors: {errors[:3]}")
+    if not alive or stats["batcher_error"] is not None:
+        raise AssertionError(f"batcher dead: {stats['batcher_error']}")
+    saved = dict(_build.LAUNCHES)
+    want = FoldInEngine(snap, ServeConfig(**SERVE)).run(
+        [r for p in parts for r in p])
+    restore_counts(saved)
+    want = {uid: result_checksum(res) for uid, res in want.items()}
+    if got != want or result_checksum(again) != want[after.uid]:
+        bad = sum(got.get(u) != w for u, w in want.items())
+        raise AssertionError(f"TCP: {bad} of {len(want)} checksums differ "
+                             "from the in-process engine")
+    lat = sorted(lat_ms)
+    return {"docs": len(got), "clients": 4, "wall_s": wall,
+            "docs_per_s": len(got) / wall,
+            "latency_p50_ms": lat[len(lat) // 2],
+            "latency_p99_ms": lat[min(len(lat) - 1,
+                                      int(round(0.99 * (len(lat) - 1))))],
+            "shed": stats["shed"], "sweeps_run": stats["sweeps_run"],
+            "oov_error": oov[:80], "bit_equal_to_engine": True,
+            "card": card}
+
+
+def checkpoint_round_trip(tr, snap) -> dict:
+    """``save_snapshot`` at full width into the ignored ``build/``, then
+    ``from_checkpoint``: shared statistics bit-equal to ``trainer.shared``
+    and tables equal to ``from_trainer``'s; the directory is deleted."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.serve import from_checkpoint
+    d = ROOT / "build" / "serve_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    tr.tcfg = dataclasses.replace(tr.tcfg, snapshot_dir=str(d))
+    try:
+        t = time.perf_counter()
+        path = tr.save_snapshot()
+        save_s = time.perf_counter() - t
+        size = Path(path).stat().st_size
+        t = time.perf_counter()
+        back = from_checkpoint(str(d), tr.cfg)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        shared = tr.shared
+        same = all(torch.equal(a, b) for a, b in zip(back.shared, shared))
+        tables = all(torch.equal(a, b) for a, b in
+                     zip((*back.tables, back.stale),
+                         (*snap.tables, snap.stale)))
+        del back
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        tr.tcfg = dataclasses.replace(tr.tcfg, snapshot_dir=None)
+    if not (same and tables):
+        raise AssertionError(f"checkpoint round trip: shared equal {same}, "
+                             f"tables equal {tables}")
+    return {"file_bytes": size, "save_s": save_s, "load_s": load_s,
+            "shared_bit_equal": True, "tables_equal": True}
+
+
+def serve_path(label, tr, phi, n_docs, n_check, card, *, ho=None,
+               tcp=False, ckpt=False) -> dict:
+    """Drive one serving path from a trained model: freeze (kernel 2, or 6
+    for the fused LDA), fold ``n_docs`` documents in (the list build and
+    kernel 1, or 4 for PDP, once a chunk a step), and for LDA the held-out
+    documents and the TCP service too.  The counters are zeroed just
+    before and read just after; checks that launch kernels to compare are
+    left out of them."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (FoldInEngine, InferRequest, ServeConfig,
+                                   fold_in_perplexity, from_trainer)
+
+    cfg, fam = tr.cfg, tr.family
+    sweep = "pdp_sweep_fused" if fam.name == "pdp" else "mhw_sweep_fused"
+    full = ("alias_build_fused" if getattr(cfg, "fused_alias_build", False)
+            else "alias_build")
+    reqs = serve_requests(phi, n_docs, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t = time.perf_counter()
+    snap = from_trainer(tr)
+    torch.cuda.synchronize()
+    freeze_s = time.perf_counter() - t
+    eng = FoldInEngine(snap, ServeConfig(**SERVE))
+    results, summary = drive_engine(eng, reqs)
+    launched = dict(_build.LAUNCHES)
+    want = eng.sweeps_run * cfg.sorted_chunks
+    if (launched.get(sweep, 0) != want
+            or launched.get("doc_topic_lists", 0) != want
+            or launched.get(full, 0) < 1):
+        raise AssertionError(f"{label}: launches {launched}, expected "
+                             f"{sweep} and doc_topic_lists {want} times "
+                             f"and {full} at least once")
+    summary.update(freeze_s=freeze_s, sweeps=SERVE["n_sweeps"],
+                   fused_steps=eng.sweeps_run, launches=launched)
+    check_results(label, snap, reqs, results)
+    shared0 = [x.clone() for x in snap.shared]
+    if ho is not None:
+        ho_tokens, ho_mask = ho
+        ho_reqs = [InferRequest(uid=i, tokens=ho_tokens[i, :ho_mask[i].sum()],
+                                seed=2000 + i)
+                   for i in range(ho_tokens.shape[0])]
+        ho_res = FoldInEngine(snap, ServeConfig(**SERVE)).run(ho_reqs)
+        thetas = np.stack([ho_res[r.uid].theta for r in ho_reqs])
+    if tcp:
+        summary["tcp"] = serve_over_tcp(snap, card)
+    counts = dict(_build.LAUNCHES)
+    summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    saved = dict(_build.LAUNCHES)
+    summary["oracle_docs_bit_equal"] = check_oracle(label, snap, reqs,
+                                                    results, n_check)
+    summary["serve_chunk"] = serve_chunk_check(snap, reqs)
+    summary["profiled_step"] = profile_step(snap, reqs)
+    if ho is not None:
+        ppl_fold = fold_in_perplexity(snap, thetas, ho_tokens, ho_mask)
+        ppl_eval = tr.perplexity(ho_tokens, ho_mask)
+        summary["perplexity"] = {"fold_in": ppl_fold, "family": ppl_eval,
+                                 "ratio": ppl_fold / ppl_eval}
+        if not ppl_fold <= QUALITY_TOL * ppl_eval:
+            raise AssertionError(f"{label}: fold-in perplexity {ppl_fold} "
+                                 f"> {QUALITY_TOL} x {ppl_eval}")
+    if ckpt:
+        summary["checkpoint"] = checkpoint_round_trip(tr, snap)
+    if not all(torch.equal(a, b) for a, b in zip(shared0, snap.shared)):
+        raise AssertionError(f"{label}: serving changed the snapshot")
+    summary["snapshot_unchanged"] = True
+    restore_counts(saved)
+    print(f"SERVE {label} {json.dumps(summary)}", flush=True)
+    print(f"SERVE {label} on {card}: {summary['docs']} docs, "
+          f"{SERVE['n_sweeps']} sweeps each, {summary['fused_steps']} steps, "
+          f"median step {summary['step_ms_median']:.2f} ms (host "
+          f"{summary['step_host_ms_median']:.2f} ms), "
+          f"{summary['docs_per_s']:.1f} docs/s in process"
+          + (f"; TCP p50 {summary['tcp']['latency_p50_ms']:.1f} ms, p99 "
+             f"{summary['tcp']['latency_p99_ms']:.1f} ms, "
+             f"{summary['tcp']['docs_per_s']:.1f} docs/s, shed "
+             f"{summary['tcp']['shed']}" if tcp else "")
+          + f"; peak {summary['peak_gib']:.2f} GiB; profiled step: wall "
+          f"{summary['profiled_step']['wall_ms']:.2f} ms, device busy "
+          f"{summary['profiled_step']['device_busy_ms']:.2f} ms, idle share "
+          f"{summary['profiled_step']['idle_share']:.3f}", flush=True)
+    del snap, eng
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def launcher_smoke() -> dict:
+    """``python -m repro_torch.launch.serve --smoke`` in a process of its
+    own, its server process on ``cuda``; its output lines are printed."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke"],
+        capture_output=True, text=True, env=env, timeout=LAUNCHER_TIMEOUT_S,
+        cwd=str(ROOT))
+    secs = time.perf_counter() - t
+    for line in (out.stdout + out.stderr).strip().splitlines()[-12:]:
+        print(f"  launcher| {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"launcher smoke exited {out.returncode}")
+    return {"seconds": secs, "returncode": out.returncode}
+
+
 def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
           memory_note) -> tuple[dict, float]:
     """Drive one main path: the launch counters are zeroed just before and
     read just after; every round is checked, the client-local rules (HDP's
-    1 ≤ m_dk ≤ n_dk) too.  Returns the counts and the peak GiB."""
+    1 ≤ m_dk ≤ n_dk) too.  Returns the counts, the peak GiB and the last
+    mode's trainer (its serving path freezes it)."""
     from repro_torch.engine import Trainer
     from repro_torch.kernels import _build
 
@@ -1376,8 +1837,9 @@ def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
             "alias_builds": trainer.alias_builds}
         print(f"TRAIN {label}-{name} {json.dumps(summary)}", flush=True)
         profile_round(trainer, label, name)
-        del trainer
-        torch.cuda.empty_cache()
+        if name != modes[-1][0]:
+            del trainer
+            torch.cuda.empty_cache()
     counts = dict(_build.LAUNCHES)
     for kernel in kernels.values():
         if counts.get(kernel, 0) < 1:
@@ -1385,7 +1847,7 @@ def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
                                  "main path")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"MEMORY {label} peak allocated {peak:.2f} GiB")
-    return counts, peak
+    return counts, peak, trainer
 
 
 def main() -> int:
@@ -1429,7 +1891,7 @@ def main() -> int:
                            alias_rebuild_threshold=0.0,
                            alias_rebuild_rows=GATHER_ROWS,
                            alias_full_rebuild_every=16)
-    counts = {}
+    counts, serving = {}, {}
 
     # ---------------------------------------------------------- phase 3
     t = time.perf_counter()
@@ -1458,15 +1920,20 @@ def main() -> int:
     note = (f"~{gib:.1f} GiB: n_wk, its delta, the push sum, stale, prob, "
             "alias and the build's transients as (V,K) f32; two (D,K) "
             "n_dk; layouts; uniforms")
-    counts["lda"], peak_lda = train("lda", cfg, (("cadence", tc_cad, 4),
-                                                 ("incremental", tc_inc, 3)),
-                                    tokens, mask, ho, dev, first,
-                                    {"sweep": "mhw_sweep_fused",
-                                     "lists": "doc_topic_lists",
-                                     "full": "alias_build",
-                                     "rows": "alias_build_gather_fused"},
-                                    note)
+    counts["lda"], peak_lda, tr = train(
+        "lda", cfg, (("cadence", tc_cad, 4), ("incremental", tc_inc, 3)),
+        tokens, mask, ho, dev, first,
+        {"sweep": "mhw_sweep_fused", "lists": "doc_topic_lists",
+         "full": "alias_build", "rows": "alias_build_gather_fused"}, note)
     phase("lda-train", t)
+
+    # --------------------------------------------------------- phase 4s
+    t = time.perf_counter()
+    counts["serve-lda"], serving["lda"] = serve_path(
+        "serve-lda", tr, phi, 256, 8, card, ho=ho, tcp=True, ckpt=True)
+    del tr
+    torch.cuda.empty_cache()
+    phase("serve-lda", t)
 
     # ---------------------------------------------------------- phase 5
     t = time.perf_counter()
@@ -1486,14 +1953,20 @@ def main() -> int:
             "sum and the projection's copies as 16 (V,K) f32; prob, "
             "alias, stale and the dense build's transients as 9 (V,2K); "
             "two (D,K) n_dk; layouts")
-    counts["pdp"], _ = train("pdp", pcfg, (("cadence", tc_cad, 3),
-                                           ("incremental", tc_inc, 3)),
-                             tokens, mask, ho, dev, first,
-                             {"sweep": "pdp_sweep_fused",
-                              "lists": "doc_topic_lists",
-                              "full": "alias_build",
-                              "rows": "alias_build_rows"}, note)
+    counts["pdp"], _, tr = train(
+        "pdp", pcfg, (("cadence", tc_cad, 3), ("incremental", tc_inc, 3)),
+        tokens, mask, ho, dev, first,
+        {"sweep": "pdp_sweep_fused", "lists": "doc_topic_lists",
+         "full": "alias_build", "rows": "alias_build_rows"}, note)
     phase("pdp-train", t)
+
+    # --------------------------------------------------------- phase 6s
+    t = time.perf_counter()
+    counts["serve-pdp"], serving["pdp"] = serve_path("serve-pdp", tr, phi,
+                                                     64, 4, card)
+    del tr
+    torch.cuda.empty_cache()
+    phase("serve-pdp", t)
 
     # ---------------------------------------------------------- phase 7
     t = time.perf_counter()
@@ -1539,13 +2012,21 @@ def main() -> int:
     # while 256 documents saw it fall at every round measured.  HDP is
     # held to 256 held-out documents and 5 rounds a mode.
     ho_hdp = held_out_docs(phi, 256, ccfg.doc_len, seed=2)
-    counts["hdp"], peak_hdp = train(
+    counts["hdp"], peak_hdp, tr = train(
         "hdp", hcfg, (("cadence", tc_cad, 5), ("incremental", tc_inc, 5)),
         tokens, mask, ho_hdp, dev, first,
         {"sweep": "mhw_sweep_fused", "lists": "doc_topic_lists",
          "full": "alias_build", "rows": "alias_build_gather_fused"}, note)
     print(f"MEMORY hdp peak minus lda peak {peak_hdp - peak_lda:+.2f} GiB")
     phase("hdp-train", t)
+
+    # --------------------------------------------------------- phase 8s
+    t = time.perf_counter()
+    counts["serve-hdp"], serving["hdp"] = serve_path("serve-hdp", tr, phi,
+                                                     64, 4, card)
+    del tr
+    torch.cuda.empty_cache()
+    phase("serve-hdp", t)
 
     # ---------------------------------------------------------- phase 9
     t = time.perf_counter()
@@ -1554,12 +2035,18 @@ def main() -> int:
     tr = Trainer(fcfg, tokens, mask, config=tc_cad, seed=0, device=dev)
     report.append(fused_kernel(tr, fcfg))
     note = "as phase 4's LDA, the dense term formed inside kernel 6"
-    counts["lda-fused"], _ = train(
+    counts["lda-fused"], _, tr = train(
         "lda-fused", fcfg, (("cadence", tc_cad, 3),), tokens, mask, ho,
         dev, {"cadence": tr},
         {"sweep": "mhw_sweep_fused", "lists": "doc_topic_lists",
          "full": "alias_build_fused"}, note)
     phase("lda-fused", t)
+
+    # --------------------------------------------------------- phase 9s
+    t = time.perf_counter()
+    counts["serve-lda-fused"], serving["lda-fused"] = serve_path(
+        "serve-lda-fused", tr, phi, 8, 2, card)
+    phase("serve-lda-fused", t)
 
     # --------------------------------------------------------- phase 10
     t = time.perf_counter()
@@ -1568,6 +2055,18 @@ def main() -> int:
     del tr
     torch.cuda.empty_cache()
     phase("draws", t)
+
+    # ------------------------------------------------------ the launcher
+    t = time.perf_counter()
+    serving["launcher"] = launcher_smoke()
+    phase("serve-launcher", t)
+
+    for entry in report:
+        if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):
+            entry["serve_chunk"] = {
+                label: s["serve_chunk"] for label, s in serving.items()
+                if "serve_chunk" in s and (entry["name"] == "pdp_sweep_fused")
+                == (label == "pdp")}
 
     for entry in report:
         by_path = {p: c.get(entry["name"], 0) for p, c in counts.items()}

@@ -73,6 +73,10 @@ class ModelFamily:
         """E: the size of the per-token outcome space (K, or 2K for PDP)."""
         return cfg.n_topics
 
+    def language_model(self, cfg, shared) -> torch.Tensor:
+        """(V, K) per-topic word distributions φ under ``shared``."""
+        raise NotImplementedError
+
     def dense_probs(self, cfg, shared) -> torch.Tensor:
         """(V, E) dense proposal term prior_e · f_e per token-type."""
         raise NotImplementedError
@@ -285,6 +289,9 @@ class LDAFamily(_LMFamilyBase):
     def init_state(self, cfg, tokens, mask, key):
         return lda.init_state(cfg, tokens, mask, key)
 
+    def language_model(self, cfg, shared) -> torch.Tensor:
+        return lda.language_model(cfg, shared)
+
     def dense_probs(self, cfg, shared) -> torch.Tensor:
         return lda.dense_probs(cfg, shared)
 
@@ -331,6 +338,9 @@ class HDPFamily(_LMFamilyBase):
 
     def init_state(self, cfg, tokens, mask, key):
         return hdp.init_state(cfg, tokens, mask, key)
+
+    def language_model(self, cfg, shared) -> torch.Tensor:
+        return hdp.language_model(cfg, shared)
 
     def dense_probs(self, cfg, shared) -> torch.Tensor:
         return hdp.dense_probs(cfg, shared)
@@ -400,6 +410,9 @@ class PDPFamily(ModelFamily):
 
     def n_outcomes(self, cfg) -> int:
         return 2 * cfg.n_topics
+
+    def language_model(self, cfg, shared) -> torch.Tensor:
+        return pdp.language_model(cfg, shared)
 
     def dense_probs(self, cfg, shared) -> torch.Tensor:
         return pdp.dense_probs(cfg, shared)

@@ -25,8 +25,9 @@ import torch
 Key = tuple[int, ...]
 
 # Purposes of the streams a run draws (second element of every key): AUX
-# keys the per-round auxiliary step (HDP's table counts and θ0).
-INIT, SWEEP, EVAL, AUX = 0, 1, 2, 3
+# keys the per-round auxiliary step (HDP's table counts and θ0); SERVE
+# keys a served request's chain, (request seed, SERVE) at its root.
+INIT, SWEEP, EVAL, AUX, SERVE = 0, 1, 2, 3, 4
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import family as family_mod
 from repro_torch.core import ps
 from repro_torch.core import server as server_mod
@@ -45,8 +46,9 @@ class TrainerConfig:
     has no counterpart: the round always runs eagerly, which is what
     ``compiled=True`` means here; the reference's uncompiled Python loop
     (``compiled=False``) is not ported.  ``fault_plan``/``drop_client``,
-    ``snapshot_*`` and the tcp transport knobs raise unless left at their
-    defaults (ROADMAP.md queue A.8 and A.10).
+    ``snapshot_every`` and the tcp transport knobs raise unless left at
+    their defaults (ROADMAP.md queue A.8 and A.10); ``snapshot_dir`` and
+    ``snapshot_name`` name where :meth:`Trainer.save_snapshot` writes.
     """
 
     layout: str = "scan"
@@ -80,8 +82,6 @@ _UNPORTED = {  # field: (default, ROADMAP.md item)
     "fault_plan": (None, "A.8"),
     "drop_client": (None, "A.8"),
     "snapshot_every": (0, "A.8"),
-    "snapshot_dir": (None, "A.8"),
-    "snapshot_name": ("trainer", "A.8"),
     "pull_retry_limit": (3, "A.8"),
     "transport": ("inproc", "A.10"),
     "server_addrs": ((), "A.10"),
@@ -249,6 +249,33 @@ class Trainer:
         return float(self.family.perplexity(
             self.cfg, self.shared, t, m,
             (self.seed, device_mod.EVAL, 42) if key is None else key))
+
+    def snapshot_state(self) -> dict:
+        """The training state a snapshot carries, under the reference's
+        leaf names: the server's ``ServerState`` (``server/shards/<s>/
+        <stat>`` and ``server/aux/<stat>`` with the reference's names,
+        dtypes and shapes, so each package's ``serve.snapshot.
+        from_checkpoint`` reads the other's file; clocks, changed-row
+        mass and the alias proposal), the clients' locals and residuals,
+        the seed and the round counters.  Restoring a whole Trainer from
+        it waits for ROADMAP.md queue A.8."""
+        return {
+            "locals": tuple(self.locals_),
+            "residuals": tuple(self.residuals),
+            "seed": np.int64(self.seed),
+            "round_idx": np.int32(self.round_idx),
+            "alias_builds": np.int32(self.alias_builds),
+            "server": self.pstate,
+        }
+
+    def save_snapshot(self) -> str:
+        """Write :meth:`snapshot_state` at the current round through
+        ``checkpoint.ckpt`` into ``TrainerConfig.snapshot_dir``; returns
+        the file's path."""
+        if not self.tcfg.snapshot_dir:
+            raise ValueError("TrainerConfig.snapshot_dir is not set")
+        return ckpt.save(self.tcfg.snapshot_dir, self.tcfg.snapshot_name,
+                         self.round_idx, self.snapshot_state())
 
     def consistency_error(self) -> float:
         """Max |counts from the assignments − maintained counts| over the

@@ -8,6 +8,9 @@ sources compile at once, one ``nvcc`` process each.  Nothing is built when
 a module is imported: the first kernel launch, or an explicit
 :func:`build_all`, builds.
 
+Building and loading hold one lock, so the threads of a process (the
+inference server's batcher beside the main thread) build and load each
+library once; each build's temporary files are named uniquely per call.
 The libraries are loaded with ``ctypes``.  Each wrapper passes tensor
 pointers and PyTorch's current stream as ``c_void_p`` and raises if the C
 function returns a non-zero ``cudaGetLastError()``.
@@ -24,7 +27,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+import uuid
 from pathlib import Path
 
 import torch
@@ -38,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, object] = {}     # entry points with their types declared
+_LOCK = threading.RLock()        # held by build_all and the loads
 BUILD_LOG: dict[str, str] = {}
 
 P = ctypes.c_void_p
@@ -83,9 +90,20 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 
+def _tmp_path(out: Path) -> Path:
+    """A temporary name for ``out`` that no other build, in this process or
+    another, uses."""
+    return out.with_suffix(f".{os.getpid()}-{uuid.uuid4().hex}.tmp")
+
+
 def build_all() -> float:
     """Compile every source that has no up-to-date library, all at once.
     Returns the seconds spent."""
+    with _LOCK:
+        return _build_all()
+
+
+def _build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -93,7 +111,7 @@ def build_all() -> float:
         out = _target(src)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = _tmp_path(out)
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -113,15 +131,20 @@ def build_all() -> float:
 
 def function(name: str):
     """The C entry point ``name`` with its argument types declared."""
+    fn = _FNS.get(name)
+    if fn is not None:
+        return fn
     stem, argtypes = SIGNATURES[name] if name in SIGNATURES else QUERIES[name]
-    if stem not in _LIBS:
-        out = _target(CSRC / f"{stem}.cu")
-        if not out.exists():
-            build_all()
-        _LIBS[stem] = ctypes.CDLL(str(out))
-    fn = getattr(_LIBS[stem], name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    with _LOCK:
+        if stem not in _LIBS:
+            out = _target(CSRC / f"{stem}.cu")
+            if not out.exists():
+                _build_all()
+            _LIBS[stem] = ctypes.CDLL(str(out))
+        fn = getattr(_LIBS[stem], name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn
 
 

@@ -3,9 +3,11 @@
 * No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the
   ``tools/torch_*.py`` scripts, imports ``jax`` or the reference package
   ``repro`` (an AST scan of every import).
-* ``Trainer``, the family sweep, ``ops.*`` and the ``bridge`` converters
-  run on ``cuda`` by default and raise when there is no card and the CPU
-  was not asked for.
+* ``Trainer``, the family sweep, ``ops.*``, the ``bridge`` converters and
+  the serving entry points (``freeze``, ``from_checkpoint``,
+  ``FoldInEngine``, ``reference_fold_in``, ``InferenceServer`` and its
+  CLI, ``launch_serve``) run on ``cuda`` by default and raise when there
+  is no card and the CPU was not asked for.
 * On the card (tests marked ``cuda``, skipped here without one): a CUDA
   tensor handed to a kernel wrapper reaches the kernel, as the launch
   counters show, and each kernel agrees with its plain version.
@@ -28,7 +30,8 @@ from repro_torch.kernels import _build, ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_topics_torch.py"
+] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
 def _imports(path: Path) -> list[str]:
@@ -55,7 +58,14 @@ def test_scan_covers_the_package():
             "hdp.py", "alias_sample.py", "mh_accept.py", "doc_topics.py",
             "torch_sweep_split.py", "torch_alias_split.py",
             "torch_round_split.py", "torch_kernel_split.py",
-            "bridge.py"} <= names
+            "bridge.py", "ckpt.py", "snapshot.py", "engine.py", "client.py",
+            "protocol.py", "serve.py", "serve_topics_torch.py"} <= names
+    serving = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/serve/server.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/net/protocol.py",
+            "src/repro_torch/checkpoint/ckpt.py"} <= serving
 
 
 def _no_card(monkeypatch):
@@ -162,6 +172,48 @@ def test_family_sweep_requires_card_unless_cpu_asked(monkeypatch):
                          (0,), None)
     fam.sweep_sorted(cfg, local, shared, tables, stale, tokens, mask, (0,),
                      None, device="cpu")
+
+
+@pytest.mark.parametrize("call", ["freeze", "from_checkpoint", "engine",
+                                  "reference_fold_in", "server",
+                                  "server_cli", "launch_serve"])
+def test_serving_requires_card_unless_cpu_asked(call, monkeypatch, tmp_path):
+    """The serving entry points run on ``cuda`` unless the CPU is asked
+    for, and raise without a card."""
+    from repro_torch import serve
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import server
+
+    _no_card(monkeypatch)
+    cfg, tokens, mask = _small()
+    _, shared = family.get("lda").init_state(cfg, tokens, mask, (0,))
+    snap = serve.freeze(cfg, shared, device="cpu")
+    scfg = serve.ServeConfig(max_slots=2, max_len=8, n_sweeps=1)
+    Trainer(cfg, tokens, mask, config=TrainerConfig(
+        layout="sorted", snapshot_dir=str(tmp_path)),
+        device="cpu").save_snapshot()
+    req = serve.InferRequest(uid=0, tokens=[1, 2, 3], seed=0)
+    fns = {
+        "freeze": lambda **kw: serve.freeze(cfg, shared, **kw),
+        "from_checkpoint": lambda **kw: serve.from_checkpoint(
+            str(tmp_path), cfg, **kw),
+        "engine": lambda **kw: serve.FoldInEngine(snap, scfg, **kw).run(
+            [req]),
+        "reference_fold_in": lambda **kw: serve.reference_fold_in(
+            snap, req.tokens, 0, n_sweeps=1, max_len=8, **kw),
+        "server": lambda **kw: server.InferenceServer(snap, scfg,
+                                                      **kw).close(),
+        "server_cli": lambda device="cuda": server.main([
+            "--vocab-size", "16", "--n-topics", "4", "--snapshot-dir",
+            str(tmp_path), "--port", "-1", "--device", device]),
+        "launch_serve": lambda **kw: launch.launch_serve(
+            vocab_size=16, n_topics=4, train_rounds=1,
+            workdir=str(tmp_path / "launch"), **kw)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    if call in ("server_cli", "launch_serve"):
+        return          # their CPU runs bind sockets and start processes
+    fns[call](device="cpu")
 
 
 @pytest.mark.parametrize("call", ["build_tables", "gather", "sweep"])
