@@ -88,9 +88,30 @@ phase's final trainer; ``serve_path``):
    documents in, 2 checked.
 11. The launcher: ``python -m repro_torch.launch.serve --smoke`` in a
    process of its own, its server process on cuda; it must exit 0.
+12. Consistency and faults, on phase 4's LDA (K=1024, V=131072, two
+   clients, the sorted layout): a BSP control over 6 cadence rounds,
+   timed as the others are; SSP with bound 2 over 6 cadence rounds
+   (exact every round, the cache and the alias tables refreshed at rounds
+   0 and 3 only, so kernel 2 launches twice in step(), clocks [6, 6]; a
+   stale round profiled), then 4 rounds of it with incremental rebuilds
+   (one full build, kernel 3 every round); async over 4 rounds (exact, clocks [4, 4],
+   BSP's build cadence; a round profiled); BSP with the top-k filter (16,384 rows by mass
+   plus 1,024 uniform ones) over 4 rounds: counts from the assignments
+   minus (n_wk + Σ residuals) is 0.0 in every entry, each push sends at
+   most 17,408 rows, the filter timed on a real delta and a round
+   profiled; a scripted fault plan (lost push of client 0 at round 1,
+   client 1 crashed over [2, 4) and rejoining at 4, client 0 straggling
+   over [4, 6) with period 2) with snapshots every 2 rounds under build/:
+   exact until the lost push, lossy after, the clocks and the rejoin as
+   the plan resolves them; then a clean BSP run of 4 rounds against
+   ``Trainer.restore`` at round 2 and 2 more rounds, n_wk and every
+   client's z and n_dk bit-equal.  Held-out perplexity must fall under
+   each policy; round ms print beside phase 4's BSP cadence, and the
+   snapshot's bytes, save and restore seconds.  The snapshots are deleted.
 
-Each path (lda, pdp, hdp, lda-fused, draws, and serve-lda, serve-pdp,
-serve-hdp, serve-lda-fused) is driven with the launch counters zeroed
+Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
+serve-hdp, serve-lda-fused, and phase 12's bsp, ssp2, ssp2-incremental,
+async, topk, faults and restore) is driven with the launch counters zeroed
 just before it and read just after, and every kernel of the path must
 have launched; launches made only to check a path are left out.
 The last lines are the kernels JSON, the card, and the result JSON.
@@ -101,6 +122,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -187,6 +209,10 @@ PROFILE_PAD, PROFILE_PAD_S = 200, 0.1   # device_ms's window opening
 SERVE = {"max_slots": 64, "max_len": 256, "n_sweeps": 10}
 QUALITY_TOL = 1.25   # fold-in over family perplexity (bench_serve.py)
 LAUNCHER_TIMEOUT_S = 300
+# Phase 12's top-k filter: 1/8 of the vocabulary's rows by L1 mass a push,
+# plus 1,024 uniform rows against starvation (paper §5.3).
+TOPK = {"k_rows": 16384, "random_rows": 1024}
+SUMMARIES: dict[str, dict] = {}   # TRAIN lines by path and mode
 
 
 def card_line() -> str:
@@ -1836,6 +1862,7 @@ def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
             "perplexity": ppl, "launches": launched,
             "alias_builds": trainer.alias_builds}
         print(f"TRAIN {label}-{name} {json.dumps(summary)}", flush=True)
+        SUMMARIES[f"{label}-{name}"] = summary
         profile_round(trainer, label, name)
         if name != modes[-1][0]:
             del trainer
@@ -1848,6 +1875,340 @@ def train(label, cfg, modes, tokens, mask, ho, dev, first, kernels,
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"MEMORY {label} peak allocated {peak:.2f} GiB")
     return counts, peak, trainer
+
+# ---------------------------------------------------------------------------
+# Phase 12: consistency policies, the top-k filter, faults and restore
+# ---------------------------------------------------------------------------
+
+def policy_rounds(label, trainer, rounds, ho, check) -> dict:
+    """``rounds`` rounds of ``trainer``, each timed on the host's clock
+    around ``step()`` closed by a sync, kernel 2's launches counted around
+    ``step()`` alone, then ``check(r)`` and held-out perplexity."""
+    from repro_torch.kernels import _build
+
+    ms, ppl, k2 = [], [], 0
+    for rnd in range(rounds):
+        before = _build.LAUNCHES["alias_build"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        k2 += _build.LAUNCHES["alias_build"] - before
+        note = check(rnd)
+        ppl.append(trainer.perplexity(*ho))
+        print(f"ROUND {label} {rnd} {ms[-1]:.2f} ms clocks="
+              f"{trainer.clocks.tolist()} alias_builds={trainer.alias_builds} "
+              f"{note} heldout_perplexity={ppl[-1]:.3f}", flush=True)
+        if not np.isfinite(ppl[-1]):
+            raise AssertionError(f"{label}: perplexity {ppl[-1]}")
+    return {"round_ms": ms, "median_round_ms": statistics.median(ms),
+            "mean_round_ms": sum(ms) / len(ms), "perplexity": ppl,
+            "alias_build_launches": k2, "alias_builds": trainer.alias_builds,
+            "clocks": trainer.clocks.tolist()}
+
+
+def exact(label, trainer, rnd) -> str:
+    err = trainer.consistency_error()
+    viol = trainer.family.count_violations(trainer.shared)
+    if err != 0.0 or viol != 0:
+        raise AssertionError(f"{label} round {rnd}: consistency {err}, "
+                             f"violations {viol}")
+    return f"consistency_error={err} violations={viol}"
+
+
+def path_counts(label, kernels=("mhw_sweep_fused", "doc_topic_lists",
+                                "alias_build")) -> dict:
+    from repro_torch.kernels import _build
+    counts = dict(_build.LAUNCHES)
+    for kernel in kernels:
+        if counts.get(kernel, 0) < 1:
+            raise AssertionError(f"{kernel} never launched on the {label} "
+                                 "path")
+    return counts
+
+
+def falls(label, summary) -> None:
+    if not summary["perplexity"][-1] < summary["perplexity"][0]:
+        raise AssertionError(f"{label}: perplexity did not fall: "
+                             f"{summary['perplexity']}")
+
+
+def consistency_and_faults(cfg, tokens, mask, ho, dev, snap_root: Path
+                           ) -> dict:
+    """Phase 12 on LDA at full width, two clients, the sorted layout: SSP
+    with bound 2 and async (each exact every round), BSP with the top-k
+    filter (counts conserved with the residuals), a scripted fault plan
+    with snapshots (lost push, crash and rejoin, straggler), and the BSP
+    restore against the uninterrupted run, bit for bit.  Returns the
+    launch counts of each sub-path, each zeroed just before it."""
+    import shutil
+
+    from repro_torch.core import ps
+    from repro_torch.core.fault import FaultEvent, FaultPlan
+    from repro_torch.engine import Trainer, TrainerConfig
+    from repro_torch.engine import round as round_mod
+    from repro_torch.kernels import _build
+
+    counts = {}
+    n_tok = int(mask.sum())
+    bsp_ms = 1e3 / SUMMARIES["lda-cadence"]["rounds_per_s"]
+    control = {}
+
+    def report(label, summary, peak):
+        summary["peak_gib"] = peak
+        summary["tokens_per_s"] = n_tok / (summary["mean_round_ms"] / 1e3)
+        print(f"POLICY {label} {json.dumps(summary)}", flush=True)
+        print(f"POLICY {label} mean round {summary['mean_round_ms']:.2f} ms "
+              f"(median {summary['median_round_ms']:.2f}) beside phase 4's "
+              f"BSP cadence {bsp_ms:.2f} ms and the BSP control's "
+              f"{control.get('mean_round_ms', float('nan')):.2f} "
+              f"({control.get('median_round_ms', float('nan')):.2f})",
+              flush=True)
+
+    # 12.0 BSP, cadence: the control the policies' rounds are read against,
+    # timed as they are.
+    tcfg = TrainerConfig(layout="sorted", n_clients=2)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    control.update(policy_rounds("bsp", tr, 6, ho,
+                                 lambda r: exact("bsp", tr, r)))
+    counts["bsp"] = path_counts("bsp")
+    report("bsp", control, torch.cuda.max_memory_allocated() / 2**30)
+    del tr
+    torch.cuda.empty_cache()
+
+    # 12.1 SSP(2), cadence: the refresh rounds are 0 and 3.
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, consistency="ssp:2")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    s = policy_rounds("ssp2", tr, 6, ho, lambda r: exact("ssp2", tr, r))
+    counts["ssp2"] = path_counts("ssp2")
+    if (s["alias_builds"], s["alias_build_launches"]) != (2, 2):
+        raise AssertionError(f"ssp2: {s['alias_builds']} builds, kernel 2 "
+                             f"launched {s['alias_build_launches']} times in "
+                             "step(); the refreshes are rounds 0 and 3")
+    if s["clocks"] != [6, 6] or tr.pstate.cache_version != 3:
+        raise AssertionError(f"ssp2: clocks {s['clocks']}, cache version "
+                             f"{tr.pstate.cache_version}")
+    falls("ssp2", s)
+    report("ssp2", s, torch.cuda.max_memory_allocated() / 2**30)
+    profile_round(tr, "ssp2", "stale")          # rounds 6 (refresh), 7
+    del tr
+    torch.cuda.empty_cache()
+
+    # SSP(2) with incremental rebuilds: one full build, then kernel 3 on
+    # the drifted rows at the end of every round, whatever the refreshes.
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, consistency="ssp:2",
+                         alias_rebuild_threshold=0.0,
+                         alias_rebuild_rows=GATHER_ROWS,
+                         alias_full_rebuild_every=16)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    s = policy_rounds("ssp2-incremental", tr, 4, ho,
+                      lambda r: exact("ssp2-incremental", tr, r))
+    counts["ssp2-incremental"] = path_counts(
+        "ssp2-incremental", ("mhw_sweep_fused", "doc_topic_lists",
+                             "alias_build", "alias_build_gather_fused"))
+    k3 = counts["ssp2-incremental"]["alias_build_gather_fused"]
+    if s["alias_builds"] != 1 or k3 != 4 or s["clocks"] != [4, 4]:
+        raise AssertionError(f"ssp2-incremental: {s['alias_builds']} full "
+                             f"builds, kernel 3 launched {k3} times, clocks "
+                             f"{s['clocks']}")
+    falls("ssp2-incremental", s)
+    report("ssp2-incremental", s, torch.cuda.max_memory_allocated() / 2**30)
+    del tr
+    torch.cuda.empty_cache()
+
+    # 12.2 async: pushes land client by client; BSP's build cadence.
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, consistency="async")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    s = policy_rounds("async", tr, 4, ho, lambda r: exact("async", tr, r))
+    counts["async"] = path_counts("async")
+    if s["clocks"] != [4, 4] or s["alias_build_launches"] != 4:
+        raise AssertionError(f"async: clocks {s['clocks']}, kernel 2 "
+                             f"launched {s['alias_build_launches']} times")
+    falls("async", s)
+    report("async", s, torch.cuda.max_memory_allocated() / 2**30)
+    profile_round(tr, "async", "cadence")
+    del tr
+    torch.cuda.empty_cache()
+
+    # 12.3 BSP with the top-k filter and error feedback.
+    spec = ps.FilterSpec("topk", **TOPK)
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, filter=spec)
+    sent_rows, sent, captured = [], [], {}
+    real_push = round_mod.filter_push
+
+    def kept_push(*args, **kw):
+        # Keeps the round's sent deltas to count their rows after step(),
+        # so that no host sync lands inside the timed round.
+        out = real_push(*args, **kw)
+        sent.append(out[0]["n_wk"])
+        captured.setdefault("delta", args[1]["n_wk"])
+        return out
+
+    def conserved(r):
+        sent_rows.extend(int((x != 0).any(1).sum()) for x in sent)
+        sent.clear()
+        counts_wk = sum(tr.family.count_stats(cfg, t, m, loc)["n_wk"]
+                        for (t, m), loc in zip(tr.shards, tr.locals_))
+        gap = counts_wk - tr.shared.n_wk - sum(res["n_wk"]
+                                               for res in tr.residuals)
+        err = float(gap.abs().max())
+        rows = sent_rows[-tcfg.n_clients:]
+        if err != 0.0 or max(rows) > TOPK["k_rows"] + TOPK["random_rows"]:
+            raise AssertionError(f"topk round {r}: counts − (n_wk + Σ "
+                                 f"residuals) {err}, rows sent {rows}")
+        return (f"counts-(n_wk+residuals)={err} rows_sent={rows} "
+                f"consistency_error={tr.consistency_error()}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    round_mod.filter_push = kept_push
+    try:
+        tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+        s = policy_rounds("topk", tr, 4, ho, conserved)
+    finally:
+        round_mod.filter_push = real_push
+    counts["topk"] = path_counts("topk")
+    falls("topk", s)
+    delta = captured["delta"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s["sent_rows"] = sent_rows
+    s["topk_ms"] = time_ms(lambda: ps.filter_delta(delta, spec, gen), 20)
+    s["topk_device_ms"] = sum_device_ms(
+        lambda: ps.filter_delta(delta, spec, gen), 10)
+    s["delta_rows_nonzero"] = int((delta != 0).any(1).sum())
+    report("topk", s, torch.cuda.max_memory_allocated() / 2**30)
+    profile_round(tr, "topk", "cadence")
+    del tr, delta, captured
+    torch.cuda.empty_cache()
+
+    # 12.4 Faults under BSP with snapshots every 2 rounds.
+    fault_dir = snap_root / "faults"
+    shutil.rmtree(snap_root, ignore_errors=True)
+    snap_root.mkdir(parents=True)
+    print(f"DISK free under {snap_root}: "
+          f"{shutil.disk_usage(snap_root).free / 1e9:.1f} GB", flush=True)
+    plan = FaultPlan.scripted(
+        FaultEvent("lost_push", client=0, start=1, stop=2),
+        FaultEvent("crash", client=1, start=2, stop=4),
+        FaultEvent("straggle", client=0, start=4, stop=6, period=2))
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, fault_plan=plan,
+                         snapshot_every=2, snapshot_dir=str(fault_dir))
+    flags = [plan.resolve(r, 2) for r in range(6)]
+    want_clocks = np.cumsum([np.asarray(f.alive) & np.asarray(f.push_ok)
+                             for f in flags], axis=0)
+
+    def faulted(r):
+        err = tr.consistency_error()
+        if (err == 0.0) != (r == 0):
+            raise AssertionError(f"faults round {r}: consistency {err} "
+                                 "(0 only before the lost push)")
+        if tr.clocks.tolist() != want_clocks[r].tolist():
+            raise AssertionError(f"faults round {r}: clocks "
+                                 f"{tr.clocks.tolist()}, the plan gives "
+                                 f"{want_clocks[r].tolist()}")
+        if tr.rejoins != (1 if r >= 4 else 0):
+            raise AssertionError(f"faults round {r}: rejoins {tr.rejoins}")
+        # The rejoin must have read a snapshot: its fallback (in-memory
+        # locals, after a warning) gives the same numbers here, since the
+        # crashed client's locals are frozen since snapshot 2.
+        if read_snapshot != ([True] if r >= 4 else []):
+            raise AssertionError(f"faults round {r}: rejoin snapshot reads "
+                                 f"{read_snapshot} (True: one was read)")
+        return f"consistency_error={err} rejoins={tr.rejoins}"
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    read_snapshot, load_latest = [], tr._load_latest_snapshot
+
+    def load_and_note():
+        snap = load_latest()
+        read_snapshot.append(snap is not None)
+        return snap
+
+    tr._load_latest_snapshot = load_and_note
+    s = policy_rounds("faults", tr, 6, ho, faulted)
+    counts["faults"] = path_counts("faults")
+    t = time.perf_counter()
+    path = tr.save_snapshot()
+    s["save_s"] = time.perf_counter() - t
+    s["snapshot_bytes"] = os.path.getsize(path)
+    report("faults", s, torch.cuda.max_memory_allocated() / 2**30)
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(fault_dir)
+
+    # 12.5 Restore: a clean BSP run against its resumption at round 2.
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, snapshot_every=2,
+                         snapshot_dir=str(snap_root / "restore"))
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    full = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    for _ in range(4):
+        full.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = Trainer.restore(cfg, tokens, mask, config=tcfg, step=2, seed=0,
+                          device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    for _ in range(2):
+        res.step()
+    counts["restore"] = path_counts("restore")
+    equal = {"n_wk": torch.equal(res.shared.n_wk, full.shared.n_wk)}
+    for c, (a, b) in enumerate(zip(res.locals_, full.locals_)):
+        equal[f"z{c}"] = torch.equal(a.z, b.z)
+        equal[f"n_dk{c}"] = torch.equal(a.n_dk, b.n_dk)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nbytes = os.path.getsize(snap_root / "restore" / "trainer-2.npz")
+    print(f"RESTORE {json.dumps({'bit_equal': equal, 'restore_s': restore_s, 'snapshot_bytes': nbytes, 'save_s_faults': s['save_s'], 'peak_gib': peak, 'round_idx': res.round_idx})}",
+          flush=True)
+    if not all(equal.values()) or res.consistency_error() != 0.0:
+        raise AssertionError(f"restore: not bit-equal to the uninterrupted "
+                             f"run: {equal}")
+    del full, res
+    torch.cuda.empty_cache()
+    shutil.rmtree(snap_root)
+    return counts
+
+
+def sum_device_ms(fn, reps: int) -> float:
+    """Median milliseconds, on the device's clock, of all the device work
+    one call of ``fn`` enqueues (several kernels): a torch.profiler trace
+    of ``reps`` calls, each inside its own range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            with record_function(f"call {i}"):
+                fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range for e in events
+                    if e.device_type == cuda and e.name.startswith("call ")),
+                   key=lambda r: r.start)
+    kernels = [e.time_range for e in events
+               if e.device_type == cuda and not e.name.startswith("call ")]
+    per_call = [sum(k.elapsed_us() for k in kernels
+                    if sp.start <= k.start < sp.end) / 1e3 for sp in spans]
+    if not per_call:
+        print(f"sum_device_ms: no device-side range of {reps} calls traced",
+              flush=True)
+        return float("nan")
+    return statistics.median(per_call)
 
 
 def main() -> int:
@@ -2060,6 +2421,12 @@ def main() -> int:
     t = time.perf_counter()
     serving["launcher"] = launcher_smoke()
     phase("serve-launcher", t)
+
+    # --------------------------------------------------------- phase 12
+    t = time.perf_counter()
+    counts.update(consistency_and_faults(cfg, tokens, mask, ho, dev,
+                                         ROOT / "build" / "phase12"))
+    phase("consistency-faults", t)
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

@@ -86,6 +86,11 @@ def _rebuild(tree, fn, prefix: tuple[str, ...] = ()):
     return fn(SEP.join(prefix), tree)
 
 
+def map_leaves(tree, fn):
+    """``tree`` with each leaf replaced by ``fn(leaf)``, containers kept."""
+    return _rebuild(tree, lambda _, leaf: fn(leaf))
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()

@@ -1,9 +1,12 @@
-"""The per-client round body (port of ``tau_sweeps`` and ``filter_push``
-from ``repro.core.distributed``).  The mesh round waits for ROADMAP.md
+"""The per-client round body (port of ``tau_sweeps``, ``filter_push`` and
+``filter_push_sparse`` from ``repro.core.distributed``).  The mesh round
+and its compressed all-gather (``sync_compressed``) wait for ROADMAP.md
 queue A.11.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Sequence
 
 import torch
 
@@ -12,30 +15,62 @@ from repro_torch.core import ps
 
 
 def tau_sweeps(model_cfg, fam, local, snapshot, tables, stale, tokens, mask,
-               sweep_keys, *, method: str = "mhw", layout: str = "sorted",
-               sorted_layouts=None, device=None):
-    """One client's work in a round: a sweep per key in ``sweep_keys``
-    against the snapshot, applying its own deltas locally between sweeps,
-    then the family's client-local rules.  Returns (local', Σ deltas)."""
+               sweep_keys, *, sorted_layouts=None, device=None,
+               sweep_uniforms: Sequence | None = None):
+    """One client's work in a round: a token-sorted sweep per key in
+    ``sweep_keys`` against the snapshot, applying its own deltas locally
+    between sweeps, then the family's client-local rules.  Returns
+    (local', Σ deltas).  The caller has checked the layout and method
+    (``Trainer`` takes ``layout="sorted"``, ``method="mhw"`` only).
+
+    ``sweep_uniforms`` (optional) gives each sweep's ``chunk_uniforms``
+    callback for ``ModelFamily.sweep_sorted`` (None for a sweep that
+    draws its own streams)."""
     acc = {n: torch.zeros_like(fam.stats_dict(snapshot)[n])
            for n in fam.delta_names}
     shared_local = snapshot
-    for key in sweep_keys:
-        local, deltas = fam.sweep(model_cfg, local, shared_local, tables,
-                                  stale, tokens, mask, key, method=method,
-                                  layout=layout,
-                                  sorted_layouts=sorted_layouts,
-                                  device=device)
+    for s, key in enumerate(sweep_keys):
+        uni = sweep_uniforms[s] if sweep_uniforms is not None else None
+        local, deltas = fam.sweep_sorted(
+            model_cfg, local, shared_local, tables, stale, tokens, mask, key,
+            sorted_layouts, chunk_uniforms=uni, device=device)
         shared_local = fam.apply_delta(shared_local, deltas)
         acc = {n: acc[n] + deltas[n] for n in acc}
     return fam.local_project(local), acc
 
 
 def filter_push(fam, deltas: dict[str, torch.Tensor], spec: ps.FilterSpec,
-                key: device_mod.Key, residual=None):
+                key: device_mod.Key, residual=None, *,
+                random_rows: Callable[[int], torch.Tensor | None]
+                | None = None):
     """Communication filter and error feedback on a client's accumulated
-    delta; returns (sent, residual').  The dense filter passes both
-    through."""
+    delta: the residual is added first, then each statistic is filtered
+    (statistic i's random rows from the stream ``fold_in(key, i)``, or
+    from ``random_rows(i)`` when that gives them), and what was withheld
+    becomes the residual.  Returns (sent, residual'); the dense filter
+    passes both through."""
     if spec.kind == "dense":
         return deltas, residual
-    raise NotImplementedError(spec.kind)
+    if residual is not None:
+        deltas = {n: deltas[n] + residual[n] for n in deltas}
+    sent = {}
+    for i, (n, v) in enumerate(deltas.items()):
+        rows = random_rows(i) if random_rows is not None else None
+        gen = None
+        if spec.kind == "topk" and spec.random_rows > 0 and rows is None:
+            gen = device_mod.generator(device_mod.fold_in(key, i), v.device)
+        sent[n] = ps.filter_delta(v, spec, gen, random_rows=rows)
+    return sent, {n: deltas[n] - sent[n] for n in deltas}
+
+
+def filter_push_sparse(fam, deltas: dict[str, torch.Tensor],
+                       spec: ps.FilterSpec, key: device_mod.Key,
+                       residual=None, *, random_rows=None
+                       ) -> tuple[ps.SparseDelta, dict | None]:
+    """:func:`filter_push` with the sent delta as a
+    :class:`~repro_torch.core.ps.SparseDelta` (the same arithmetic, so the
+    same residual; ``ps.from_sparse_delta`` rebuilds the sent delta bit
+    for bit)."""
+    sent, residual = filter_push(fam, deltas, spec, key, residual,
+                                 random_rows=random_rows)
+    return ps.to_sparse_delta(sent), residual

@@ -1,4 +1,4 @@
-"""The in-process parameter server under BSP (port of
+"""The in-process parameter server and its consistency policies (port of
 ``repro.core.server``).
 
 Shared statistics whose leading dimension is the vocabulary are split into
@@ -8,16 +8,32 @@ concatenation, so any shard count gives the same numbers.  The server also
 keeps the per-shard changed-row accounting behind the incremental alias
 rebuild and the resident alias proposal (tables + stale dense matrix).
 
-Only BSP is ported: SSP and async wait for ROADMAP.md queue A.8.  State
-lives in :class:`ServerState`; the :class:`ParameterServer` object is a
-frozen configuration and its methods return new states.
+Policies (:class:`Consistency`):
+
+* :class:`BSP`: every pull returns the canonical state as of the end of the
+  previous round; pushes are summed at the round barrier.
+* :class:`SSP`: clients sample a versioned stale cache and may run up to
+  ``bound`` rounds ahead of it; the pull refreshes the cache (in the
+  lock-step simulation, the blocking pull) once ``round − version`` would
+  exceed the bound.  Read-my-writes: client c samples the cache plus its
+  own deltas since the cache version (``client_lag[c]``), so only other
+  clients' updates are stale.
+* :class:`Async`: each client's push lands at once, so a later client of
+  the same round samples it (Gauss-Seidel across clients); pulls never
+  block.
+
+State lives in :class:`ServerState`; the :class:`ParameterServer` object is
+a frozen configuration and its methods return new states.  The round
+updates the state's read-my-writes lag in place, as the reference's
+compiled round donates it: a state handed to a round is not read again.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import ps
@@ -45,40 +61,117 @@ class ShardSpec:
         b = self.bounds
         return b[shard], b[shard + 1]
 
+    def shard_of(self, row: int) -> int:
+        """The shard that owns vocabulary row ``row``."""
+        if not 0 <= row < self.n_rows:
+            raise IndexError(row)
+        return int(np.searchsorted(np.asarray(self.bounds), row,
+                                   "right")) - 1
+
+    def row_to_shard(self) -> np.ndarray:
+        """(n_rows,) int32 row → shard map."""
+        out = np.zeros((self.n_rows,), np.int32)
+        for s in range(self.n_shards):
+            lo, hi = self.rows_of(s)
+            out[lo:hi] = s
+        return out
+
+    def split(self, x):
+        """A (n_rows, ...) array's per-shard row slices."""
+        return tuple(x[lo:hi] for lo, hi in
+                     (self.rows_of(s) for s in range(self.n_shards)))
+
 
 @dataclass(frozen=True)
 class Consistency:
-    """Base pull/push policy; SSP and Async join it with queue A.8."""
+    """Base pull/push policy (BSP's behaviour)."""
 
     kind = "bsp"
+    # Does the policy keep a versioned stale cache in ServerState?
+    caches = False
+    # Do pushes land at once, client by client, within the round?
+    immediate = False
+    # Staleness bound: a client at round r samples a cache of version v
+    # only while r − v <= bound.
+    bound = 0
+
+    @property
+    def key(self) -> str:
+        """Stable name of the policy (``"bsp"``, ``"ssp(2)"``, ``"async"``)."""
+        return self.kind
+
+    def needs_refresh(self, round_idx: int, version: int | None) -> bool:
+        """Must the cached snapshot be refreshed before round
+        ``round_idx``?  Lock-step clients make this a host decision."""
+        return True
 
 
 @dataclass(frozen=True)
 class BSP(Consistency):
-    """Bulk-synchronous: every pull returns the canonical state as of the
-    end of the previous round; pushes are summed at the round barrier."""
+    """Bulk-synchronous: pull the canonical state of the end of the
+    previous round; pushes are summed at the round barrier."""
+
+
+@dataclass(frozen=True)
+class SSP(Consistency):
+    """Stale-synchronous parallel with staleness bound ``bound``;
+    ``SSP(0)`` refreshes every round, as BSP."""
+
+    bound: int = 1
+    kind = "ssp"
+    caches = True
+
+    def __post_init__(self):
+        if self.bound < 0:
+            raise ValueError(f"SSP bound must be >= 0, got {self.bound}")
+
+    @property
+    def key(self) -> str:
+        return f"ssp({self.bound})"
+
+    def needs_refresh(self, round_idx: int, version: int | None) -> bool:
+        return version is None or round_idx - version > self.bound
+
+
+@dataclass(frozen=True)
+class Async(Consistency):
+    """Pushes land at once, pulls never block."""
+
+    kind = "async"
+    immediate = True
 
 
 def make_consistency(spec: str | Consistency) -> Consistency:
-    """Parse ``TrainerConfig.consistency``; only ``"bsp"`` is ported."""
+    """Parse ``TrainerConfig.consistency``: ``"bsp"``, ``"async"``, or
+    ``"ssp:<bound>"`` (also ``"ssp(<bound>)"``, and bare ``"ssp"`` for
+    bound 1).  A negative bound reaches :class:`SSP`'s check and raises."""
     if isinstance(spec, Consistency):
         return spec
     s = spec.strip().lower()
     if s == "bsp":
         return BSP()
-    if s == "async" or s.startswith("ssp"):
-        raise NotImplementedError(
-            f"consistency {spec!r} is not ported yet (ROADMAP.md queue "
-            "A.8); only 'bsp' is")
+    if s == "async":
+        return Async()
+    if s.startswith("ssp"):
+        rest = s[3:].strip("(): \t")
+        try:
+            return SSP(bound=int(rest)) if rest else SSP()
+        except ValueError as e:
+            if "bound" in str(e):     # a bad bound, not unparseable text
+                raise
     raise ValueError(f"unknown consistency {spec!r}; expected 'bsp', "
                      "'ssp:<bound>' or 'async'")
 
 
 class ServerState(NamedTuple):
     """shards: per-shard dicts of row slices; aux: unsharded statistics;
-    cache/cache_version/client_lag: the SSP pull cache (None under BSP);
-    clocks: per-client round clocks; row_mass: per-shard accumulated L1
-    row mass of tracked pushes; tables/stale: the alias proposal."""
+    cache: SSP's versioned stale snapshot (None under BSP and async);
+    cache_version: the round of its last refresh; client_lag: SSP's
+    read-my-writes lag, per delta statistic the (n_clients, …) stacked
+    deltas each client applied since the cache version (None under BSP
+    and async); clocks: per-client round clocks, advanced when a client's
+    push lands; row_mass: per-shard accumulated L1 row mass of tracked
+    pushes; tables/stale: the alias proposal."""
 
     shards: tuple[dict[str, torch.Tensor], ...]
     aux: dict[str, torch.Tensor]
@@ -124,12 +217,26 @@ class ParameterServer:
         shards, aux = self.split(shared)
         return state._replace(shards=shards, aux=aux)
 
+    def _copy(self, shared):
+        fam = self.family
+        return fam.shared_from_dict({n: v.clone() for n, v in
+                                     fam.stats_dict(shared).items()})
+
     def init_state(self, shared, n_clients: int) -> ServerState:
+        """The server's first state.  SSP's cache is a copy of ``shared``,
+        never a view of the shards."""
         shards, aux = self.split(shared)
         dev = next(iter(aux.values())).device
+        cache = client_lag = None
+        if self.policy.caches:
+            cache = self._copy(shared)
+            stats = self.family.stats_dict(shared)
+            client_lag = {n: torch.zeros((n_clients,) + tuple(stats[n].shape),
+                                         dtype=stats[n].dtype, device=dev)
+                          for n in self.family.delta_names}
         return ServerState(
-            shards=shards, aux=aux, cache=None, cache_version=0,
-            client_lag=None,
+            shards=shards, aux=aux, cache=cache, cache_version=0,
+            client_lag=client_lag,
             clocks=torch.zeros(n_clients, dtype=torch.int32, device=dev),
             row_mass=tuple(torch.zeros(hi - lo, dtype=torch.float32,
                                        device=dev)
@@ -137,19 +244,57 @@ class ParameterServer:
             tables=None, stale=None)
 
     def snapshot(self, state: ServerState):
+        """The canonical statistics, fresh whatever the policy."""
         return self.assemble(state)
 
-    def pull_round(self, state: ServerState, round_idx: int,
-                   do_refresh: bool = True):
-        """(snapshot, cache', version'): BSP pulls the canonical state."""
-        return self.assemble(state), None, int(round_idx)
+    def pull(self, state: ServerState,
+             keys: Sequence[tuple[str, int]] | None = None):
+        """Client pull: with ``keys=None`` the policy's view (SSP the
+        cache, BSP and async the canonical state); with
+        ``keys=[(stat, shard), ...]`` those shard slices of the canonical
+        store."""
+        if keys is None:
+            return state.cache if self.policy.caches else self.assemble(state)
+        return [state.shards[shard][name] for name, shard in keys]
+
+    def reset_lag(self, client_lag, do_refresh: bool):
+        """Zeroed read-my-writes lag when the pull refreshes (the fresh
+        cache holds every applied push); the lag as it is otherwise."""
+        if client_lag is None or not do_refresh:
+            return client_lag
+        return {n: torch.zeros_like(v) for n, v in client_lag.items()}
+
+    def rejoin_client(self, state: ServerState, c: int) -> ServerState:
+        """Client ``c``'s lag row zeroed before it re-enters: it restored
+        its locals from a snapshot that holds none of the writes the row
+        carried.  The caller forces a fresh pull on the rejoin round.  A
+        no-op without a lag (BSP, async).  The row is zeroed in place, as
+        the round adds to the lag: the state handed in is not read
+        again."""
+        if state.client_lag is not None:
+            for v in state.client_lag.values():
+                v[c] = 0
+        return state
 
     def client_view(self, snapshot, client_lag, c: int):
-        """Client c's pull; identity without a read-my-writes lag."""
+        """Client c's pull under read-my-writes SSP: the cache plus its
+        own lag row; identity without a lag."""
         if client_lag is None:
             return snapshot
         return self.family.apply_delta(
             snapshot, {n: v[c] for n, v in client_lag.items()})
+
+    def pull_round(self, state: ServerState, round_idx: int,
+                   do_refresh: bool = True):
+        """The round's pull: (snapshot, cache', version').  BSP and async
+        pull the canonical state and keep no cache; SSP pulls the cache,
+        refreshed to a copy of the canonical state when ``do_refresh``."""
+        if not self.policy.caches:
+            return self.assemble(state), None, int(round_idx)
+        if not do_refresh:
+            return state.cache, state.cache, state.cache_version
+        cache = self._copy(self.assemble(state))
+        return cache, cache, int(round_idx)
 
     def push(self, state: ServerState, deltas: dict[str, torch.Tensor],
              clock_inc: torch.Tensor | None = None, *,
@@ -163,6 +308,14 @@ class ParameterServer:
             state = state._replace(
                 clocks=state.clocks + clock_inc.to(torch.int32))
         return state
+
+    def push_sparse(self, state: ServerState, sparse: ps.SparseDelta,
+                    clock_inc: torch.Tensor | None = None, *,
+                    track_mass: bool = False) -> ServerState:
+        """A :class:`~repro_torch.core.ps.SparseDelta` push: densified
+        here, then :meth:`push`, so it equals the dense push bit for bit."""
+        dense = ps.from_sparse_delta(sparse, self.spec.n_rows)
+        return self.push(state, dense, clock_inc, track_mass=track_mass)
 
     def accumulate_mass(self, state: ServerState,
                         deltas: dict[str, torch.Tensor]) -> ServerState:
@@ -180,6 +333,10 @@ class ParameterServer:
             return state
         return self.load_dense(state,
                                self.family.project(self.assemble(state)))
+
+    def shard_row_mass(self, state: ServerState) -> tuple[torch.Tensor, ...]:
+        """Per-shard accumulated row mass."""
+        return state.row_mass
 
     def consume_changed_rows(self, state: ServerState, k_rows: int,
                              threshold: float):

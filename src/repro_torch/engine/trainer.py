@@ -1,28 +1,39 @@
 """``Trainer``: the driver loop (port of ``repro.engine.trainer``) for
 in-process training of any registered family (LDA, PDP, HDP) on the
-token-sorted layout under BSP.
+token-sorted layout.
 
-Each round: (alias maintenance) → pull → sample → client-local rules →
-filter → push → project → family auxiliaries (HDP's tables and θ0),
-through :func:`repro_torch.engine.round.run_round`.  Alias tables are
-rebuilt in full every ``alias_refresh_every`` rounds (kernel 2, or kernel
-6 for ``LDAConfig(fused_alias_build=True)``), or, in incremental mode
+Each round: (faults, rejoins) → (alias maintenance) → pull → sample →
+client-local rules → filter → push → project → family auxiliaries (HDP's
+tables and θ0) → (snapshot), through
+:func:`repro_torch.engine.round.run_round`, under the configured policy
+(``"bsp"``, ``"ssp:<bound>"`` or ``"async"``; :mod:`repro_torch.core.server`).
+Alias tables are rebuilt in full every ``alias_refresh_every`` rounds
+(kernel 2, or kernel 6 for ``LDAConfig(fused_alias_build=True)``); under
+SSP exactly when the pull refreshes the cache; or, in incremental mode
 (``alias_rebuild_threshold`` set), only the drifted rows at the end of
 every round (kernel 3 for LDA and HDP, kernel 5 for PDP), with a full
 rebuild every ``alias_full_rebuild_every`` rounds.
 
+Faults (``fault_plan``, :mod:`repro_torch.core.fault`) are resolved on
+the host each round into the round's ``alive`` and ``push_ok`` flags; a
+crashed client rejoins by restoring its locals from the latest snapshot
+(``snapshot_every`` and ``snapshot_dir``), clearing its read-my-writes lag
+and forcing a fresh pull.  :meth:`Trainer.restore` resumes a run from its
+snapshots, bit for bit under BSP.
+
 The trainer runs on ``cuda`` unless ``device="cpu"`` is passed
 (:mod:`repro_torch.device`).  RNG: the trainer's ``seed`` heads every
 stream key; client c's initial topics come from (seed, INIT, c), round r's
-sweeps from (seed, SWEEP, r, c, s, chunk), and evaluations from
-(seed, EVAL, 42) — the reference uses ``PRNGKey(42)`` there.
+sweeps from (seed, SWEEP, r, c, s, chunk), its filters from (seed, FILTER,
+r, c), and evaluations from (seed, EVAL, 42) — the reference uses
+``PRNGKey(42)`` there.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import Any
 
 import numpy as np
 import torch
@@ -30,6 +41,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import family as family_mod
+from repro_torch.core import fault as fault_mod
 from repro_torch.core import ps
 from repro_torch.core import server as server_mod
 from repro_torch.data.synthetic import shard_corpus
@@ -40,15 +52,17 @@ from repro_torch.engine import round as round_mod
 class TrainerConfig:
     """The reference's field names and defaults.
 
-    Ported here: ``layout="sorted"``, ``method="mhw"``, ``n_clients``,
-    ``tau``, ``consistency="bsp"``, ``n_server_shards``, the alias
-    schedules, ``project_every`` and the dense ``filter``.  ``compiled``
-    has no counterpart: the round always runs eagerly, which is what
-    ``compiled=True`` means here; the reference's uncompiled Python loop
-    (``compiled=False``) is not ported.  ``fault_plan``/``drop_client``,
-    ``snapshot_every`` and the tcp transport knobs raise unless left at
-    their defaults (ROADMAP.md queue A.8 and A.10); ``snapshot_dir`` and
-    ``snapshot_name`` name where :meth:`Trainer.save_snapshot` writes.
+    Ported: ``layout="sorted"``, ``method="mhw"``, ``n_clients``, ``tau``,
+    ``consistency`` (``"bsp"``, ``"ssp:<bound>"``, ``"async"``),
+    ``n_server_shards``, the alias schedules, ``project_every``, every
+    ``filter`` kind, ``fault_plan`` (``drop_client`` is its deprecated
+    form), ``snapshot_every``/``snapshot_dir``/``snapshot_name`` and
+    ``pull_retry_limit``.  The round always runs eagerly: ``compiled=True``
+    and ``compiled=False`` (the reference's Python loop, which it holds
+    bit-identical to its compiled round) run the same round here, and
+    ``compiled=False`` with incremental rebuilds raises as in the
+    reference.  The tcp transport knobs raise unless left at their
+    defaults (ROADMAP.md queue A.10).
     """
 
     layout: str = "scan"
@@ -64,7 +78,7 @@ class TrainerConfig:
     alias_full_rebuild_every: int = 16
     project_every: int = 1
     filter: ps.FilterSpec = field(default_factory=ps.FilterSpec)
-    fault_plan: Any = None
+    fault_plan: fault_mod.FaultPlan | None = None
     drop_client: tuple[int, int, int] | None = None
     snapshot_every: int = 0
     snapshot_dir: str | None = None
@@ -78,11 +92,6 @@ class TrainerConfig:
 
 
 _UNPORTED = {  # field: (default, ROADMAP.md item)
-    "compiled": (True, "A.5 (the uncompiled reference loop)"),
-    "fault_plan": (None, "A.8"),
-    "drop_client": (None, "A.8"),
-    "snapshot_every": (0, "A.8"),
-    "pull_retry_limit": (3, "A.8"),
     "transport": ("inproc", "A.10"),
     "server_addrs": ((), "A.10"),
     "local_clients": (None, "A.10"),
@@ -108,16 +117,20 @@ class RunResult:
 
 
 class Trainer:
-    """Multi-client trainer on the sorted layout, in process, BSP; the
-    family follows from the type of ``model_cfg``.
+    """Multi-client trainer on the sorted layout, in process; the family
+    follows from the type of ``model_cfg``.
 
     ``tokens``/``mask`` are (D, L) arrays (numpy or tensors); they are
     split into ``n_clients`` document shards and moved to ``device``.
+    ``streams`` (a :class:`repro_torch.engine.round.RoundStreams`)
+    replaces the rounds' own random streams; the parity tests feed the
+    reference's through it.
     """
 
     def __init__(self, model_cfg, tokens, mask, *,
                  config: TrainerConfig = TrainerConfig(layout="sorted"),
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None,
+                 streams: round_mod.RoundStreams | None = None):
         for name, (default, item) in _UNPORTED.items():
             if getattr(config, name) != default:
                 raise NotImplementedError(
@@ -129,10 +142,17 @@ class Trainer:
                 "queue A.4, the position-scan oracle); use layout='sorted'")
         if config.method != "mhw":
             raise ValueError("layout='sorted' requires method='mhw'")
+        if config.alias_rebuild_threshold is not None and not config.compiled:
+            raise ValueError("incremental alias rebuilds "
+                             "(alias_rebuild_threshold) require compiled "
+                             "rounds; the reference loop only supports the "
+                             "alias_refresh_every cadence")
+        self.fault_plan = self._resolve_fault_plan(config)
         self.device = device_mod.resolve(device)
         self.cfg = model_cfg
         self.tcfg = config
         self.seed = int(seed)
+        self.streams = streams
         self.family = family_mod.family_of(model_cfg)
         tokens = np.asarray(tokens)
         mask = np.asarray(mask)
@@ -162,9 +182,48 @@ class Trainer:
             config.alias_refresh_every
             if config.alias_refresh_every is not None
             else getattr(model_cfg, "alias_refresh_every", 1))
-        self.residuals: list = [None] * config.n_clients
+        # Error-feedback residuals: zeros for a filter that withholds
+        # mass, so what it withholds is carried, never dropped.
+        if config.filter.kind != "dense":
+            stats = self.family.stats_dict(shared)
+            self.residuals: list = [
+                {n: torch.zeros_like(stats[n]) for n in self.family.delta_names}
+                for _ in range(config.n_clients)]
+        else:
+            self.residuals = [None] * config.n_clients
         self.round_idx = 0
         self._rcfg = round_mod.RoundConfig.from_trainer(config)
+        # Host mirror of SSP's cache version (the lock-step pull schedule
+        # is a host decision), the failed-pull retry budget, and counters.
+        self._host_version: int | None = None
+        self._pull_retries = 0
+        self.pull_failures = 0
+        self.rejoins = 0
+
+    @staticmethod
+    def _resolve_fault_plan(config: TrainerConfig) -> fault_mod.FaultPlan:
+        """``config.fault_plan``, or the deprecated ``drop_client`` tuple as
+        a one-event crash plan."""
+        if config.drop_client is not None:
+            if config.fault_plan is not None:
+                raise ValueError(
+                    "TrainerConfig.drop_client and TrainerConfig.fault_plan "
+                    "are mutually exclusive — drop_client is the deprecated "
+                    "shim; express the crash as FaultPlan.crash(...) inside "
+                    "the plan instead")
+            warnings.warn(
+                "TrainerConfig.drop_client is deprecated; use "
+                "fault_plan=FaultPlan.crash(client, start, stop) "
+                "(repro_torch.core.fault) — drop_client compiles to exactly "
+                "that one-event plan", DeprecationWarning, stacklevel=3)
+            return fault_mod.FaultPlan.from_drop_client(config.drop_client)
+        if config.fault_plan is None:
+            return fault_mod.FaultPlan.none()
+        if config.fault_plan.max_client >= config.n_clients:
+            raise ValueError(
+                f"fault plan names client {config.fault_plan.max_client} "
+                f"but the run has only {config.n_clients} clients")
+        return config.fault_plan
 
     def _merge_shared(self, acc, sh):
         """Sum the clients' initial statistics, as the reference does:
@@ -182,39 +241,121 @@ class Trainer:
         return self.server.snapshot(self.pstate)
 
     @property
+    def clocks(self) -> np.ndarray:
+        """Per-client round clocks as the server tracks them."""
+        return self.pstate.clocks.cpu().numpy()
+
+    @property
     def _incremental(self) -> bool:
         return self.tcfg.alias_rebuild_threshold is not None
 
-    def _refresh_alias(self) -> None:
-        """Full rebuild on the cadence (or, in incremental mode, on the
-        full-rebuild cadence only; partial rebuilds end each round)."""
-        r = self.round_idx
+    def _pull_refresh(self, r: int, *, force: bool = False,
+                      failed: bool = False) -> bool:
+        """Does round ``r``'s pull refresh the cache?  Always under BSP and
+        async (they keep none).  Under SSP when the bound would be
+        exceeded, or ``force`` (a rejoin's fresh pull).  A due refresh
+        that ``failed`` (the ``failed_pull`` fault) is skipped — the
+        clients sample the stale cache past the bound — and retried next
+        round, until ``pull_retry_limit`` consecutive failures force it
+        through."""
+        pol = self.server.policy
+        if not pol.caches:
+            return True
+        if not (force or pol.needs_refresh(r, self._host_version)):
+            return False
+        if failed and not force \
+                and self._pull_retries < self.tcfg.pull_retry_limit:
+            self._pull_retries += 1
+            self.pull_failures += 1
+            return False
+        self._pull_retries = 0
+        self._host_version = r
+        return True
+
+    def _refresh_alias(self, do_refresh: bool) -> None:
+        """Full rebuild on the cadence; under SSP when the pull refreshes
+        (the proposal is part of the pulled cache); in incremental mode on
+        the full-rebuild cadence only (partial rebuilds end each round)."""
+        srv, r = self.server, self.round_idx
         if self.pstate.tables is not None:
             if self._incremental:
                 every = self.tcfg.alias_full_rebuild_every
                 if not (every and r % every == 0):
                     return
+            elif srv.policy.caches:
+                if not do_refresh:
+                    return
             elif r % self.alias_refresh_every != 0:
                 return
-        self.pstate = self.server.refresh_proposal(self.cfg, self.pstate)
+        self.pstate = srv.refresh_proposal(self.cfg, self.pstate)
         self.alias_builds += 1
+
+    def _round_faults(self) -> fault_mod.RoundFaults:
+        """This round's fault flags, with the rejoin protocol already run
+        for every client whose crash ends now."""
+        rf = self.fault_plan.resolve(self.round_idx, self.tcfg.n_clients)
+        if rf.rejoining:
+            self._rejoin(rf.rejoining)
+        return rf
+
+    def _rejoin(self, clients: tuple[int, ...]) -> None:
+        """Restore each rejoining client's locals (and residual) from the
+        latest snapshot when there is one (else its frozen in-memory state
+        stands in for it) and zero its read-my-writes lag row."""
+        snap = self._load_latest_snapshot()
+        for c in clients:
+            if snap is not None:
+                self.locals_[c] = _to(snap["locals"][c], self.device)
+                if self.residuals[c] is not None:
+                    self.residuals[c] = _to(snap["residuals"][c],
+                                            self.device)
+            self.pstate = self.server.rejoin_client(self.pstate, c)
+        self.rejoins += len(clients)
+
+    def _load_latest_snapshot(self) -> dict | None:
+        """The clients' locals and residuals from the newest readable
+        snapshot, or None when snapshots are off or none was written yet.
+        When every snapshot is unreadable it warns and returns None."""
+        if not self.tcfg.snapshot_dir:
+            return None
+        template = {"locals": tuple(self.locals_),
+                    "residuals": tuple(self.residuals)}
+        try:
+            return ckpt.restore_latest(self.tcfg.snapshot_dir,
+                                       self.tcfg.snapshot_name, template)
+        except FileNotFoundError:
+            return None
+        except ckpt.CorruptSnapshotError as e:
+            warnings.warn(f"rejoin falling back to in-memory state: {e}",
+                          RuntimeWarning, stacklevel=2)
+            return None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def step(self) -> None:
-        """One sync round; returns once it is enqueued on the device."""
+        """One sync round: (faults) → pull → sample → filter → push →
+        project → (snapshot); returns once it is enqueued on the device
+        (a fault plan, SSP's schedule or a snapshot may sync)."""
         r = self.round_idx
-        self._refresh_alias()
+        rf = self._round_faults()
+        do_refresh = self._pull_refresh(r, force=bool(rf.rejoining),
+                                        failed=rf.pull_failed)
+        self._refresh_alias(do_refresh)
         do_project = bool(self.tcfg.project_every
                           and r % self.tcfg.project_every == 0)
         self.locals_, self.pstate, self.residuals = round_mod.run_round(
             self.server, self.cfg, self._rcfg, self._incremental,
             self.pstate, self.locals_, self.residuals,
             [t for t, _ in self.shards], [m for _, m in self.shards],
-            self.layouts, self.seed, r, do_project, self.device)
+            self.layouts, self.seed, r, do_project, self.device,
+            alive=rf.alive, push_ok=rf.push_ok, do_refresh=do_refresh,
+            streams=self.streams)
         self.round_idx += 1
+        if self.tcfg.snapshot_every and self.tcfg.snapshot_dir \
+                and self.round_idx % self.tcfg.snapshot_every == 0:
+            self.save_snapshot()
 
     def run(self, n_rounds: int, *, eval_every: int = 5,
             eval_docs: int = 32) -> RunResult:
@@ -250,22 +391,31 @@ class Trainer:
             self.cfg, self.shared, t, m,
             (self.seed, device_mod.EVAL, 42) if key is None else key))
 
+    # ---------------------------------------------------- snapshot/restore
     def snapshot_state(self) -> dict:
         """The training state a snapshot carries, under the reference's
         leaf names: the server's ``ServerState`` (``server/shards/<s>/
         <stat>`` and ``server/aux/<stat>`` with the reference's names,
         dtypes and shapes, so each package's ``serve.snapshot.
-        from_checkpoint`` reads the other's file; clocks, changed-row
-        mass and the alias proposal), the clients' locals and residuals,
-        the seed and the round counters.  Restoring a whole Trainer from
-        it waits for ROADMAP.md queue A.8."""
+        from_checkpoint`` reads the other's file; SSP's cache, version and
+        lag, clocks, changed-row mass and the alias proposal), the
+        clients' locals and residuals, and the round counters
+        (``round_idx``, ``host_version`` (-1 before SSP's first pull),
+        ``alias_builds``, ``pull_retries``).  Where the reference keeps its
+        run's ``PRNGKey`` (leaf ``key``) the port keeps its integer seed
+        (leaf ``seed``), so a whole Trainer restores only within its own
+        package."""
+        hv = -1 if self._host_version is None else self._host_version
         return {
             "locals": tuple(self.locals_),
             "residuals": tuple(self.residuals),
             "seed": np.int64(self.seed),
             "round_idx": np.int32(self.round_idx),
+            "host_version": np.int32(hv),
             "alias_builds": np.int32(self.alias_builds),
-            "server": self.pstate,
+            "pull_retries": np.int32(self._pull_retries),
+            "server": self.pstate._replace(
+                cache_version=np.int32(self.pstate.cache_version)),
         }
 
     def save_snapshot(self) -> str:
@@ -277,10 +427,51 @@ class Trainer:
         return ckpt.save(self.tcfg.snapshot_dir, self.tcfg.snapshot_name,
                          self.round_idx, self.snapshot_state())
 
+    @classmethod
+    def restore(cls, model_cfg, tokens, mask, *,
+                config: TrainerConfig = TrainerConfig(layout="sorted"),
+                snapshot_dir: str | None = None, step: int | None = None,
+                seed: int = 0, device=None) -> "Trainer":
+        """Resume a run from its snapshots: a Trainer built as
+        ``__init__`` builds it (same corpus, config and seed), then its
+        round state overwritten from the newest readable snapshot in
+        ``snapshot_dir`` (default ``config.snapshot_dir``), or from
+        ``step``.  Under BSP the resumed rounds equal the uninterrupted
+        run's bit for bit."""
+        sdir = snapshot_dir if snapshot_dir is not None \
+            else config.snapshot_dir
+        if not sdir:
+            raise ValueError("no snapshot_dir: pass snapshot_dir= or set "
+                             "TrainerConfig.snapshot_dir")
+        trainer = cls(model_cfg, tokens, mask, config=config, seed=seed,
+                      device=device)
+        # A snapshot is written after a round, whose pull built the alias
+        # proposal: build one so that the template has its leaves.
+        trainer.pstate = trainer.server.refresh_proposal(model_cfg,
+                                                         trainer.pstate)
+        snap = ckpt.restore_latest(sdir, config.snapshot_name,
+                                   trainer.snapshot_state(), step=step)
+        trainer._install_snapshot(snap)
+        return trainer
+
+    def _install_snapshot(self, snap: dict) -> None:
+        self.locals_ = list(_to(snap["locals"], self.device))
+        self.residuals = list(_to(snap["residuals"], self.device))
+        self.seed = int(snap["seed"])
+        self.round_idx = int(snap["round_idx"])
+        hv = int(snap["host_version"])
+        self._host_version = None if hv < 0 else hv
+        self.alias_builds = int(snap["alias_builds"])
+        self._pull_retries = int(snap["pull_retries"])
+        server = _to(snap["server"], self.device)
+        self.pstate = server._replace(
+            cache_version=int(server.cache_version))
+
     def consistency_error(self) -> float:
         """Max |counts from the assignments − maintained counts| over the
-        count-conserved shared statistics; exactly 0.0 under BSP with the
-        dense filter."""
+        count-conserved shared statistics; exactly 0.0 with the dense
+        filter under every policy (staleness delays what a client sees,
+        never what the server applies), unless a push was lost."""
         fam, cfg = self.family, self.cfg
         totals: dict[str, torch.Tensor] = {}
         for (t, m), loc in zip(self.shards, self.locals_):
@@ -289,3 +480,10 @@ class Trainer:
         stats = fam.stats_dict(self.shared)
         return max(float((totals[n] - stats[n]).abs().max())
                    for n in fam.conserved_stats)
+
+
+def _to(tree, device):
+    """``tree`` with every tensor leaf moved to ``device``."""
+    return ckpt.map_leaves(
+        tree, lambda leaf: leaf.to(device)
+        if isinstance(leaf, torch.Tensor) else leaf)

@@ -19,12 +19,14 @@ import pytest
 import torch
 
 from repro.core import family as ref_fam_mod
+from repro.core import ps as ref_ps
 from repro.engine import Trainer as RefTrainer
 from repro.engine import TrainerConfig as RefTrainerConfig
 from repro.serve import snapshot as ref_snapshot
 from repro_torch import bridge
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import family as fam_mod
+from repro_torch.core import ps
 from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
 from repro_torch.engine import Trainer, TrainerConfig
 from repro_torch.serve import snapshot as port_snapshot
@@ -260,14 +262,95 @@ def test_port_snapshot_read_by_the_reference(tmp_path, name):
     assert all(dtypes[k] == ref_leaves[k].dtype for k in shared_keys)
 
 
-def test_snapshot_every_still_waits_for_a8(tmp_path):
+def test_snapshot_every_writes_its_steps(tmp_path):
+    """``snapshot_every=2`` over 4 rounds writes steps 2 and 4; without a
+    directory ``save_snapshot()`` raises."""
     cfg = fam_mod.get("lda").config_cls(n_topics=4, vocab_size=64)
     tokens, mask = _corpus()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        Trainer(cfg, tokens, mask, config=TrainerConfig(
-            layout="sorted", snapshot_every=1, snapshot_dir=str(tmp_path)),
-            device="cpu")
+    tr = Trainer(cfg, tokens, mask, config=TrainerConfig(
+        layout="sorted", snapshot_every=2, snapshot_dir=str(tmp_path)),
+        device="cpu")
+    for _ in range(4):
+        tr.step()
+    m = json.load(open(tmp_path / "trainer.MANIFEST"))
+    assert m["steps"] == [2, 4] and m["latest"] == "trainer-4.npz"
     tr = Trainer(cfg, tokens, mask, config=TrainerConfig(layout="sorted"),
                  device="cpu")
     with pytest.raises(ValueError, match="snapshot_dir"):
         tr.save_snapshot()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("pdp", dict(consistency="ssp:2")),
+    ("hdp", dict(consistency="ssp:1")),
+    ("lda", dict(filter=ps.FilterSpec("topk", k_rows=8, random_rows=4))),
+    ("pdp", dict(filter=ps.FilterSpec("threshold", threshold=2.0)))])
+def test_trainer_snapshot_round_trips_policy_leaves(tmp_path, name, kw):
+    """SSP's cache and lag, and a filter's residual dicts, come back from a
+    Trainer snapshot with their dtypes and shapes; the SSP leaves carry
+    the reference's names (``server/cache/<stat>``,
+    ``server/client_lag/<stat>``, ``server/cache_version`` as int32)."""
+    fam = fam_mod.get(name)
+    cfg = fam.config_cls(n_topics=4, vocab_size=64)
+    tokens, mask = _corpus()
+    tcfg = TrainerConfig(layout="sorted", n_clients=2,
+                         snapshot_dir=str(tmp_path), **kw)
+    tr = Trainer(cfg, tokens, mask, config=tcfg, device="cpu")
+    for _ in range(2):
+        tr.step()
+    path = tr.save_snapshot()
+    back = Trainer.restore(cfg, tokens, mask, config=tcfg, device="cpu")
+    want = dict(ckpt._leaves(tr.snapshot_state()))
+    got = dict(ckpt._leaves(back.snapshot_state()))
+    assert sorted(want) == sorted(got)
+    for key, leaf in want.items():
+        other = got[key]
+        if isinstance(leaf, torch.Tensor):
+            assert other.dtype == leaf.dtype and other.shape == leaf.shape, \
+                key
+            assert torch.equal(other, leaf), key
+        else:
+            assert np.asarray(other).dtype == np.asarray(leaf).dtype, key
+            assert np.array_equal(np.asarray(other), np.asarray(leaf)), key
+    with np.load(path) as data:
+        files = set(data.files)
+        if tr.pstate.cache is not None:
+            assert data["server/cache_version"].dtype == np.int32
+            for stat in fam.shared_stats:
+                assert f"server/cache/{stat}" in files
+            for stat in fam.delta_names:
+                assert data[f"server/client_lag/{stat}"].shape[0] == 2
+        if tr.residuals[0] is not None:
+            for c in range(2):
+                for stat in fam.delta_names:
+                    assert f"residuals/{c}/{stat}" in files
+
+
+def test_policy_snapshot_leaves_match_the_reference(tmp_path):
+    """An SSP run with a top-k filter writes the reference's leaves with
+    the reference's dtypes and shapes, but for the run's stream root: the
+    reference's ``key`` (a PRNGKey), the port's ``seed``."""
+    rcfg = ref_fam_mod.get("lda").config_cls(n_topics=4, vocab_size=64)
+    tokens, mask = _corpus()
+    kw = dict(layout="sorted", n_clients=2, consistency="ssp:2")
+    ref = RefTrainer(rcfg, tokens, mask, key=jax.random.PRNGKey(0),
+                     config=RefTrainerConfig(
+                         **kw, snapshot_dir=str(tmp_path / "ref"),
+                         filter=ref_ps.FilterSpec("topk", k_rows=8,
+                                                  random_rows=4)))
+    ref.step()
+    tr = Trainer(bridge.config_from(rcfg), tokens, mask, device="cpu",
+                 config=TrainerConfig(
+                     **kw, snapshot_dir=str(tmp_path / "port"),
+                     filter=ps.FilterSpec("topk", k_rows=8, random_rows=4)))
+    tr.step()
+    leaves = []
+    for path in (ref.save_snapshot(), tr.save_snapshot()):
+        with np.load(path) as data:
+            leaves.append({k: (data[k].dtype, data[k].shape)
+                           for k in data.files})
+    want, got = leaves
+    assert set(want) - set(got) == {"key"}
+    assert set(got) - set(want) == {"seed"}
+    for k in set(want) & set(got):
+        assert got[k] == want[k], k

@@ -59,13 +59,59 @@ def test_scan_covers_the_package():
             "torch_sweep_split.py", "torch_alias_split.py",
             "torch_round_split.py", "torch_kernel_split.py",
             "bridge.py", "ckpt.py", "snapshot.py", "engine.py", "client.py",
-            "protocol.py", "serve.py", "serve_topics_torch.py"} <= names
+            "protocol.py", "serve.py", "serve_topics_torch.py",
+            "fault.py", "server.py", "round.py", "distributed.py"} <= names
     serving = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/server.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/net/protocol.py",
-            "src/repro_torch/checkpoint/ckpt.py"} <= serving
+            "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/core/fault.py"} <= serving
+
+
+def test_filter_keys_collide_with_no_other_stream(monkeypatch):
+    """Client c's filter in round r draws statistic i from
+    ``fold_in(filter_key(seed, r, c), i)``.  Over r < 64, c < 8 and every
+    family's statistics no such key (nor the filter key itself) equals a
+    key of another purpose: INIT's (seed, INIT, c), the sweeps' (seed,
+    SWEEP, r, c, s) and their chunks', AUX's (seed, AUX, r) and its
+    sub-streams (HDP's clients and θ0), EVAL's (seed, EVAL, 42).  And a
+    top-k run draws its random rows from exactly those keys."""
+    from repro_torch.core.ps import FilterSpec
+    from repro_torch.engine import round as round_mod
+    fold = device_mod.fold_in
+    seed, n_stats = 0, max(len(f.delta_names)
+                           for f in family.FAMILIES.values())
+    filt = set()
+    for r in range(64):
+        for c in range(8):
+            key = round_mod.filter_key(seed, r, c)
+            filt |= {key} | {fold(key, i) for i in range(n_stats)}
+    others = {(seed, device_mod.INIT, c) for c in range(8)}
+    others.add((seed, device_mod.EVAL, 42))
+    for r in range(64):
+        aux = (seed, device_mod.AUX, r)
+        others |= {aux, fold(aux, 101)} | {fold(aux, c) for c in range(8)}
+        for c in range(8):
+            for s in range(4):
+                sweep = (seed, device_mod.SWEEP, r, c, s)
+                others |= {sweep} | {fold(sweep, ch) for ch in range(8)}
+    assert not filt & others
+
+    drawn = []
+    real = device_mod.generator
+    monkeypatch.setattr(device_mod, "generator",
+                        lambda key, dev: drawn.append(key) or real(key, dev))
+    cfg, tokens, mask = _small()
+    tr = Trainer(cfg, tokens, mask, device="cpu", config=TrainerConfig(
+        layout="sorted", n_clients=2,
+        filter=FilterSpec("topk", k_rows=2, random_rows=3)))
+    for _ in range(2):
+        tr.step()
+    assert {k for k in drawn if k[1] == device_mod.FILTER} == {
+        fold(round_mod.filter_key(0, r, c), 0)
+        for r in range(2) for c in range(2)}
 
 
 def _no_card(monkeypatch):
@@ -581,3 +627,15 @@ def test_sweep_kernel_with_a_non_uniform_prior(cuda_device):
                              **hyper)
     assert float((z != z_ref).float().mean()) <= 0.01
     torch.cuda.synchronize()
+
+
+def test_restore_requires_card_unless_cpu_asked(monkeypatch, tmp_path):
+    cfg, tokens, mask = _small()
+    tcfg = TrainerConfig(layout="sorted", snapshot_every=1,
+                         snapshot_dir=str(tmp_path))
+    Trainer(cfg, tokens, mask, config=tcfg, device="cpu").step()
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer.restore(cfg, tokens, mask, config=tcfg)
+    assert Trainer.restore(cfg, tokens, mask, config=tcfg,
+                           device="cpu").round_idx == 1

@@ -26,7 +26,7 @@ from repro.data.synthetic import CorpusConfig, make_topic_corpus
 from repro.engine import Trainer as RefTrainer
 from repro.engine import TrainerConfig as RefTrainerConfig
 from repro_torch import bridge
-from repro_torch.core import lda, projection
+from repro_torch.core import lda, projection, ps
 from repro_torch.kernels import _build
 from repro_torch.engine import Trainer, TrainerConfig
 
@@ -47,10 +47,14 @@ def _ref_cfg():
     return ref_lda.LDAConfig(n_topics=16, vocab_size=256)
 
 
-@pytest.mark.parametrize("mode", ["cadence", "incremental"])
+MODES = {"cadence": {}, "incremental": INCREMENTAL,
+         "ssp2": dict(consistency="ssp:2"), "async": dict(consistency="async")}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
 def test_trainer_matches_reference(mode, corpus):
     tokens, mask = corpus
-    kw = INCREMENTAL if mode == "incremental" else {}
+    kw = MODES[mode]
     cfg = bridge.config_from(_ref_cfg())
     ours, theirs = [], []
     for seed in SEEDS:
@@ -61,7 +65,7 @@ def test_trainer_matches_reference(mode, corpus):
             assert tr.consistency_error() == 0.0, (seed, r)
             assert tr.family.count_violations(tr.shared) == 0.0, (seed, r)
         ours.append(tr.perplexity(tokens[:32], mask[:32]))
-        want_builds = ROUNDS if mode == "cadence" else 1
+        want_builds = {"incremental": 1, "ssp2": 2}.get(mode, ROUNDS)
         assert tr.alias_builds == want_builds
 
         ref = RefTrainer(_ref_cfg(), tokens, mask, config=RefTrainerConfig(
@@ -91,11 +95,12 @@ def test_trainer_perplexity_falls_and_launches_nothing_on_cpu(corpus):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("compiled", False), ("transport", "tcp"), ("snapshot_every", 2),
-    ("consistency", "ssp:2"), ("layout", "scan")])
+    ("server_addrs", ("localhost:1",)), ("transport", "tcp"),
+    ("local_clients", (0,)), ("reconnect_limit", 5), ("layout", "scan")])
 def test_trainer_rejects_unported_options(field, value, corpus):
+    """Only the wire's fields (A.10) and the scan layout (A.4) raise."""
     tokens, mask = corpus
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A.10|A.4"):
         Trainer(bridge.config_from(_ref_cfg()), tokens, mask,
                 config=TrainerConfig(**{"layout": "sorted", field: value}),
                 device="cpu")
@@ -193,3 +198,43 @@ def test_projection_matches_reference():
         {"n_wk": torch.as_tensor(n_wk)}, projection.LDA_RULES)) == float(
         ref_proj.count_violations({"n_wk": jax.numpy.asarray(n_wk)},
                                   ref_proj.LDA_RULES))
+
+
+@pytest.mark.parametrize("mode", ["bsp", "ssp:2", "async", "topk"])
+def test_restore_continues_bit_exactly(mode, corpus, tmp_path):
+    """A run restored from its round-2 snapshot replays rounds 2-3 bit for
+    bit: statistics, every client's z and n_dk, clocks, SSP's cache and
+    lag, the filter's residuals and the counters (the snapshot carries
+    every round input, and the port's streams are keyed by the seed and
+    the round)."""
+    tokens, mask = corpus
+    kw = (dict(filter=ps.FilterSpec("topk", k_rows=16, random_rows=8))
+          if mode == "topk" else dict(consistency=mode))
+    tcfg = TrainerConfig(layout="sorted", n_clients=2, snapshot_every=2,
+                         snapshot_dir=str(tmp_path), **kw)
+    cfg = bridge.config_from(_ref_cfg())
+    full = Trainer(cfg, tokens, mask, config=tcfg, seed=3, device="cpu")
+    for _ in range(4):
+        full.step()
+    res = Trainer.restore(cfg, tokens, mask, config=tcfg, step=2, seed=3,
+                          device="cpu")
+    assert res.round_idx == 2
+    for _ in range(2):
+        res.step()
+    assert torch.equal(res.shared.n_wk, full.shared.n_wk)
+    assert torch.equal(res.shared.n_k, full.shared.n_k)
+    for a, b in zip(res.locals_, full.locals_):
+        assert torch.equal(a.z, b.z) and torch.equal(a.n_dk, b.n_dk)
+    np.testing.assert_array_equal(res.clocks, full.clocks)
+    assert (res.alias_builds, res._host_version, res.pstate.cache_version) \
+        == (full.alias_builds, full._host_version, full.pstate.cache_version)
+    if mode == "ssp:2":
+        assert torch.equal(res.pstate.client_lag["n_wk"],
+                           full.pstate.client_lag["n_wk"])
+        assert torch.equal(res.pstate.cache.n_wk, full.pstate.cache.n_wk)
+    if mode == "topk":
+        for a, b in zip(res.residuals, full.residuals):
+            assert torch.equal(a["n_wk"], b["n_wk"])
+        assert res.consistency_error() > 0.0     # mass waits in residuals
+    else:
+        assert res.consistency_error() == 0.0
