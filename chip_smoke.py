@@ -108,12 +108,35 @@ phase's final trainer; ``serve_path``):
    client's z and n_dk bit-equal.  Held-out perplexity must fall under
    each policy; round ms print beside phase 4's BSP cadence, and the
    snapshot's bytes, save and restore seconds.  The snapshots are deleted.
+13. The wire, on phase 4's LDA (two clients, two shard servers, in
+   threads of this process unless said): (a) tcp-bsp, a tcp Trainer with
+   both clients over 3 rounds, after each n_wk and every client's z and
+   n_dk bit-equal to an in-process BSP trainer, exact, its round ms beside
+   the in-process round, a pull's and a push's bytes and frames, a pull
+   timed by stage (``pull_breakdown``), then ``serve.from_servers`` equal
+   to ``freeze`` of the in-process statistics; sparse pushes without a
+   filter over 1 round, equal to (a)'s first; (b) tcp-topk, the
+   top-k filter with sparse pushes over 3 rounds: counts − (n_wk + Σ
+   residuals) == 0.0, at most 17,408 rows a push; (c) tcp-ssp2 over 4
+   rounds: exact, NOT_MODIFIED on the stale rounds, kernel 2 on the
+   refreshes only; (d) tcp-pdp, phase 6's PDP over 2 rounds, bit-equal to
+   in process; (e) ``launch_loopback``: a shard process (two shards) and
+   two worker processes on the card, 2 rounds, their checksums equal to
+   each other's and to (a)'s, each worker's own launches counted; (f)
+   ``launch_failover`` at a reduced size (``FAILOVER``: its restarts' time
+   and disk), under build/: a dropped push connection, a delayed pull, the
+   shard process killed at round 3 and restored from its snapshot, worker
+   1 killed after round 2 and restored, bit-equal to an undisturbed
+   in-process run.  WIRE lines carry the numbers.
 
 Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
-serve-hdp, serve-lda-fused, and phase 12's bsp, ssp2, ssp2-incremental,
-async, topk, faults and restore) is driven with the launch counters zeroed
-just before it and read just after, and every kernel of the path must
-have launched; launches made only to check a path are left out.
+serve-hdp, serve-lda-fused, phase 12's bsp, ssp2, ssp2-incremental,
+async, topk, faults and restore, and phase 13's tcp-bsp,
+tcp-from-servers, tcp-sparse, tcp-topk, tcp-ssp2, tcp-pdp and the
+loopback and failover workers) is driven with the launch counters zeroed
+just before it and read just after (phase 13's: around each step, and in
+each worker process), and every kernel of the path must have launched;
+launches made only to check a path are left out.
 The last lines are the kernels JSON, the card, and the result JSON.
 """
 
@@ -213,6 +236,14 @@ LAUNCHER_TIMEOUT_S = 300
 # plus 1,024 uniform rows against starvation (paper §5.3).
 TOPK = {"k_rows": 16384, "random_rows": 1024}
 SUMMARIES: dict[str, dict] = {}   # TRAIN lines by path and mode
+# Phase 13: the shard servers' barrier and liveness timeouts (a full-width
+# frame is hundreds of MiB), the launchers' limit, the failover run's
+# reduced size (its restarts' time and disk), and the WIRE lines by path.
+WIRE_TIMEOUT_S = 600.0
+LOOPBACK_TIMEOUT_S = 300.0
+FAILOVER = {"n_topics": 64, "vocab_size": 8192, "n_docs": 2048,
+            "doc_len": 64, "corpus_seed": 3}
+WIRE: dict[str, dict] = {}
 
 
 def card_line() -> str:
@@ -1921,11 +1952,16 @@ def path_counts(label, kernels=("mhw_sweep_fused", "doc_topic_lists",
                                 "alias_build")) -> dict:
     from repro_torch.kernels import _build
     counts = dict(_build.LAUNCHES)
+    path_counts_of(label, counts, kernels)
+    return counts
+
+
+def path_counts_of(label: str, counts: dict, kernels) -> None:
+    """Fail unless every kernel of the path launched at least once."""
     for kernel in kernels:
         if counts.get(kernel, 0) < 1:
             raise AssertionError(f"{kernel} never launched on the {label} "
                                  "path")
-    return counts
 
 
 def falls(label, summary) -> None:
@@ -2181,6 +2217,431 @@ def consistency_and_faults(cfg, tokens, mask, ho, dev, snap_root: Path
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the wire (shard servers, the tcp Trainer, launchers)
+# ---------------------------------------------------------------------------
+
+def launched_around(counts: dict, fn):
+    """Run ``fn`` and add the kernel launches it made to ``counts``."""
+    from repro_torch.kernels import _build
+    before = dict(_build.LAUNCHES)
+    out = fn()
+    for name, n in _build.LAUNCHES.items():
+        if n > before.get(name, 0):
+            counts[name] = counts.get(name, 0) + n - before.get(name, 0)
+    return out
+
+
+def meter(remote, log: dict) -> None:
+    """Wrap ``remote``'s pull and push to log, per call, the wire bytes
+    out and in, the frames (an RPC is a request and a reply), the host
+    milliseconds, a pull's refresh flag and a push's non-zero rows."""
+    for name in ("pull", "push"):
+        real = getattr(remote, name)
+
+        def call(*args, _real=real, _name=name, **kw):
+            c0 = remote.counters()
+            t = time.perf_counter()
+            out = _real(*args, **kw)
+            ms = (time.perf_counter() - t) * 1e3
+            c1 = remote.counters()
+            entry = {"bytes_out": c1["bytes_out"] - c0["bytes_out"],
+                     "bytes_in": c1["bytes_in"] - c0["bytes_in"],
+                     "frames": 2 * (c1["rpc_count"] - c0["rpc_count"]),
+                     "ms": ms}
+            if _name == "pull":
+                entry["refreshed"] = bool(out[2])
+            else:
+                entry["rows"] = int(sum(
+                    (v != 0).reshape(v.shape[0], -1).any(1)
+                    for v in args[2].values()).count_nonzero())
+            log.setdefault(_name, []).append(entry)
+            return out
+        setattr(remote, name, call)
+
+
+def wire_servers(family: str, v: int, dev, consistency: str = "bsp"):
+    from repro_torch.net.server import serve_shards
+    servers = serve_shards(family, vocab_size=v, n_clients=2, n_shards=2,
+                           consistency=consistency,
+                           barrier_timeout=WIRE_TIMEOUT_S,
+                           liveness_timeout=WIRE_TIMEOUT_S, device=dev)
+    return servers, tuple("%s:%d" % s.address for s in servers)
+
+
+def tcp_rounds(label, cfg, tokens, mask, dev, rounds, *, tcfg_kw=None,
+               ref=None, check=None, counts=None) -> dict:
+    """``rounds`` rounds of a tcp Trainer (both clients in this process)
+    on two shard servers in threads of this process, each round timed on
+    the host's clock around ``step()``, beside the same round of the
+    in-process trainer ``ref`` when given (n_wk, or m_wk and s_wk, and
+    every client's locals bit-equal after every round).  The launches of
+    the tcp rounds go to ``counts``; after round r, outside the timed
+    step, the statistics are pulled once (a SNAPSHOT round trip) and
+    ``check(tcp, r, log, stats)`` runs (``log``: ``meter``'s entries so
+    far)."""
+    from repro_torch.engine import Trainer, TrainerConfig
+
+    tcfg_kw = dict(tcfg_kw or {})
+    consistency = tcfg_kw.get("consistency", "bsp")
+    fam_name = type(cfg).__name__[:-len("Config")].lower()
+    servers, addrs = wire_servers(fam_name, cfg.vocab_size, dev,
+                                  consistency)
+    log: dict = {}
+    out = {"round_ms": [], "inproc_round_ms": [],
+           "t0": time.perf_counter()}
+    try:
+        t = time.perf_counter()
+        tcp = launched_around(counts, lambda: Trainer(
+            cfg, tokens, mask, seed=0, device=dev, config=TrainerConfig(
+                layout="sorted", n_clients=2, transport="tcp",
+                server_addrs=addrs, **tcfg_kw)))
+        out["init_s"] = time.perf_counter() - t
+        meter(tcp.remote, log)
+        for r in range(rounds):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            launched_around(counts, tcp.step)
+            torch.cuda.synchronize()
+            out["round_ms"].append((time.perf_counter() - t) * 1e3)
+            note = ""
+            stats = tcp.family.stats_dict(tcp.shared)
+            if ref is not None:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ref.step()
+                torch.cuda.synchronize()
+                out["inproc_round_ms"].append(
+                    (time.perf_counter() - t) * 1e3)
+                want = ref.family.stats_dict(ref.shared)
+                equal = {n: torch.equal(stats[n], want[n]) for n in want}
+                for c, (a, b) in enumerate(zip(tcp.locals_, ref.locals_)):
+                    for f in a._fields:
+                        equal[f"{f}{c}"] = torch.equal(getattr(a, f),
+                                                       getattr(b, f))
+                if not all(equal.values()):
+                    raise AssertionError(f"{label} round {r}: not bit-equal "
+                                         f"to in process: {equal}")
+                note = "bit-equal to in-process"
+            if check is not None:
+                note += " " + check(tcp, r, log, stats)
+            print(f"WIRE {label} round {r} {out['round_ms'][-1]:.1f} ms"
+                  + (f" (in-process {out['inproc_round_ms'][-1]:.1f} ms)"
+                     if ref is not None else "") + f" {note}", flush=True)
+        out["alias_builds"] = tcp.alias_builds
+        out["clocks"] = tcp.clocks.tolist()
+        out["pull"], out["push"] = log.get("pull", []), log.get("push", [])
+        out["counters"] = {k: x for k, x in tcp.remote.counters().items()
+                           if k != "per_connection"}
+        out["server_stats"] = [{k: x for k, x in st.items()
+                                if k != "closed_connections"}
+                               for st in tcp.remote.server_stats()]
+        out["addrs"] = addrs
+        out["trainer"] = tcp
+        out["servers"] = servers
+    except BaseException:
+        for srv in servers:
+            srv.close()
+        raise
+    return out
+
+
+def close_wire(out: dict) -> None:
+    out.pop("trainer").close()
+    for srv in out.pop("servers"):
+        srv.close()
+    out.pop("addrs", None)
+
+
+def wire_line(label: str, out: dict) -> None:
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+    summary = {
+        "round_ms": out["round_ms"], "inproc_round_ms":
+        out["inproc_round_ms"],
+        "median_round_ms": med(out["round_ms"]),
+        "median_inproc_round_ms": med(out["inproc_round_ms"]),
+        "init_s": out["init_s"],
+        "pull_bytes_in": [p["bytes_in"] for p in out["pull"]],
+        "pull_frames": [p["frames"] for p in out["pull"]],
+        "pull_ms": [round(p["ms"], 2) for p in out["pull"]],
+        "not_modified": sum(not p["refreshed"] for p in out["pull"]),
+        "push_bytes_out": [p["bytes_out"] for p in out["push"]],
+        "push_frames": [p["frames"] for p in out["push"]],
+        "push_rows": [p["rows"] for p in out["push"]],
+        "push_ms": [round(p["ms"], 2) for p in out["push"]],
+        "alias_builds": out["alias_builds"], "clocks": out["clocks"],
+        "counters": out["counters"], "server_stats": out["server_stats"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.perf_counter() - out["t0"]}
+    for key in ("launches", "from_servers_s", "breakdown", "checksums"):
+        if key in out:
+            summary[key] = out[key]
+    if summary["inproc_round_ms"]:
+        summary["idle_share_derived"] = max(
+            0.0, 1 - summary["median_inproc_round_ms"]
+            / summary["median_round_ms"])
+    print(f"WIRE {label} {json.dumps(summary)}", flush=True)
+    WIRE[label] = summary
+
+
+def pull_breakdown(out: dict, dev) -> dict:
+    """One shard's pull, its stages timed apart: the store's copy to the
+    host, the frame's encoding (npz) and decoding, the copy back to the
+    card; and a push's content digest (sha256) on the same arrays."""
+    from repro_torch.net import protocol
+    from repro_torch.net.server import mutation_digest
+
+    srv = out["servers"][0]
+    times = {}
+    with srv._cond:
+        t = time.perf_counter()
+        arrays = srv._state_arrays_locked()
+        times["d2h_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    payload = protocol.pack_payload({"version": 0}, arrays)
+    times["pack_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    _, back = protocol.unpack_payload(payload)
+    times["unpack_ms"] = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for v in back.values():
+        torch.from_numpy(v).to(dev)
+    torch.cuda.synchronize()
+    times["h2d_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    mutation_digest(arrays)
+    times["digest_ms"] = (time.perf_counter() - t) * 1e3
+    times["payload_bytes"] = len(payload)
+    return times
+
+
+def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
+    """Phase 13 (see the module docstring); returns the launch counts of
+    each path, each zeroed just before it."""
+    import shutil
+
+    from repro_torch.core import ps
+    from repro_torch.engine import Trainer, TrainerConfig
+    from repro_torch.launch import loopback
+    from repro_torch.net.client import _checksum
+    from repro_torch.serve import snapshot as snap_mod
+
+    counts: dict[str, dict] = {}
+    bsp = TrainerConfig(layout="sorted", n_clients=2)
+    lm_kernels_ = ("mhw_sweep_fused", "doc_topic_lists", "alias_build")
+
+    def checksums(stats):
+        return {n: _checksum(x) for n, x in stats.items()}
+
+    def exact_check(last: int):
+        """Counts from the assignments against the round's statistics
+        (``consistency_error``'s arithmetic on the statistics already
+        pulled) == 0.0 and no violation of the shared rules; after round
+        ``last`` also ``consistency_error()`` itself (its own SNAPSHOT)."""
+        def check(tr, r, log, stats):
+            fam, totals = tr.family, {}
+            for (t_, m_), loc in zip(tr.shards, tr.locals_):
+                for n, x in fam.count_stats(tr.cfg, t_, m_, loc).items():
+                    totals[n] = x if n not in totals else totals[n] + x
+            err = max(float((totals[n] - stats[n]).abs().max())
+                      for n in fam.conserved_stats)
+            viol = fam.count_violations(fam.shared_from_dict(stats))
+            if r == last:
+                err = max(err, tr.consistency_error())
+            if err != 0.0 or viol != 0:
+                raise AssertionError(f"wire round {r}: consistency {err}, "
+                                     f"violations {viol}")
+            return f"consistency_error={err} violations={viol}"
+        return check
+
+    def bsp_check(tr, r, log, stats):
+        per_round.append(checksums(stats))
+        return exact_check(2)(tr, r, log, stats)
+
+    # (a) tcp-bsp: bit-equal to an in-process BSP trainer every round.
+    torch.cuda.reset_peak_memory_stats()
+    ref = Trainer(cfg, tokens, mask, config=bsp, seed=0, device=dev)
+    per_round: list[dict] = []
+    counts["tcp-bsp"] = {}
+    out = tcp_rounds("tcp-bsp", cfg, tokens, mask, dev, 3, ref=ref,
+                     check=bsp_check, counts=counts["tcp-bsp"])
+    path_counts_of("tcp-bsp", counts["tcp-bsp"], lm_kernels_)
+    out["launches"] = counts["tcp-bsp"]
+    out["breakdown"] = pull_breakdown(out, dev)
+    counts["tcp-from-servers"] = {}
+    t = time.perf_counter()
+    frozen = launched_around(counts["tcp-from-servers"], lambda:
+                             snap_mod.from_servers(out["addrs"], cfg,
+                                                   n_clients=2, min_round=3,
+                                                   device=dev))
+    torch.cuda.synchronize()
+    out["from_servers_s"] = time.perf_counter() - t
+    path_counts_of("tcp-from-servers", counts["tcp-from-servers"],
+                   ("alias_build",))
+    want = snap_mod.freeze(cfg, ref.shared, dev)
+    same = [torch.equal(a, b) for a, b in zip(
+        (*frozen.shared, *frozen.tables, frozen.stale),
+        (*want.shared, *want.tables, want.stale))]
+    if not all(same):
+        raise AssertionError(f"from_servers != freeze of the in-process "
+                             f"statistics: {same}")
+    del frozen, want
+    out["checksums"] = per_round[1]
+    close_wire(out)
+    wire_line("tcp-bsp", out)
+
+    # (a') sparse_push without a filter, one round: bit-equal to (a)'s.
+    def as_dense(tr, r, log, stats):
+        if checksums(stats) != per_round[r]:
+            raise AssertionError(f"tcp-sparse round {r}: checksums differ "
+                                 "from tcp-bsp's")
+        return "checksums equal to tcp-bsp's"
+
+    counts["tcp-sparse"] = {}
+    out = tcp_rounds("tcp-sparse", cfg, tokens, mask, dev, 1,
+                     tcfg_kw={"sparse_push": True},
+                     counts=counts["tcp-sparse"], check=as_dense)
+    path_counts_of("tcp-sparse", counts["tcp-sparse"], lm_kernels_)
+    close_wire(out)
+    wire_line("tcp-sparse", out)
+    del ref
+    torch.cuda.empty_cache()
+
+    # (b) tcp-topk: the top-k filter's error feedback conserves counts;
+    # sparse frames carry at most k_rows + random_rows rows.
+    spec = ps.FilterSpec("topk", **TOPK)
+
+    def conserved(tr, r, log, stats):
+        counts_wk = sum(tr.family.count_stats(cfg, t_, m_, loc)["n_wk"]
+                        for (t_, m_), loc in zip(tr.shards, tr.locals_))
+        gap = counts_wk - stats["n_wk"] - sum(res["n_wk"]
+                                              for res in tr.residuals)
+        err = float(gap.abs().max())
+        rows = [p["rows"] for p in log["push"][-2:]]
+        if err != 0.0 or max(rows) > TOPK["k_rows"] + TOPK["random_rows"]:
+            raise AssertionError(f"tcp-topk round {r}: counts − (n_wk + Σ "
+                                 f"residuals) {err}, rows a push {rows}")
+        return f"counts-(n_wk+residuals)={err} rows_sent={rows}"
+
+    counts["tcp-topk"] = {}
+    torch.cuda.reset_peak_memory_stats()
+    out = tcp_rounds("tcp-topk", cfg, tokens, mask, dev, 3,
+                     tcfg_kw={"filter": spec, "sparse_push": True},
+                     counts=counts["tcp-topk"], check=conserved)
+    path_counts_of("tcp-topk", counts["tcp-topk"], lm_kernels_)
+    close_wire(out)
+    wire_line("tcp-topk", out)
+    torch.cuda.empty_cache()
+
+    # (c) tcp-ssp2: exact every round; NOT_MODIFIED on the stale rounds;
+    # kernel 2 on the refreshes (rounds 0 and 3) only.
+    counts["tcp-ssp2"] = {}
+    torch.cuda.reset_peak_memory_stats()
+    out = tcp_rounds("tcp-ssp2", cfg, tokens, mask, dev, 4,
+                     tcfg_kw={"consistency": "ssp:2"},
+                     counts=counts["tcp-ssp2"], check=exact_check(3))
+    path_counts_of("tcp-ssp2", counts["tcp-ssp2"], lm_kernels_)
+    refreshed = [p["refreshed"] for p in out["pull"]]
+    k2 = counts["tcp-ssp2"].get("alias_build", 0)
+    if refreshed != [True, False, False, True] \
+            or out["alias_builds"] != 2 or k2 != 2:
+        raise AssertionError(f"tcp-ssp2: pulls refreshed {refreshed}, alias "
+                             f"builds {out['alias_builds']}, kernel 2 "
+                             f"launched {k2}")
+    close_wire(out)
+    wire_line("tcp-ssp2", out)
+    torch.cuda.empty_cache()
+
+    # (d) tcp-pdp: PDP over two shards (a one-shard pull of m_wk and s_wk
+    # would pass MAX_PAYLOAD), bit-equal to in process.
+    torch.cuda.reset_peak_memory_stats()
+    pref = Trainer(pcfg, tokens, mask, config=bsp, seed=0, device=dev)
+    counts["tcp-pdp"] = {}
+    out = tcp_rounds("tcp-pdp", pcfg, tokens, mask, dev, 2, ref=pref,
+                     counts=counts["tcp-pdp"])
+    path_counts_of("tcp-pdp", counts["tcp-pdp"],
+                   ("pdp_sweep_fused", "doc_topic_lists", "alias_build"))
+    close_wire(out)
+    wire_line("tcp-pdp", out)
+    del pref
+    torch.cuda.empty_cache()
+
+    # (e) loopback: a shard process (two shards) and two worker
+    # processes, all on the card; checksums equal to each other's and to
+    # tcp-bsp's after 2 rounds; each worker reports its own launches.
+    shutil.rmtree(root, ignore_errors=True)
+    for sub in ("loopback", "failover"):
+        (root / sub).mkdir(parents=True)
+    t = time.perf_counter()
+    res = loopback.launch_loopback(
+        family="lda", vocab_size=cfg.vocab_size, n_topics=cfg.n_topics,
+        n_shards=2, client_sets=((0,), (1,)), n_rounds=2,
+        n_docs=ccfg.n_docs, doc_len=ccfg.doc_len, corpus_seed=ccfg.seed,
+        seed=0, timeout=LOOPBACK_TIMEOUT_S, workdir=str(root / "loopback"),
+        extra_client_args=("--corpus-topics", str(ccfg.n_topics),
+                           "--eval-docs", "32"), device=dev.type)
+    secs = time.perf_counter() - t
+    if not res.ok:
+        for p in res.failures():
+            print(f"  loopback| {p.name} exit {p.returncode}: "
+                  f"{loopback._tail(p.stderr)}", flush=True)
+        raise AssertionError(f"loopback: {res.diagnostics}")
+    sums = [p.result["checksums"] for p in res.clients]
+    summary = {"seconds": secs, "checksums_agree": sums[0] == sums[1],
+               "equal_to_tcp_bsp": sums[0] == WIRE["tcp-bsp"]["checksums"],
+               "workers": [{k: p.result[k] for k in (
+                   "clients", "rounds_per_s", "launches", "device",
+                   "perplexity")} for p in res.clients]}
+    print(f"WIRE loopback {json.dumps(summary)}", flush=True)
+    if not (summary["checksums_agree"] and summary["equal_to_tcp_bsp"]):
+        raise AssertionError(f"loopback: worker checksums {sums}, tcp-bsp "
+                             f"{WIRE['tcp-bsp']['checksums']}")
+    for i, p in enumerate(res.clients):
+        counts[f"loopback-worker{i}"] = dict(p.result["launches"])
+        path_counts_of(f"loopback-worker{i}", p.result["launches"],
+                       lm_kernels_)
+    WIRE["loopback"] = summary
+
+    # (f) failover at a reduced size (K=64, V=8192): the time and disk of
+    # the restarts; bit-equal to an undisturbed in-process run.
+    t = time.perf_counter()
+    res = loopback.launch_failover(
+        client_sets=((0,), (1,)), n_rounds=6, kill_server_round=3,
+        kill_client=1, kill_client_round=2,
+        chaos_plan=loopback.failover_plan(), timeout=LOOPBACK_TIMEOUT_S,
+        workdir=str(root / "failover"), device=dev.type, **FAILOVER)
+    secs = time.perf_counter() - t
+    if not res.ok:
+        for p in res.failures():
+            print(f"  failover| {p.name} exit {p.returncode}: "
+                  f"{loopback._tail(p.stderr)}", flush=True)
+        raise AssertionError(f"failover: {res.diagnostics}")
+    finals = [p.result for p in res.clients if p.returncode == 0
+              and p.result]
+    want = loopback._reference_run(6, device=dev.type, **FAILOVER)
+    drops = sum(p["actions"]["conn_drop"] for p in res.proxies)
+    summary = {"reduced": f"K={FAILOVER['n_topics']}, "
+               f"V={FAILOVER['vocab_size']}, {FAILOVER['n_docs']} documents "
+               f"of {FAILOVER['doc_len']} (the restarts' time and disk)",
+               "seconds": secs, "restarts": res.restarts, "drops": drops,
+               "bit_equal": all(r["checksums"] == want["checksums"]
+                                for r in finals),
+               "workers": [{k: r[k] for k in ("clients", "restored",
+                                              "rounds_done", "launches")}
+                           for r in finals]}
+    print(f"WIRE failover {json.dumps(summary)}", flush=True)
+    if res.restarts != {"server": 1, "client": 1} or drops != 1 \
+            or len(finals) != 2 or not summary["bit_equal"]:
+        raise AssertionError(f"failover: {summary}")
+    for r in finals:
+        counts[f"failover-worker{r['clients'][0]}"] = dict(r["launches"])
+    WIRE["failover"] = summary
+    shutil.rmtree(root)
+    return counts
+
+
 def sum_device_ms(fn, reps: int) -> float:
     """Median milliseconds, on the device's clock, of all the device work
     one call of ``fn`` enqueues (several kernels): a torch.profiler trace
@@ -2427,6 +2888,12 @@ def main() -> int:
     counts.update(consistency_and_faults(cfg, tokens, mask, ho, dev,
                                          ROOT / "build" / "phase12"))
     phase("consistency-faults", t)
+
+    # --------------------------------------------------------- phase 13
+    t = time.perf_counter()
+    counts.update(wire(cfg, pcfg, ccfg, tokens, mask, dev,
+                       ROOT / "build" / "phase13"))
+    phase("wire", t)
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

@@ -33,8 +33,9 @@ Four round kinds (``ROUND_KINDS``):
     refresh goes through.  Under BSP and async it does nothing.
 
 The network kinds (``NET_KINDS``: ``conn_drop``, ``frame_truncate``,
-``delay``) schedule transport faults for a chaos proxy on the wire
-(ROADMAP.md queue A.10); :meth:`FaultPlan.resolve` ignores them.  For
+``delay``) schedule transport faults on the wire: :meth:`FaultPlan.
+net_events` feeds them to :class:`repro_torch.net.chaos.ChaosProxy`, and
+:meth:`FaultPlan.resolve` ignores them.  For
 them ``client`` is a connection ordinal at the proxy (-1 = every
 connection), ``[start, stop)`` a window of frame ordinals, ``period``
 fires the action every period-th frame of the window and ``magnitude``

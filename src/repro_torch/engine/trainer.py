@@ -1,6 +1,6 @@
 """``Trainer``: the driver loop (port of ``repro.engine.trainer``) for
-in-process training of any registered family (LDA, PDP, HDP) on the
-token-sorted layout.
+training any registered family (LDA, PDP, HDP) on the token-sorted
+layout, in process or over the wire.
 
 Each round: (faults, rejoins) → (alias maintenance) → pull → sample →
 client-local rules → filter → push → project → family auxiliaries (HDP's
@@ -20,6 +20,17 @@ crashed client rejoins by restoring its locals from the latest snapshot
 (``snapshot_every`` and ``snapshot_dir``), clearing its read-my-writes lag
 and forcing a fresh pull.  :meth:`Trainer.restore` resumes a run from its
 snapshots, bit for bit under BSP.
+
+Over the wire (``transport="tcp"``, :mod:`repro_torch.net`) the shared
+statistics live in shard servers: a round pulls them (a versioned cache
+refresh, NOT_MODIFIED within SSP's bound), sweeps this process's clients
+(``local_clients``) against them, and pushes each client's filtered delta
+as a frame that the servers sum at their round barrier in ascending client
+id; projection runs there.  Streams stay keyed by the global client id,
+so M worker processes together reproduce the single-process run, bit for
+bit under BSP.  A fault rides the wire as a ghost push; HDP (whose
+auxiliary step needs every client's locals) and incremental rebuilds stay
+in process.
 
 The trainer runs on ``cuda`` unless ``device="cpu"`` is passed
 (:mod:`repro_torch.device`).  RNG: the trainer's ``seed`` heads every
@@ -57,12 +68,12 @@ class TrainerConfig:
     ``n_server_shards``, the alias schedules, ``project_every``, every
     ``filter`` kind, ``fault_plan`` (``drop_client`` is its deprecated
     form), ``snapshot_every``/``snapshot_dir``/``snapshot_name`` and
-    ``pull_retry_limit``.  The round always runs eagerly: ``compiled=True``
-    and ``compiled=False`` (the reference's Python loop, which it holds
-    bit-identical to its compiled round) run the same round here, and
-    ``compiled=False`` with incremental rebuilds raises as in the
-    reference.  The tcp transport knobs raise unless left at their
-    defaults (ROADMAP.md queue A.10).
+    ``pull_retry_limit``, and the wire's ``transport``, ``server_addrs``,
+    ``local_clients``, ``sparse_push`` and ``reconnect_limit``.  The round
+    always runs eagerly: ``compiled=True`` and ``compiled=False`` (the
+    reference's Python loop, which it holds bit-identical to its compiled
+    round) run the same round here, and ``compiled=False`` with
+    incremental rebuilds raises as in the reference.
     """
 
     layout: str = "scan"
@@ -91,15 +102,6 @@ class TrainerConfig:
     reconnect_limit: int = 3
 
 
-_UNPORTED = {  # field: (default, ROADMAP.md item)
-    "transport": ("inproc", "A.10"),
-    "server_addrs": ((), "A.10"),
-    "local_clients": (None, "A.10"),
-    "sparse_push": (False, "A.10"),
-    "reconnect_limit": (3, "A.10"),
-}
-
-
 @dataclass
 class RunResult:
     perplexities: list[float] = field(default_factory=list)
@@ -123,19 +125,14 @@ class Trainer:
     ``tokens``/``mask`` are (D, L) arrays (numpy or tensors); they are
     split into ``n_clients`` document shards and moved to ``device``.
     ``streams`` (a :class:`repro_torch.engine.round.RoundStreams`)
-    replaces the rounds' own random streams; the parity tests feed the
-    reference's through it.
+    replaces the rounds' own random streams, in process and over the wire;
+    the parity tests feed the reference's through it.
     """
 
     def __init__(self, model_cfg, tokens, mask, *,
                  config: TrainerConfig = TrainerConfig(layout="sorted"),
                  seed: int = 0, device=None,
                  streams: round_mod.RoundStreams | None = None):
-        for name, (default, item) in _UNPORTED.items():
-            if getattr(config, name) != default:
-                raise NotImplementedError(
-                    f"TrainerConfig.{name}={getattr(config, name)!r} is not "
-                    f"ported yet (ROADMAP.md queue {item})")
         if config.layout != "sorted":
             raise NotImplementedError(
                 f"layout={config.layout!r} is not ported yet (ROADMAP.md "
@@ -147,13 +144,24 @@ class Trainer:
                              "(alias_rebuild_threshold) require compiled "
                              "rounds; the reference loop only supports the "
                              "alias_refresh_every cadence")
+        if config.transport not in ("inproc", "tcp"):
+            raise ValueError(f"unknown transport {config.transport!r}; "
+                             "expected 'inproc' or 'tcp'")
+        if config.transport == "inproc" and (
+                config.server_addrs or config.local_clients is not None
+                or config.sparse_push):
+            raise ValueError("server_addrs / local_clients / sparse_push "
+                             "are tcp-only knobs; set transport='tcp'")
         self.fault_plan = self._resolve_fault_plan(config)
-        self.device = device_mod.resolve(device)
         self.cfg = model_cfg
         self.tcfg = config
+        self.family = family_mod.family_of(model_cfg)
+        remote_mode = config.transport == "tcp"
+        if remote_mode:
+            self._validate_tcp(config)
+        self.device = device_mod.resolve(device)
         self.seed = int(seed)
         self.streams = streams
-        self.family = family_mod.family_of(model_cfg)
         tokens = np.asarray(tokens)
         mask = np.asarray(mask)
         self.tokens = torch.as_tensor(tokens, device=self.device)
@@ -163,21 +171,67 @@ class Trainer:
             (torch.as_tensor(t, device=self.device),
              torch.as_tensor(m, device=self.device))
             for t, m in shard_corpus(tokens, mask, config.n_clients)]
+        # The global client ids this process runs: all of them in process
+        # (and for single-process tcp), a subset for one of several worker
+        # processes sharing the shard servers.
+        self.local_clients = (tuple(range(config.n_clients))
+                              if config.local_clients is None
+                              else tuple(sorted(config.local_clients)))
+        local_set = set(self.local_clients)
 
-        self.locals_: list = []
+        # Over the wire each process computes only its clients' initial
+        # statistics and INIT-pushes them; the servers merge them in
+        # ascending client id, as _merge_shared does here.
+        self.locals_: list = [None] * config.n_clients
         shared = None
+        init_stats = {}
         for c, (t, m) in enumerate(self.shards):
+            if c not in local_set:
+                continue
             loc, sh = self.family.init_state(
                 model_cfg, t, m, (self.seed, device_mod.INIT, c))
-            self.locals_.append(loc)
-            shared = sh if shared is None else self._merge_shared(shared, sh)
-        self.server = server_mod.make_server(
-            self.family, model_cfg.vocab_size,
-            n_shards=config.n_server_shards, consistency=config.consistency)
-        self.pstate = self.server.init_state(shared, config.n_clients)
+            self.locals_[c] = loc
+            if remote_mode:
+                init_stats[c] = sh
+            else:
+                shared = (sh if shared is None
+                          else self._merge_shared(shared, sh))
+        self.remote = self.server = self.pstate = None
+        if remote_mode:
+            from repro_torch.net import client as net_client
+            self.remote = net_client.RemoteParameterServer(
+                config.server_addrs, family=self.family,
+                n_clients=config.n_clients,
+                vocab_size=model_cfg.vocab_size,
+                consistency=config.consistency,
+                sparse_push=config.sparse_push,
+                reconnect_limit=config.reconnect_limit,
+                local_clients=self.local_clients, device=self.device)
+            for c in sorted(init_stats):
+                self.remote.init_push(c, init_stats[c])
+            stats = self.family.stats_dict(init_stats[self.local_clients[0]])
+        else:
+            self.server = server_mod.make_server(
+                self.family, model_cfg.vocab_size,
+                n_shards=config.n_server_shards,
+                consistency=config.consistency)
+            self.pstate = self.server.init_state(shared, config.n_clients)
+            stats = self.family.stats_dict(shared)
+        # The client edge of the wire: the pulled versioned snapshot (SSP's
+        # cache), the alias proposal built from it, and each local client's
+        # own read-my-writes lag row.
+        self._tcp_snapshot = self._tcp_tables = self._tcp_stale = None
+        self._tcp_version: int | None = None
+        self._lag: dict[int, dict[str, torch.Tensor]] | None = None
+        if remote_mode and self.remote.policy.caches:
+            self._lag = {c: {n: torch.zeros_like(stats[n])
+                             for n in self.family.delta_names}
+                         for c in self.local_clients}
         self.alias_builds = 0
-        self.layouts = tuple(self.family.build_sorted_layouts(model_cfg, t, m)
-                             for t, m in self.shards)
+        self.layouts = tuple(
+            self.family.build_sorted_layouts(model_cfg, t, m)
+            if c in local_set else None
+            for c, (t, m) in enumerate(self.shards))
         self.alias_refresh_every = (
             config.alias_refresh_every
             if config.alias_refresh_every is not None
@@ -185,10 +239,10 @@ class Trainer:
         # Error-feedback residuals: zeros for a filter that withholds
         # mass, so what it withholds is carried, never dropped.
         if config.filter.kind != "dense":
-            stats = self.family.stats_dict(shared)
             self.residuals: list = [
                 {n: torch.zeros_like(stats[n]) for n in self.family.delta_names}
-                for _ in range(config.n_clients)]
+                if c in local_set else None
+                for c in range(config.n_clients)]
         else:
             self.residuals = [None] * config.n_clients
         self.round_idx = 0
@@ -199,6 +253,32 @@ class Trainer:
         self._pull_retries = 0
         self.pull_failures = 0
         self.rejoins = 0
+
+    def _validate_tcp(self, config: TrainerConfig) -> None:
+        """Reject what the wire cannot honour, as the reference does:
+        servers must be named, incremental rebuilds are in-process
+        machinery (tcp rebuilds from the pulled snapshot on the refresh
+        schedule), and a family with a cross-client auxiliary step (HDP)
+        needs every client's locals at the barrier."""
+        if not config.server_addrs:
+            raise ValueError("transport='tcp' requires server_addrs "
+                             "(host:port shard servers)")
+        if config.alias_rebuild_threshold is not None:
+            raise ValueError("incremental alias rebuilds are in-process "
+                             "machinery; tcp rebuilds from the pulled "
+                             "snapshot on the refresh schedule")
+        if type(self.family).post_round is not family_mod.ModelFamily.post_round:
+            raise NotImplementedError(
+                f"family {self.family.name!r} overrides post_round "
+                "(cross-client auxiliary resampling at the barrier) — not "
+                "servable over the wire; use transport='inproc'")
+        if config.local_clients is not None:
+            lc = tuple(config.local_clients)
+            if not lc or len(set(lc)) != len(lc) or \
+                    not all(0 <= c < config.n_clients for c in lc):
+                raise ValueError(
+                    f"local_clients {lc} must be distinct ids in "
+                    f"[0, {config.n_clients})")
 
     @staticmethod
     def _resolve_fault_plan(config: TrainerConfig) -> fault_mod.FaultPlan:
@@ -237,12 +317,18 @@ class Trainer:
 
     @property
     def shared(self):
-        """The assembled canonical shared statistics."""
+        """The assembled canonical shared statistics.  Over tcp a SNAPSHOT
+        round trip that first waits for every stepped round to finalize at
+        the servers."""
+        if self.remote is not None:
+            return self.remote.snapshot(min_round=self.round_idx)
         return self.server.snapshot(self.pstate)
 
     @property
     def clocks(self) -> np.ndarray:
         """Per-client round clocks as the server tracks them."""
+        if self.remote is not None:
+            return self.remote.clock()[1]
         return self.pstate.clocks.cpu().numpy()
 
     @property
@@ -304,12 +390,20 @@ class Trainer:
         stands in for it) and zero its read-my-writes lag row."""
         snap = self._load_latest_snapshot()
         for c in clients:
+            if c not in self.local_clients:
+                continue              # another worker process's client
             if snap is not None:
                 self.locals_[c] = _to(snap["locals"][c], self.device)
                 if self.residuals[c] is not None:
                     self.residuals[c] = _to(snap["residuals"][c],
                                             self.device)
-            self.pstate = self.server.rejoin_client(self.pstate, c)
+            if self.remote is not None:
+                # Over the wire: a REJOIN frame (clear pending pushes and
+                # open log entries, lift any eviction); the caller's
+                # forced-fresh pull zeroes the lag.
+                self.remote.rejoin(c)
+            else:
+                self.pstate = self.server.rejoin_client(self.pstate, c)
         self.rejoins += len(clients)
 
     def _load_latest_snapshot(self) -> dict | None:
@@ -331,13 +425,27 @@ class Trainer:
             return None
 
     def _sync(self) -> None:
+        """Wait for the device and, over tcp, for the servers' barrier to
+        finalize every stepped round (a CLOCK with ``min_round``)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.remote is not None:
+            self.remote.clock(min_round=self.round_idx)
 
     def step(self) -> None:
         """One sync round: (faults) → pull → sample → filter → push →
         project → (snapshot); returns once it is enqueued on the device
-        (a fault plan, SSP's schedule or a snapshot may sync)."""
+        (a fault plan, SSP's schedule or a snapshot may sync; a tcp round
+        returns once its pushes are acknowledged)."""
+        if self.remote is not None:
+            self._step_remote()
+        else:
+            self._step_local()
+        if self.tcfg.snapshot_every and self.tcfg.snapshot_dir \
+                and self.round_idx % self.tcfg.snapshot_every == 0:
+            self.save_snapshot()
+
+    def _step_local(self) -> None:
         r = self.round_idx
         rf = self._round_faults()
         do_refresh = self._pull_refresh(r, force=bool(rf.rejoining),
@@ -353,9 +461,102 @@ class Trainer:
             alive=rf.alive, push_ok=rf.push_ok, do_refresh=do_refresh,
             streams=self.streams)
         self.round_idx += 1
-        if self.tcfg.snapshot_every and self.tcfg.snapshot_dir \
-                and self.round_idx % self.tcfg.snapshot_every == 0:
-            self.save_snapshot()
+
+    def _refresh_alias_tcp(self, refreshed: bool) -> None:
+        """Alias maintenance at the client edge of the wire: built from the
+        pulled snapshot, under SSP exactly when the pull refreshed, under
+        BSP and async on the ``alias_refresh_every`` cadence; the pulled
+        snapshot of round r holds what ``refresh_proposal`` reads in
+        process."""
+        if self._tcp_tables is not None:
+            if self.remote.policy.caches:
+                if not refreshed:
+                    return
+            elif self.round_idx % self.alias_refresh_every != 0:
+                return
+        self._tcp_tables, self._tcp_stale = self.family.build_alias(
+            self.cfg, self._tcp_snapshot)
+        self.alias_builds += 1
+
+    def _step_remote(self) -> None:
+        """One round over the wire: the in-process round with the server's
+        side of each phase replaced by frames.  The pull is a versioned
+        cache refresh; each local client's ``tau`` sweeps run against it
+        (plus its own lag under SSP), with the round's streams keyed by
+        the global client id; its filtered delta is pushed as a frame the
+        servers sum at their barrier; projection runs there.  A dead or
+        push-losing client fills its barrier slot with a ghost push; a
+        ``failed_pull`` skips the due refresh, bounded by
+        ``pull_retry_limit``; a rejoin REJOINs at the servers and forces a
+        fresh pull.  Async pulls once a round (the clients of a process
+        sweep the same snapshot), as the reference does."""
+        fam, cfg, tcfg = self.family, self.cfg, self.tcfg
+        r = self.round_idx
+        pol = self.remote.policy
+        rf = self._round_faults()
+        force = bool(rf.rejoining)
+        skip_pull = False
+        if rf.pull_failed and not force and pol.caches \
+                and self._tcp_snapshot is not None \
+                and pol.needs_refresh(r, self._host_version) \
+                and self._pull_retries < tcfg.pull_retry_limit:
+            # The due refresh "fails": sample the stale cache past the
+            # bound and retry next round.
+            self._pull_retries += 1
+            self.pull_failures += 1
+            skip_pull = True
+        refreshed = False
+        if not skip_pull:
+            fresh, version, refreshed = self.remote.pull(
+                r, None if force else (
+                    self._tcp_version if pol.caches else None))
+            if refreshed:
+                self._tcp_snapshot, self._tcp_version = fresh, version
+                self._host_version = version
+                self._pull_retries = 0
+                if self._lag is not None:
+                    # The fresh cache holds every applied push.
+                    self._lag = {c: {n: torch.zeros_like(v)
+                                     for n, v in row.items()}
+                                 for c, row in self._lag.items()}
+        self._refresh_alias_tcp(refreshed)
+        snapshot = self._tcp_snapshot
+        streams = self.streams or round_mod.RoundStreams()
+        for c in self.local_clients:
+            if not rf.alive[c]:
+                # Frozen, no contribution; a ghost fills its barrier slot.
+                self.remote.push_ghost(r, c)
+                continue
+            t, m = self.shards[c]
+            view = (fam.apply_delta(snapshot, self._lag[c])
+                    if self._lag is not None else snapshot)
+            keys = [(self.seed, device_mod.SWEEP, r, c, s)
+                    for s in range(tcfg.tau)]
+            self.locals_[c], acc = round_mod.tau_sweeps(
+                cfg, fam, self.locals_[c], view, self._tcp_tables,
+                self._tcp_stale, t, m, keys, sorted_layouts=self.layouts[c],
+                device=self.device,
+                sweep_uniforms=[streams.chunk_uniforms(r, c, s)
+                                for s in range(tcfg.tau)])
+            if self._lag is not None:
+                # The pre-filter delta rides in the client's lag row until
+                # the next refresh, lost push or not.
+                self._lag[c] = {n: self._lag[c][n] + acc[n] for n in acc}
+            sent, self.residuals[c] = round_mod.filter_push(
+                fam, acc, tcfg.filter, round_mod.filter_key(self.seed, r, c),
+                self.residuals[c], random_rows=lambda i, c=c:
+                streams.random_rows(r, c, i))
+            if not rf.push_ok[c]:
+                # Lost push: the delta is dropped; a ghost fills the slot.
+                self.remote.push_ghost(r, c)
+                continue
+            self.remote.push(r, c, sent)
+        self.round_idx += 1
+
+    def close(self) -> None:
+        """Release the wire connections (tcp); a no-op in process."""
+        if self.remote is not None:
+            self.remote.close()
 
     def run(self, n_rounds: int, *, eval_every: int = 5,
             eval_docs: int = 32) -> RunResult:
@@ -404,9 +605,16 @@ class Trainer:
         ``alias_builds``, ``pull_retries``).  Where the reference keeps its
         run's ``PRNGKey`` (leaf ``key``) the port keeps its integer seed
         (leaf ``seed``), so a whole Trainer restores only within its own
-        package."""
+        package.
+
+        Over tcp the shard servers own the canonical statistics and
+        snapshot themselves, so the worker's snapshot carries its client
+        edge instead of ``server``: its clients' locals and residuals, the
+        pulled snapshot (``tcp_snapshot``, ``tcp_version``), the alias
+        proposal built from it (``tcp_tables``, ``tcp_stale``) and the lag
+        rows (``tcp_lag``), the reference's leaves."""
         hv = -1 if self._host_version is None else self._host_version
-        return {
+        state = {
             "locals": tuple(self.locals_),
             "residuals": tuple(self.residuals),
             "seed": np.int64(self.seed),
@@ -414,9 +622,21 @@ class Trainer:
             "host_version": np.int32(hv),
             "alias_builds": np.int32(self.alias_builds),
             "pull_retries": np.int32(self._pull_retries),
-            "server": self.pstate._replace(
-                cache_version=np.int32(self.pstate.cache_version)),
         }
+        if self.remote is None:
+            state["server"] = self.pstate._replace(
+                cache_version=np.int32(self.pstate.cache_version))
+            return state
+        if self._tcp_snapshot is None or self._tcp_tables is None:
+            raise ValueError("tcp snapshot before the first pull: the "
+                             "client edge is empty — step a round first")
+        tv = -1 if self._tcp_version is None else self._tcp_version
+        state.update({"tcp_snapshot": self._tcp_snapshot,
+                      "tcp_version": np.int32(tv),
+                      "tcp_tables": self._tcp_tables,
+                      "tcp_stale": self._tcp_stale,
+                      "tcp_lag": self._lag})
+        return state
 
     def save_snapshot(self) -> str:
         """Write :meth:`snapshot_state` at the current round through
@@ -446,13 +666,29 @@ class Trainer:
         trainer = cls(model_cfg, tokens, mask, config=config, seed=seed,
                       device=device)
         # A snapshot is written after a round, whose pull built the alias
-        # proposal: build one so that the template has its leaves.
-        trainer.pstate = trainer.server.refresh_proposal(model_cfg,
-                                                         trainer.pstate)
+        # proposal: build one so that the template has its leaves.  Over
+        # tcp the fresh Trainer has re-sent its INIT pushes, which the
+        # servers' mutation log dedups (same seed, same bytes).
+        if trainer.remote is not None:
+            trainer._materialize_tcp_edge()
+        else:
+            trainer.pstate = trainer.server.refresh_proposal(model_cfg,
+                                                             trainer.pstate)
         snap = ckpt.restore_latest(sdir, config.snapshot_name,
                                    trainer.snapshot_state(), step=step)
         trainer._install_snapshot(snap)
         return trainer
+
+    def _materialize_tcp_edge(self) -> None:
+        """A client edge of the snapshot's structure for a tcp restore's
+        template: one pull and the proposal built from it (the values are
+        overwritten by the snapshot's)."""
+        if self._tcp_snapshot is None:
+            self._tcp_snapshot, self._tcp_version, _ = self.remote.pull(
+                0, None)
+        if self._tcp_tables is None:
+            self._tcp_tables, self._tcp_stale = self.family.build_alias(
+                self.cfg, self._tcp_snapshot)
 
     def _install_snapshot(self, snap: dict) -> None:
         self.locals_ = list(_to(snap["locals"], self.device))
@@ -463,16 +699,36 @@ class Trainer:
         self._host_version = None if hv < 0 else hv
         self.alias_builds = int(snap["alias_builds"])
         self._pull_retries = int(snap["pull_retries"])
-        server = _to(snap["server"], self.device)
-        self.pstate = server._replace(
-            cache_version=int(server.cache_version))
+        if self.remote is None:
+            server = _to(snap["server"], self.device)
+            self.pstate = server._replace(
+                cache_version=int(server.cache_version))
+            return
+        self._tcp_snapshot = _to(snap["tcp_snapshot"], self.device)
+        self._tcp_tables = _to(snap["tcp_tables"], self.device)
+        self._tcp_stale = _to(snap["tcp_stale"], self.device)
+        self._lag = _to(snap["tcp_lag"], self.device)
+        # The rejoin protocol: clear what the dead incarnation left at the
+        # servers (pending pushes, open log entries, an eviction) and take
+        # the next pull fresh.  Replayed pushes of rounds the servers
+        # already finalized dedup against the log, so the resumed rounds
+        # apply exactly once.
+        for c in self.local_clients:
+            self.remote.rejoin(c)
+        self._tcp_version = None
 
     def consistency_error(self) -> float:
         """Max |counts from the assignments − maintained counts| over the
         count-conserved shared statistics; exactly 0.0 with the dense
         filter under every policy (staleness delays what a client sees,
-        never what the server applies), unless a push was lost."""
+        never what the server applies), unless a push was lost.  Over tcp
+        it needs every client's locals in this process."""
         fam, cfg = self.family, self.cfg
+        if len(self.local_clients) != self.tcfg.n_clients:
+            raise RuntimeError(
+                "consistency_error needs every client's locals; this "
+                f"worker only runs clients {self.local_clients} of "
+                f"{self.tcfg.n_clients}")
         totals: dict[str, torch.Tensor] = {}
         for (t, m), loc in zip(self.shards, self.locals_):
             for n, v in fam.count_stats(cfg, t, m, loc).items():

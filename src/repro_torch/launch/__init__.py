@@ -1,2 +1,2 @@
-"""Launchers of the port's processes: ``serve`` (port of
-``repro.launch.serve``)."""
+"""Launchers of the port's processes: ``serve`` and ``loopback`` (ports
+of ``repro.launch.serve`` and ``repro.launch.loopback``)."""

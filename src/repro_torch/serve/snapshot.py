@@ -11,8 +11,8 @@ shared statistics and the alias proposal built over them.  It comes from
 * :func:`from_checkpoint`: a snapshot written by ``Trainer.save_snapshot``
   of either package; only the ``server/shards`` and ``server/aux`` leaves
   are read, and the proposal is built anew;
-* :func:`from_servers` (the wire's PULL path) waits for ROADMAP.md queue
-  A.10.
+* :func:`from_servers`: live shard servers of either package, through
+  the port's wire client (one SNAPSHOT round trip a shard).
 
 The tables are built once, at freeze time, by the family's
 ``build_alias``, the producer training uses: kernel 2 on the card (width K
@@ -128,7 +128,14 @@ def from_checkpoint(directory: str, cfg: Any, *, n_shards: int = 1,
 def from_servers(addrs: Any, cfg: Any, *, n_clients: int,
                  consistency: str = "bsp", timeout: float = 60.0,
                  min_round: int = 0, device=None) -> InferenceSnapshot:
-    """Freeze the statistics of live shard servers (the PULL path)."""
-    raise NotImplementedError(
-        "from_servers needs the port's wire client, which is not ported "
-        "yet (ROADMAP.md queue A.10)")
+    """Freeze the canonical assembled statistics of live shard servers:
+    one SNAPSHOT round trip per shard, after every round below
+    ``min_round`` has finalized, assembled on ``device``."""
+    from repro_torch.net import client as net_client
+    with net_client.RemoteParameterServer(
+            tuple(addrs), family=family_mod.family_of(cfg),
+            n_clients=n_clients, consistency=consistency,
+            vocab_size=cfg.vocab_size, timeout=timeout,
+            device=device) as remote:
+        shared = remote.snapshot(min_round=min_round)
+    return freeze(cfg, shared, device)

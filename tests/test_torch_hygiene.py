@@ -3,11 +3,12 @@
 * No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the
   ``tools/torch_*.py`` scripts, imports ``jax`` or the reference package
   ``repro`` (an AST scan of every import).
-* ``Trainer``, the family sweep, ``ops.*``, the ``bridge`` converters and
-  the serving entry points (``freeze``, ``from_checkpoint``,
-  ``FoldInEngine``, ``reference_fold_in``, ``InferenceServer`` and its
-  CLI, ``launch_serve``) run on ``cuda`` by default and raise when there
-  is no card and the CPU was not asked for.
+* ``Trainer``, the family sweep, ``ops.*``, the ``bridge`` converters, the
+  serving entry points (``freeze``, ``from_checkpoint``, ``FoldInEngine``,
+  ``reference_fold_in``, ``InferenceServer`` and its CLI,
+  ``launch_serve``) and the wire's (shard servers, the client, their
+  CLIs, the tcp Trainer, ``from_servers``) run on ``cuda`` by default and
+  raise when there is no card and the CPU was not asked for.
 * On the card (tests marked ``cuda``, skipped here without one): a CUDA
   tensor handed to a kernel wrapper reaches the kernel, as the launch
   counters show, and each kernel agrees with its plain version.
@@ -67,7 +68,11 @@ def test_scan_covers_the_package():
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/net/protocol.py",
             "src/repro_torch/checkpoint/ckpt.py",
-            "src/repro_torch/core/fault.py"} <= serving
+            "src/repro_torch/core/fault.py",
+            "src/repro_torch/net/server.py",
+            "src/repro_torch/net/client.py",
+            "src/repro_torch/net/chaos.py",
+            "src/repro_torch/launch/loopback.py"} <= serving
 
 
 def test_filter_keys_collide_with_no_other_stream(monkeypatch):
@@ -260,6 +265,36 @@ def test_serving_requires_card_unless_cpu_asked(call, monkeypatch, tmp_path):
     if call in ("server_cli", "launch_serve"):
         return          # their CPU runs bind sockets and start processes
     fns[call](device="cpu")
+
+
+@pytest.mark.parametrize("call", ["shard_server", "server_cli", "client",
+                                  "client_cli", "trainer", "from_servers"])
+def test_wire_requires_card_unless_cpu_asked(call, monkeypatch):
+    """The wire's entry points (shard servers and their CLI, the client
+    and the worker CLI, the tcp Trainer, ``from_servers``) run on
+    ``cuda`` unless the CPU is asked for, and raise without a card before
+    they bind or dial anything."""
+    from repro_torch.net import client, server
+    from repro_torch.serve import snapshot
+
+    _no_card(monkeypatch)
+    cfg, tokens, mask = _small()
+    addr = ("127.0.0.1:1",)
+    fns = {
+        "shard_server": lambda: server.ShardServer(
+            "lda", vocab_size=16, n_clients=1),
+        "server_cli": lambda: server.main([
+            "--vocab-size", "16", "--n-clients", "1"]),
+        "client": lambda: client.RemoteParameterServer(
+            addr, family="lda", n_clients=1, vocab_size=16),
+        "client_cli": lambda: client.main([
+            "--mode", "stress", "--addrs", addr[0], "--clients", "0"]),
+        "trainer": lambda: Trainer(cfg, tokens, mask, config=TrainerConfig(
+            layout="sorted", transport="tcp", server_addrs=addr)),
+        "from_servers": lambda: snapshot.from_servers(addr, cfg,
+                                                      n_clients=1)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
 
 
 @pytest.mark.parametrize("call", ["build_tables", "gather", "sweep"])

@@ -347,9 +347,34 @@ def test_engine_rejects_a_snapshot_on_another_device(snapshot):
 
 
 def test_from_servers_waits_for_the_wire_client(snapshot):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        from_servers(("127.0.0.1:1",), snapshot.cfg, n_clients=1,
-                     device=CPU)
+    """``from_servers`` goes through the port's wire client: the
+    snapshot's statistics, INIT-pushed to a live port shard server, freeze
+    back to the same statistics, tables and stale matrix.  HDP is not
+    servable over the wire (its post_round needs every client's locals):
+    the shard server refuses it, as the reference's does."""
+    from repro_torch.net.client import RemoteParameterServer
+    from repro_torch.net.server import ShardServer, serve_shards
+    fam = snapshot.family
+    if fam.name == "hdp":
+        with pytest.raises(NotImplementedError, match="post_round"):
+            ShardServer("hdp", vocab_size=snapshot.vocab_size, n_clients=1,
+                        device=CPU)
+        return
+    servers = serve_shards(fam.name, vocab_size=snapshot.vocab_size,
+                           n_clients=1, n_shards=2, device=CPU)
+    addrs = tuple("%s:%d" % s.address for s in servers)
+    try:
+        with RemoteParameterServer(addrs, family=fam, n_clients=1,
+                                   vocab_size=snapshot.vocab_size,
+                                   device=CPU) as rps:
+            rps.init_push(0, snapshot.shared)
+        got = from_servers(addrs, snapshot.cfg, n_clients=1, device=CPU)
+    finally:
+        for s in servers:
+            s.close()
+    for a, b in zip((*got.shared, *got.tables, got.stale),
+                    (*snapshot.shared, *snapshot.tables, snapshot.stale)):
+        assert torch.equal(a, b)
 
 
 def test_fused_lda_freeze_uses_the_fused_build():

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import hdp as ref_hdp
 from repro.core import lda as ref_lda
 from repro.core import projection as ref_proj
 from repro.data import segment as ref_segment
@@ -94,16 +95,42 @@ def test_trainer_perplexity_falls_and_launches_nothing_on_cpu(corpus):
     assert sum(_build.LAUNCHES.values()) == 0
 
 
+TCP = dict(transport="tcp", server_addrs=("localhost:1",))
+# field: (TrainerConfig overrides, the reference config, raised, message)
+REJECTED = {
+    "layout": ({"layout": "scan"}, _ref_cfg, NotImplementedError, "A.4"),
+    "server_addrs": ({"server_addrs": ("localhost:1",)}, _ref_cfg,
+                     ValueError, "tcp-only"),
+    "transport": ({"transport": "tcp"}, _ref_cfg, ValueError,
+                  "requires server_addrs"),
+    "local_clients": ({"local_clients": (0,)}, _ref_cfg, ValueError,
+                      "tcp-only"),
+    "family": (TCP, lambda: ref_hdp.HDPConfig(n_topics=16, vocab_size=256),
+               NotImplementedError, "post_round"),
+    "alias_rebuild_threshold": ({**TCP, "alias_rebuild_threshold": 0.0},
+                                _ref_cfg, ValueError, "incremental"),
+}
+
+
 @pytest.mark.parametrize("field,value", [
     ("server_addrs", ("localhost:1",)), ("transport", "tcp"),
-    ("local_clients", (0,)), ("reconnect_limit", 5), ("layout", "scan")])
+    ("local_clients", (0,)), ("layout", "scan"), ("family", "hdp"),
+    ("alias_rebuild_threshold", 0.0)])
 def test_trainer_rejects_unported_options(field, value, corpus):
-    """Only the wire's fields (A.10) and the scan layout (A.4) raise."""
+    """The scan layout (A.4) raises as unported; the wire's knobs raise
+    where the reference's Trainer raises, with its exception: tcp-only
+    knobs in process, tcp without servers, and over tcp HDP (its
+    post_round needs every client's locals) and incremental rebuilds."""
     tokens, mask = corpus
-    with pytest.raises(NotImplementedError, match="A.10|A.4"):
-        Trainer(bridge.config_from(_ref_cfg()), tokens, mask,
-                config=TrainerConfig(**{"layout": "sorted", field: value}),
-                device="cpu")
+    overrides, ref_cfg, exc, match = REJECTED[field]
+    cfg = {"layout": "sorted", **overrides}
+    with pytest.raises(exc, match=match):
+        Trainer(bridge.config_from(ref_cfg()), tokens, mask,
+                config=TrainerConfig(**cfg), device="cpu")
+    if field != "layout":
+        with pytest.raises(exc):
+            RefTrainer(ref_cfg(), tokens, mask,
+                       config=RefTrainerConfig(**cfg))
 
 
 def test_fused_alias_build_names_its_roadmap_item():
