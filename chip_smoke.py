@@ -127,13 +127,36 @@ phase's final trainer; ``serve_path``):
    and disk), under build/: a dropped push connection, a delayed pull, the
    shard process killed at round 3 and restored from its snapshot, worker
    1 killed after round 2 and restored, bit-equal to an undisturbed
-   in-process run.  WIRE lines carry the numbers.
+   in-process run.  WIRE lines carry the numbers.  Every trainer of
+   phases 3-13 passes ``layout="sorted"`` (the workers ``--layout
+   sorted``), so their numbers stay comparable across PRs.
+14. The position-scan layout, on phase 4's corpus at full width (two
+   clients of 32,768 documents, BSP, kernels 8 and 9 in every MH step):
+   scan-lda (``LDAConfig`` defaults, MHW, 3 cadence rounds; kernels 2, 8,
+   9), scan-lda-incremental (2 rounds with phase 4's incremental
+   settings; kernels 3, 8, 9), scan-lda-exact (2 rounds; kernel 2),
+   scan-hdp (2 rounds, prior b1·θ0; kernels 2, 8, 9), scan-pdp (2 rounds;
+   kernel 2 at width 2048, then 8 and 9 over E = 2048) and tcp-scan (one
+   LDA round over two shard servers in threads, bit-equal to the same
+   round in process).  After every round: exact, no violation, HDP's
+   local rules; held-out perplexity falls (32 documents, 256 for HDP),
+   printed beside the sorted trainer's at the same round.  Kernels 8 and
+   9 must launch 2 clients × 256 positions × mh_steps times a MHW round.
+   Kernels 8 and 9 on the first position's inputs of the last round of
+   scan-lda (B = 32,768) and of scan-pdp (E = 2048), against their plain
+   versions on the same card tensors and timed; one scan-lda round
+   profiled; ``mh_chain_with_stats``'s acceptance rate after the first
+   and the last scan-lda round; one scan sweep at K = 16 on the CPU and
+   on the card with the same injected draws.  SCAN lines carry the
+   numbers.
 
 Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
 serve-hdp, serve-lda-fused, phase 12's bsp, ssp2, ssp2-incremental,
 async, topk, faults and restore, and phase 13's tcp-bsp,
 tcp-from-servers, tcp-sparse, tcp-topk, tcp-ssp2, tcp-pdp and the
-loopback and failover workers) is driven with the launch counters zeroed
+loopback and failover workers, and phase 14's scan-lda,
+scan-lda-incremental, scan-lda-exact, scan-hdp, scan-pdp and tcp-scan) is
+driven with the launch counters zeroed
 just before it and read just after (phase 13's: around each step, and in
 each worker process), and every kernel of the path must have launched;
 launches made only to check a path are left out.
@@ -2294,8 +2317,8 @@ def tcp_rounds(label, cfg, tokens, mask, dev, rounds, *, tcfg_kw=None,
         t = time.perf_counter()
         tcp = launched_around(counts, lambda: Trainer(
             cfg, tokens, mask, seed=0, device=dev, config=TrainerConfig(
-                layout="sorted", n_clients=2, transport="tcp",
-                server_addrs=addrs, **tcfg_kw)))
+                **{"layout": "sorted", "n_clients": 2, "transport": "tcp",
+                   "server_addrs": addrs, **tcfg_kw})))
         out["init_s"] = time.perf_counter() - t
         meter(tcp.remote, log)
         for r in range(rounds):
@@ -2579,7 +2602,8 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         family="lda", vocab_size=cfg.vocab_size, n_topics=cfg.n_topics,
         n_shards=2, client_sets=((0,), (1,)), n_rounds=2,
         n_docs=ccfg.n_docs, doc_len=ccfg.doc_len, corpus_seed=ccfg.seed,
-        seed=0, timeout=LOOPBACK_TIMEOUT_S, workdir=str(root / "loopback"),
+        seed=0, layout="sorted", timeout=LOOPBACK_TIMEOUT_S,
+        workdir=str(root / "loopback"),
         extra_client_args=("--corpus-topics", str(ccfg.n_topics),
                            "--eval-docs", "32"), device=dev.type)
     secs = time.perf_counter() - t
@@ -2609,7 +2633,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     t = time.perf_counter()
     res = loopback.launch_failover(
         client_sets=((0,), (1,)), n_rounds=6, kill_server_round=3,
-        kill_client=1, kill_client_round=2,
+        kill_client=1, kill_client_round=2, layout="sorted",
         chaos_plan=loopback.failover_plan(), timeout=LOOPBACK_TIMEOUT_S,
         workdir=str(root / "failover"), device=dev.type, **FAILOVER)
     secs = time.perf_counter() - t
@@ -2620,7 +2644,8 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         raise AssertionError(f"failover: {res.diagnostics}")
     finals = [p.result for p in res.clients if p.returncode == 0
               and p.result]
-    want = loopback._reference_run(6, device=dev.type, **FAILOVER)
+    want = loopback._reference_run(6, layout="sorted", device=dev.type,
+                                   **FAILOVER)
     drops = sum(p["actions"]["conn_drop"] for p in res.proxies)
     summary = {"reduced": f"K={FAILOVER['n_topics']}, "
                f"V={FAILOVER['vocab_size']}, {FAILOVER['n_docs']} documents "
@@ -2640,6 +2665,368 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     WIRE["failover"] = summary
     shutil.rmtree(root)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the position-scan layout at full width
+# ---------------------------------------------------------------------------
+
+class KernelTap:
+    """Pass ``ops.sample_rows`` and ``ops.mh_accept`` through, keeping the
+    inputs of their first call (the scan chain's first position and MH
+    step) for the kernel checks; the tables by reference, the rest
+    copied (the chain writes its state views over)."""
+
+    def __init__(self):
+        self.inputs: dict[str, tuple] = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.real = (ops.sample_rows, ops.mh_accept)
+        real8, real9 = self.real
+
+        def sample_rows(tables, rows, generator=None, *, uniforms=None,
+                        device=None):
+            if "alias_sample" not in self.inputs:
+                self.inputs["alias_sample"] = (
+                    tables, rows.clone(), uniforms[0].clone(),
+                    uniforms[1].clone())
+            return real8(tables, rows, generator, uniforms=uniforms,
+                         device=device)
+
+        def mh_accept(z, cand, lp_z, lp_c, lq_z, lq_c, generator=None, *,
+                      u=None, device=None):
+            if "mh_accept" not in self.inputs:
+                self.inputs["mh_accept"] = tuple(
+                    t.clone() for t in (z, cand, lp_z, lp_c, lq_z, lq_c, u))
+            return real9(z, cand, lp_z, lp_c, lq_z, lq_c, generator, u=u,
+                         device=device)
+
+        ops.sample_rows, ops.mh_accept = sample_rows, mh_accept
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.sample_rows, ops.mh_accept = self.real
+        return False
+
+
+def acceptance_rate(tr, cfg, dev) -> float:
+    """``mh_chain_with_stats``'s acceptance rate on client 0's first
+    position, as ``bench_throughput`` measures it: the sparse term
+    n_dk·φ_w with the fresh language model, the dense term from the
+    trainer's current alias tables, log p = log((n_dk + α)·φ_w + 1e-30),
+    ``mh_steps`` steps from the current topics; its launches are not the
+    path's."""
+    from repro_torch.core import lda, mhw
+    from repro_torch.kernels import _build
+
+    saved = dict(_build.LAUNCHES)
+    t, _ = tr.shards[0]
+    loc = tr.locals_[0]
+    w = t[:, 0].to(torch.int32).contiguous()
+    wl = w.long()
+    lm = lda.language_model(cfg, tr.shared)
+    docs = torch.arange(w.shape[0], device=dev)
+    prop = mhw.MixtureProposal(loc.n_dk * lm[wl], tr.pstate.tables, w)
+
+    def log_p(z):
+        zl = z.long()
+        return torch.log((loc.n_dk[docs, zl] + cfg.alpha) * lm[wl, zl]
+                         + 1e-30)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    _, rate = mhw.mh_chain_with_stats(gen, loc.z[:, 0], prop,
+                                      tr.pstate.stale, log_p, cfg.mh_steps)
+    rate = float(rate)
+    restore_counts(saved)
+    return rate
+
+
+def scan_path(label, cfg, tcfg, rounds, tokens, mask, ho, dev, kernels,
+              sorted_ppl=None, tap=None, accept=False):
+    """Drive one scan path: a fresh Trainer, ``rounds`` rounds each timed on
+    the host's clock around ``step()`` closed by a sync, checked (exact,
+    no violation, HDP's local rules) and evaluated on ``ho``; the launch
+    counters zeroed just before and read just after.  Every kernel of
+    ``kernels`` must have launched, and kernels 8 and 9 exactly clients ×
+    positions × mh_steps times a round under MHW (0 under exact).  With
+    ``tap`` the last round runs under it; with ``accept`` the acceptance
+    rate is taken after the first and the last round.  Returns (trainer,
+    counts, summary)."""
+    from repro_torch.engine import Trainer
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tr = Trainer(cfg, tokens, mask, config=tcfg, seed=0, device=dev)
+    ms, ppl, rates = [], [], []
+    for rnd in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if tap is not None and rnd == rounds - 1:
+            with tap:
+                tr.step()
+        else:
+            tr.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        err = tr.consistency_error()
+        viol = tr.family.count_violations(tr.shared)
+        local_viol = sum(tr.family.count_local_violations(loc)
+                         for loc in tr.locals_)
+        if err != 0.0 or viol != 0 or local_viol != 0:
+            raise AssertionError(f"{label} round {rnd}: consistency {err}, "
+                                 f"violations {viol}, local violations "
+                                 f"{local_viol}")
+        ppl.append(tr.perplexity(*ho))
+        if not np.isfinite(ppl[-1]):
+            raise AssertionError(f"{label}: perplexity {ppl[-1]}")
+        if accept and rnd in (0, rounds - 1):
+            rates.append(acceptance_rate(tr, cfg, dev))
+        beside = ""
+        if sorted_ppl and rnd < len(sorted_ppl) \
+                and sorted_ppl[rnd] is not None:
+            beside = f" (phase 4-8's sorted at round {rnd}: " \
+                     f"{sorted_ppl[rnd]:.3f})"
+        print(f"SCAN {label} round {rnd} {ms[-1]:.1f} ms consistency_error="
+              f"{err} violations={viol} local_violations={local_viol} "
+              f"heldout_perplexity={ppl[-1]:.3f}{beside}", flush=True)
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rounds > 1 and not ppl[-1] < ppl[0]:
+        raise AssertionError(f"{label}: perplexity did not fall: {ppl}")
+    path_counts_of(label, counts, kernels)
+    l = tokens.shape[1]
+    want = (rounds * tcfg.n_clients * l * cfg.mh_steps
+            if tcfg.method == "mhw" else 0)
+    for name in ("alias_sample", "mh_accept"):
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{counts.get(name, 0)} times, predicted "
+                                 f"{want} ({rounds} rounds × "
+                                 f"{tcfg.n_clients} clients × {l} "
+                                 "positions × mh_steps)")
+    mean_s = sum(ms) / len(ms) / 1e3
+    summary = {"rounds": rounds, "round_ms": ms,
+               "median_round_ms": statistics.median(ms),
+               "tokens_per_s": int(mask.sum()) / mean_s, "peak_gib": peak,
+               "perplexity": ppl, "sorted_perplexity": (
+                   list(sorted_ppl[:rounds]) if sorted_ppl else None),
+               "launches": counts, "k8_k9_predicted": want,
+               "alias_builds": tr.alias_builds}
+    if accept:
+        summary["acceptance_first_last"] = rates
+    print(f"SCAN {label} {json.dumps(summary)}", flush=True)
+    return tr, counts, summary
+
+
+def scan_kernel_figures(label, inputs, e_out: int) -> dict:
+    """Kernels 8 and 9 on one real scan position's inputs (``KernelTap``),
+    against their plain versions on the same card tensors, timed as a
+    call, on the device's clock and as the plain version; bounds from
+    this input's bytes (kernel 8: rows, slot, coin and the draw for each
+    entry, prob at each distinct (row, slot) entry and alias where the
+    coin took it; kernel 9: seven 4-byte inputs and the state)."""
+    from repro_torch.kernels import alias_sample as kas
+    from repro_torch.kernels import mh_accept as kma
+    from repro_torch.kernels import ref
+
+    tables, rows, slot, coin = inputs["alias_sample"]
+    b = rows.shape[0]
+    got8 = kas.alias_sample(tables.prob, tables.alias, rows, slot, coin)
+    want8 = ref.alias_sample_ref(tables.prob, tables.alias, rows, slot, coin)
+    if not torch.equal(got8, want8):
+        raise AssertionError(f"{label}: kernel 8 differs from plain in "
+                             f"{int((got8 != want8).sum())} of {b} draws")
+    key = rows.long() * e_out + slot.long()
+    took = ~(coin < tables.prob.view(-1)[key])
+    bytes8 = (b * 16 + int(torch.unique(key).numel()) * 4
+              + int(torch.unique(key[took]).numel()) * 4)
+    args9 = inputs["mh_accept"]
+    z, cand, lp_z, lp_c, lq_z, lq_c, u = args9
+    got9 = kma.mh_accept(*args9)
+    want9 = ref.mh_accept_ref(*args9)
+    differ = got9 != want9
+    if bool(differ.any()):
+        ratio = ((lp_c - lp_z) + lq_z) - lq_c
+        near = (torch.log(u + 1e-30) - ratio).abs() <= \
+            2 * torch.finfo(torch.float32).eps * ratio.abs().clamp_min(1.0)
+        if not bool(near[differ].all()):
+            raise AssertionError(f"{label}: kernel 9 differs from plain "
+                                 "away from an accept tie")
+    out = {}
+    for name, fn, plain, nbytes, symbol in (
+            ("alias_sample", lambda: kas.alias_sample(
+                tables.prob, tables.alias, rows, slot, coin),
+             lambda: ref.alias_sample_ref(tables.prob, tables.alias, rows,
+                                          slot, coin),
+             bytes8, "alias_sample_batch_kernel"),
+            ("mh_accept", lambda: kma.mh_accept(*args9),
+             lambda: ref.mh_accept_ref(*args9), b * 32, "mh_accept_kernel")):
+        bound_ms, bound_by = bound(nbytes, 0)
+        out[name] = {"B": b, "E": e_out, "ms": time_ms(fn, 50),
+                     "device_ms": device_ms(fn, 50, symbol),
+                     "plain_ms": time_ms(plain, 20), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes,
+                     "bit_equal": bool(torch.equal(
+                         got8 if name == "alias_sample" else got9,
+                         want8 if name == "alias_sample" else want9)),
+                     "states_differing": (0 if name == "alias_sample"
+                                          else int(differ.sum()))}
+        if name == "mh_accept":
+            out[name]["accepted_share"] = float((got9 == cand).float().mean())
+        print(f"SCAN-KERNEL {label} {name} {json.dumps(out[name])}",
+              flush=True)
+    return out
+
+
+def scan_cpu_card(dev) -> dict:
+    """One scan sweep at K=16 (64 documents of 32 tokens, V=256) on the CPU
+    and on the card from the same state, tables and injected draws (LDA
+    MHW and exact, PDP MHW): the share of z (and PDP's r) and of the delta
+    entries that differ.  Not a path: its launches are left out."""
+    from repro_torch.core import family, mhw
+    from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
+    from repro_torch.kernels import _build
+
+    saved = dict(_build.LAUNCHES)
+    tokens, mask, _ = make_topic_corpus(CorpusConfig(
+        n_topics=8, vocab_size=256, n_docs=64, doc_len=32, seed=3))
+    tt, tm = torch.as_tensor(tokens), torch.as_tensor(mask)
+    d, l = tt.shape
+    out = {}
+
+    def to(tree, where):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(where)
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(to(x, where) for x in tree))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(x, where) for x in tree)
+        return tree
+
+    for name, method in (("lda", "mhw"), ("lda", "exact"), ("pdp", "mhw")):
+        fam = family.get(name)
+        cfg = fam.config_cls(n_topics=16, vocab_size=256)
+        loc, sh = fam.init_state(cfg, tt, tm, (0, 0))
+        tables, stale = fam.build_alias(cfg, sh)
+        e = fam.n_outcomes(cfg)
+        gen = torch.Generator()
+        gen.manual_seed(5)
+        draws = [[mhw.draw_step(gen, d, e, "cpu")
+                  for _ in range(cfg.mh_steps)] if method == "mhw"
+                 else mhw.gumbel(gen, (d, e), "cpu") for _ in range(l)]
+        cpu_loc, cpu_d = fam.sweep(cfg, loc, sh, tables, stale, tt, tm, (0,),
+                                   method=method, device="cpu",
+                                   position_draws=lambda i: draws[i])
+        card_draws = to(draws, dev)
+        card_loc, card_d = fam.sweep(
+            cfg, to(loc, dev), to(sh, dev), to(tables, dev), stale.to(dev),
+            tt.to(dev), tm.to(dev), (0,), method=method, device=dev,
+            position_draws=lambda i: card_draws[i])
+        diff = {f: float((getattr(card_loc, f).cpu()
+                          != getattr(cpu_loc, f)).float().mean())
+                for f in ("z", "r") if f in fam.local_stats}
+        diff.update({n: float((card_d[n].cpu() != cpu_d[n]).float().mean())
+                     for n in fam.delta_names})
+        out[f"{name}-{method}"] = diff
+        print(f"SCAN cpu-card {name}-{method} K=16 shares differing "
+              f"{json.dumps(diff)}", flush=True)
+        if diff["z"] > SWEEP_MISMATCH_TOL:
+            raise AssertionError(f"scan cpu-card {name}-{method}: z differs "
+                                 f"in {diff['z']} of positions")
+    restore_counts(saved)
+    return out
+
+
+def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
+    """Phase 14 (see the module docstring); returns (the launch counts of
+    each path, each zeroed just before it; kernels 8 and 9 at the scan
+    grid, for the kernels JSON)."""
+    from repro_torch.engine import Trainer, TrainerConfig
+    from repro_torch.kernels import _build
+
+    counts, figures, summaries = {}, {}, {}
+    scan_mhw = TrainerConfig(layout="scan", method="mhw", n_clients=2)
+    k289 = ("alias_build", "alias_sample", "mh_accept")
+    sorted_ppl = {f: SUMMARIES.get(f"{f}-cadence", {}).get("perplexity")
+                  for f in ("lda", "pdp", "hdp")}
+
+    tap = KernelTap()
+    tr, counts["scan-lda"], summaries["scan-lda"] = scan_path(
+        "scan-lda", cfg, scan_mhw, 3, tokens, mask, ho, dev, k289,
+        sorted_ppl["lda"], tap=tap, accept=True)
+    figures["lda"] = scan_kernel_figures("scan-lda", tap.inputs,
+                                         cfg.n_topics)
+    profile_round(tr, "scan-lda", "cadence")
+    del tr, tap
+    torch.cuda.empty_cache()
+
+    inc = TrainerConfig(layout="scan", method="mhw", n_clients=2,
+                        alias_rebuild_threshold=0.0,
+                        alias_rebuild_rows=GATHER_ROWS,
+                        alias_full_rebuild_every=16)
+    tr, counts["scan-lda-incremental"], summaries[
+        "scan-lda-incremental"] = scan_path(
+        "scan-lda-incremental", cfg, inc, 2, tokens, mask, ho, dev,
+        ("alias_build_gather_fused", "alias_sample", "mh_accept"))
+    del tr
+    torch.cuda.empty_cache()
+
+    exact_cfg = TrainerConfig(layout="scan", method="exact", n_clients=2)
+    tr, counts["scan-lda-exact"], summaries["scan-lda-exact"] = scan_path(
+        "scan-lda-exact", cfg, exact_cfg, 2, tokens, mask, ho, dev,
+        ("alias_build",))
+    del tr
+    torch.cuda.empty_cache()
+
+    # Phase 8's cadence mode began after phase 7's round: its round r is
+    # the sorted trainer's round r + 1.  Four rounds: over the first two
+    # HDP's held-out perplexity rises (by 0.2% on an H100 at this size)
+    # while θ0 first concentrates, and falls from the third.
+    tr, counts["scan-hdp"], summaries["scan-hdp"] = scan_path(
+        "scan-hdp", hcfg, scan_mhw, 4, tokens, mask, ho_hdp, dev, k289,
+        [None] + list(sorted_ppl["hdp"] or []))
+    del tr
+    torch.cuda.empty_cache()
+
+    tap = KernelTap()
+    tr, counts["scan-pdp"], summaries["scan-pdp"] = scan_path(
+        "scan-pdp", pcfg, scan_mhw, 2, tokens, mask, ho, dev, k289,
+        sorted_ppl["pdp"], tap=tap)
+    figures["pdp"] = scan_kernel_figures("scan-pdp", tap.inputs,
+                                         2 * pcfg.n_topics)
+    del tr, tap
+    torch.cuda.empty_cache()
+
+    # tcp-scan: one LDA round over two shard servers in threads of this
+    # process, bit-equal to the same round in process.
+    torch.cuda.reset_peak_memory_stats()
+    ref = Trainer(cfg, tokens, mask, config=scan_mhw, seed=0, device=dev)
+    counts["tcp-scan"] = {}
+    out = tcp_rounds("tcp-scan", cfg, tokens, mask, dev, 1,
+                     tcfg_kw={"layout": "scan"}, ref=ref,
+                     counts=counts["tcp-scan"],
+                     check=lambda tr_, r, log, stats: exact("tcp-scan", tr_,
+                                                            r))
+    path_counts_of("tcp-scan", counts["tcp-scan"], k289)
+    want = 2 * tokens.shape[1] * cfg.mh_steps
+    if counts["tcp-scan"].get("alias_sample") != want:
+        raise AssertionError(f"tcp-scan: kernel 8 launched "
+                             f"{counts['tcp-scan'].get('alias_sample')} "
+                             f"times, predicted {want}")
+    out["launches"] = counts["tcp-scan"]
+    close_wire(out)
+    wire_line("tcp-scan", out)
+    del ref
+    torch.cuda.empty_cache()
+
+    figures["cpu_card"] = scan_cpu_card(dev)
+    _build.reset_launches()
+    return counts, figures
 
 
 def sum_device_ms(fn, reps: int) -> float:
@@ -2894,6 +3281,17 @@ def main() -> int:
     counts.update(wire(cfg, pcfg, ccfg, tokens, mask, dev,
                        ROOT / "build" / "phase13"))
     phase("wire", t)
+
+    # --------------------------------------------------------- phase 14
+    t = time.perf_counter()
+    scan_counts, scan_figures = scan(cfg, pcfg, hcfg, tokens, mask, ho,
+                                     ho_hdp, dev)
+    counts.update(scan_counts)
+    for entry in report:
+        if entry["name"] in ("alias_sample", "mh_accept"):
+            entry["scan_grid"] = scan_figures["lda"][entry["name"]]
+            entry["scan_grid_pdp"] = scan_figures["pdp"][entry["name"]]
+    phase("scan", t)
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

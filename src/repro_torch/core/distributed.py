@@ -15,25 +15,31 @@ from repro_torch.core import ps
 
 
 def tau_sweeps(model_cfg, fam, local, snapshot, tables, stale, tokens, mask,
-               sweep_keys, *, sorted_layouts=None, device=None,
-               sweep_uniforms: Sequence | None = None):
-    """One client's work in a round: a token-sorted sweep per key in
-    ``sweep_keys`` against the snapshot, applying its own deltas locally
-    between sweeps, then the family's client-local rules.  Returns
-    (local', Σ deltas).  The caller has checked the layout and method
-    (``Trainer`` takes ``layout="sorted"``, ``method="mhw"`` only).
+               sweep_keys, *, method: str = "mhw", layout: str = "scan",
+               sorted_layouts=None, device=None,
+               sweep_draws: Sequence | None = None):
+    """One client's work in a round: a sweep per key in ``sweep_keys``
+    against the snapshot, applying its own deltas locally between sweeps,
+    then the family's client-local rules.  Returns (local', Σ deltas).
 
-    ``sweep_uniforms`` (optional) gives each sweep's ``chunk_uniforms``
-    callback for ``ModelFamily.sweep_sorted`` (None for a sweep that
-    draws its own streams)."""
+    ``sweep_draws`` (optional) replaces each sweep's own streams (None
+    for a sweep that draws its own): on the sorted layout the
+    ``chunk_uniforms`` callback of ``ModelFamily.sweep_sorted``, on the
+    scan layout the ``position_draws`` callback of the family's sweep."""
     acc = {n: torch.zeros_like(fam.stats_dict(snapshot)[n])
            for n in fam.delta_names}
     shared_local = snapshot
     for s, key in enumerate(sweep_keys):
-        uni = sweep_uniforms[s] if sweep_uniforms is not None else None
-        local, deltas = fam.sweep_sorted(
-            model_cfg, local, shared_local, tables, stale, tokens, mask, key,
-            sorted_layouts, chunk_uniforms=uni, device=device)
+        draws = sweep_draws[s] if sweep_draws is not None else None
+        if layout == "sorted":
+            local, deltas = fam.sweep_sorted(
+                model_cfg, local, shared_local, tables, stale, tokens, mask,
+                key, sorted_layouts, chunk_uniforms=draws, device=device)
+        else:
+            local, deltas = fam.sweep(
+                model_cfg, local, shared_local, tables, stale, tokens, mask,
+                key, method=method, layout=layout, device=device,
+                position_draws=draws)
         shared_local = fam.apply_delta(shared_local, deltas)
         acc = {n: acc[n] + deltas[n] for n in acc}
     return fam.local_project(local), acc

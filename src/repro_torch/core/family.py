@@ -1,6 +1,11 @@
 """The ``ModelFamily`` protocol and registry (port of
 ``repro.core.family``): LDA, PDP and HDP.
 
+``ModelFamily.sweep`` runs one Gibbs sweep of either layout: the position
+scan (the default, each family's ``sweep``) or the sorted sweep below.
+Every family factors its conditional as p(e) ∝ (doc_e + prior_e)·f_e;
+``sparse_prior``, ``doc_sparse_logp`` and ``accept_ratio`` expose it.
+
 ``ModelFamily.sweep_sorted`` is the chunked sorted sweep: ``sorted_chunks``
 position-chunks in turn, each one launch of the family's fused kernel
 (Jacobi within a chunk), with ``n_dk`` refreshed between chunks
@@ -12,13 +17,13 @@ joint-outcome kernel.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import alias as alias_mod
-from repro_torch.core import hdp, lda, pdp, projection, stirling
+from repro_torch.core import hdp, lda, mhw, pdp, projection, stirling
 from repro_torch.data import segment
 from repro_torch.kernels import ops
 
@@ -88,6 +93,28 @@ class ModelFamily:
         gathered math whose cost scales with R."""
         return self.dense_probs(cfg, shared)[rows.long()]
 
+    def sparse_prior(self, cfg, shared) -> torch.Tensor:
+        """(E,) per-outcome prior mass of the document-sparse term."""
+        raise NotImplementedError
+
+    def doc_sparse_logp(self, cfg, shared, doc_rows: torch.Tensor,
+                        outcome: torch.Tensor) -> torch.Tensor:
+        """log(doc_e + prior_e) at ``outcome``: doc_rows (B, E), outcome
+        (B,) → (B,).  Sealed, as in the reference: it resolves to
+        ``mhw.doc_sparse_logp``, which the chains evaluate directly, so a
+        family changes its target through ``sparse_prior`` and its sweep,
+        never by overriding this."""
+        return mhw.doc_sparse_logp(doc_rows, self.sparse_prior(cfg, shared),
+                                   outcome)
+
+    def accept_ratio(self, log_p_cand, log_p_cur, log_q_cur, log_q_cand
+                     ) -> torch.Tensor:
+        """The MH accept log ratio of paper eq. 7, the same for every
+        family; sealed like :meth:`doc_sparse_logp`, resolving to
+        ``mhw.accept_log_ratio``."""
+        return mhw.accept_log_ratio(log_p_cand, log_p_cur, log_q_cur,
+                                    log_q_cand)
+
     def rebuild_alias_rows(self, cfg, shared, tables, stale, rows, valid,
                            device=None):
         """Incremental alias rebuild of ``rows``: gathered dense rows, the
@@ -123,6 +150,13 @@ class ModelFamily:
         return float(projection.count_violations(self.local_dict(local),
                                                  self.local_rules))
 
+    def sweep(self, cfg, local, shared, tables, stale, tokens, mask, key, *,
+              method="mhw", layout="scan", sorted_layouts=None, device=None,
+              position_draws=None) -> tuple[Any, dict[str, torch.Tensor]]:
+        """One Gibbs sweep of either layout; returns (local', {delta name:
+        (V, K) delta})."""
+        raise NotImplementedError
+
     def post_round(self, cfg, locals_: list, shared, key: device_mod.Key):
         """Per-round auxiliary step after the push and the projection
         (HDP's tables and θ0); the identity by default."""
@@ -131,7 +165,9 @@ class ModelFamily:
     # ---------------------------------------------- token-sorted fast path
     def sorted_tile_v(self, cfg) -> int:
         """The reference's vocab tile size; it only sizes the layout's
-        tile-skip fields here."""
+        tile-skip fields here.  The reference's ``sorted_tile_k`` (the
+        K-tile of its kernels' VMEM staging) is TPU tiling and has no
+        counterpart: no CUDA kernel tiles K by it."""
         return cfg.tile_v or segment.pick_tile_vmem(
             cfg.vocab_size, self.n_outcomes(cfg),
             tile_k=getattr(cfg, "tile_k", None))
@@ -233,9 +269,6 @@ class _LMFamilyBase(ModelFamily):
     """Families whose fresh factor is the LM row (n_wk − own + β)/(n_k −
     own + β̄); they differ in the per-topic prior vector."""
 
-    def sparse_prior(self, cfg, shared) -> torch.Tensor:
-        raise NotImplementedError
-
     def rebuild_alias_rows(self, cfg, shared, tables, stale, rows, valid,
                            device=None):
         """Incremental alias rebuild of ``rows`` (kernel 3), scattered into
@@ -257,14 +290,6 @@ class _LMFamilyBase(ModelFamily):
             n_dk, generator, mh_steps=cfg.mh_steps, beta=cfg.beta,
             beta_bar=cfg.beta * cfg.vocab_size, uniforms=uniforms,
             device=device)
-
-    def _delta_wk(self, cfg, tokens, mask, z_old, z_new) -> torch.Tensor:
-        w = tokens.reshape(-1)
-        m = mask.reshape(-1).to(torch.float32)
-        delta = torch.zeros((cfg.vocab_size, cfg.n_topics),
-                            dtype=torch.float32, device=tokens.device)
-        lda.add_at(delta, w, z_new.reshape(-1), m)
-        return lda.add_at(delta, w, z_old.reshape(-1), -m)
 
     def count_stats(self, cfg, tokens, mask, local) -> dict[str, torch.Tensor]:
         return {"n_wk": lda.count_wk(cfg, tokens, local.z, mask)}
@@ -303,12 +328,13 @@ class LDAFamily(_LMFamilyBase):
                           device=shared.n_k.device)
 
     def sweep(self, cfg, local, shared, tables, stale, tokens, mask, key, *,
-              method="mhw", layout="sorted", sorted_layouts=None,
-              device=None):
+              method="mhw", layout="scan", sorted_layouts=None,
+              device=None, position_draws=None):
         local2, dwk, _ = lda.sweep(cfg, local, shared, tables, stale, tokens,
                                    mask, key, method=method, layout=layout,
                                    sorted_layouts=sorted_layouts,
-                                   device=device)
+                                   device=device,
+                                   position_draws=position_draws)
         return local2, {"n_wk": dwk}
 
     def apply_delta(self, shared, deltas):
@@ -316,7 +342,7 @@ class LDAFamily(_LMFamilyBase):
         return lda.SharedStats(n_wk=n_wk, n_k=n_wk.sum(0))
 
     def finalize_sorted(self, cfg, local, e_grid, n_dk, tokens, mask):
-        dwk = self._delta_wk(cfg, tokens, mask, local.z, e_grid)
+        dwk = lda.delta_wk(cfg, tokens, mask, local.z, e_grid)
         return lda.LocalState(z=e_grid, n_dk=n_dk), {"n_wk": dwk}
 
     def perplexity(self, cfg, shared, tokens, mask, key) -> float:
@@ -352,12 +378,13 @@ class HDPFamily(_LMFamilyBase):
         return cfg.b1 * shared.theta0
 
     def sweep(self, cfg, local, shared, tables, stale, tokens, mask, key, *,
-              method="mhw", layout="sorted", sorted_layouts=None,
-              device=None):
+              method="mhw", layout="scan", sorted_layouts=None,
+              device=None, position_draws=None):
         local2, dwk, _ = hdp.sweep(cfg, local, shared, tables, stale, tokens,
                                    mask, key, method=method, layout=layout,
                                    sorted_layouts=sorted_layouts,
-                                   device=device)
+                                   device=device,
+                                   position_draws=position_draws)
         return local2, {"n_wk": dwk}
 
     def apply_delta(self, shared, deltas):
@@ -366,7 +393,7 @@ class HDPFamily(_LMFamilyBase):
                                theta0=shared.theta0)
 
     def finalize_sorted(self, cfg, local, e_grid, n_dk, tokens, mask):
-        dwk = self._delta_wk(cfg, tokens, mask, local.z, e_grid)
+        dwk = lda.delta_wk(cfg, tokens, mask, local.z, e_grid)
         return (hdp.LocalState(z=e_grid, n_dk=n_dk, m_dk=local.m_dk),
                 {"n_wk": dwk})
 
@@ -432,12 +459,13 @@ class PDPFamily(ModelFamily):
                           device=shared.m_k.device)
 
     def sweep(self, cfg, local, shared, tables, stale, tokens, mask, key, *,
-              method="mhw", layout="sorted", sorted_layouts=None,
-              device=None):
+              method="mhw", layout="scan", sorted_layouts=None,
+              device=None, position_draws=None):
         local2, dm, ds = pdp.sweep(cfg, local, shared, tables, stale, tokens,
                                    mask, key, method=method, layout=layout,
                                    sorted_layouts=sorted_layouts,
-                                   device=device)
+                                   device=device,
+                                   position_draws=position_draws)
         return local2, {"m_wk": dm, "s_wk": ds}
 
     def apply_delta(self, shared, deltas):
@@ -517,3 +545,6 @@ def family_of(cfg: Any) -> ModelFamily:
             return fam
     raise TypeError(f"no registered ModelFamily for config {type(cfg)!r}")
 
+
+def names() -> Sequence[str]:
+    return sorted(FAMILIES)

@@ -1,5 +1,5 @@
 """HDP-LDA, the hierarchical Dirichlet process topic model, with the MHW
-sampler (port of ``repro.core.hdp``), token-sorted layout only.
+sampler (port of ``repro.core.hdp``).
 
 Truncated direct-assignment sampler with auxiliary table counts:
 
@@ -9,10 +9,10 @@ Truncated direct-assignment sampler with auxiliary table counts:
   θ0   ~ Dir(m_·1 + b0/K, …, m_·K + b0/K)
 
 The conditional splits into the document-sparse term and the dense term
-b1·θ0_t · LM, so the sweep is LDA's with the per-topic prior b1·θ0: kernel
-1 runs each sorted chunk, kernel 2 builds the full tables over the dense
-term, and kernel 3 rebuilds the drifted rows.  The position-scan layout and
-the exact sampler wait for ROADMAP.md queue A.4.
+b1·θ0_t · LM, so the sweep is LDA's with the per-topic prior b1·θ0: the
+scan sweep is ``lda.scan_sweep_lm`` (kernels 8 and 9 in its MH steps),
+kernel 1 runs each sorted chunk, kernel 2 builds the full tables over the
+dense term, and kernel 3 rebuilds the drifted rows.
 
 Shared statistics: n_wk, n_k, m_k (table counts summed over documents and
 clients) and θ0; local: z, n_dk, m_dk.  The local rules 1 ≤ m_dk ≤ n_dk
@@ -107,21 +107,29 @@ def build_alias(cfg: HDPConfig, shared: SharedStats
 def sweep(cfg: HDPConfig, local: LocalState, shared: SharedStats,
           tables: alias_mod.AliasTable, stale: torch.Tensor,
           tokens: torch.Tensor, mask: torch.Tensor, key: device_mod.Key,
-          method: str = "mhw", layout: str = "sorted", sorted_layouts=None,
-          device=None) -> tuple[LocalState, torch.Tensor, torch.Tensor]:
+          method: str = "mhw", layout: str = "scan", sorted_layouts=None,
+          device=None, position_draws=None
+          ) -> tuple[LocalState, torch.Tensor, torch.Tensor]:
     """One Gibbs sweep; returns (local', Δn_wk, Δn_k); m_dk is kept.
-    ``layout="sorted"`` only."""
-    if layout != "sorted":
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet (ROADMAP.md queue A.4, "
-            "the position-scan oracle); use layout='sorted'")
-    if method != "mhw":
-        raise ValueError("layout='sorted' requires method='mhw'")
-    from repro_torch.core import family as family_mod
-    local2, deltas = family_mod.get("hdp").sweep_sorted(
-        cfg, local, shared, tables, stale, tokens, mask, key,
-        sorted_layouts, device=device)
-    return local2, deltas["n_wk"], deltas["n_wk"].sum(0)
+    The layouts and ``position_draws`` are LDA's (``lda.sweep``), with the
+    prior b1·θ0 and the reference's 1e-30 inside the log target's first
+    log."""
+    if layout == "sorted":
+        if method != "mhw":
+            raise ValueError("layout='sorted' requires method='mhw'")
+        from repro_torch.core import family as family_mod
+        local2, deltas = family_mod.get("hdp").sweep_sorted(
+            cfg, local, shared, tables, stale, tokens, mask, key,
+            sorted_layouts, device=device)
+        return local2, deltas["n_wk"], deltas["n_wk"].sum(0)
+    if layout != "scan":
+        raise ValueError(f"unknown layout {layout!r}")
+    z, n_dk = lda.scan_sweep_lm(
+        cfg, local.z, local.n_dk, shared.n_wk, shared.n_k, tables, stale,
+        tokens, mask, key, method=method, prior=cfg.b1 * shared.theta0,
+        prior_eps=True, position_draws=position_draws, device=device)
+    dwk = lda.delta_wk(cfg, tokens, mask, local.z, z)
+    return LocalState(z=z, n_dk=n_dk, m_dk=local.m_dk), dwk, dwk.sum(0)
 
 
 def resample_tables(cfg: HDPConfig, local: LocalState, shared: SharedStats,

@@ -1,13 +1,21 @@
-"""Latent Dirichlet Allocation with the MHW sampler (port of
-``repro.core.lda``), token-sorted layout only.
+"""Latent Dirichlet Allocation (port of ``repro.core.lda``): the exact
+collapsed Gibbs sampler (``method="exact"``, the paper's YahooLDA
+baseline) and the MHW sampler (``method="mhw"``, AliasLDA).
 
 The dense proposal term α·(n_wk+β)/(n_k+β̄) is built into alias tables by
 kernel 2 (``kernels/alias_build.py``), or, with
-``fused_alias_build=True``, computed and built in one launch of kernel 6;
-each sorted chunk of a sweep is one launch of kernel 1
-(``kernels/mhw_fused.py``) through ``core.family.LDAFamily.sweep_sorted``.
-The position-scan layout and the exact sampler wait for ROADMAP.md queue
-A.4.
+``fused_alias_build=True``, computed and built in one launch of kernel 6.
+Two sweep layouts:
+
+* ``layout="scan"`` (the default, the reference's correctness oracle):
+  positions in turn, every document of the shard at once, so each
+  document's ``n_dk`` stays exact as in a sequential Gibbs sweep.  MHW
+  runs :func:`repro_torch.core.mhw.mh_chain` at each position (kernels 8
+  and 9 on the card); ``exact`` takes the Gumbel argmax of the full
+  conditional.  :func:`scan_sweep_lm` is shared with HDP.
+* ``layout="sorted"`` (``method="mhw"`` only): each sorted chunk of a
+  sweep is one launch of kernel 1 (``kernels/mhw_fused.py``) through
+  ``core.family.LDAFamily.sweep_sorted``.
 
 Sufficient statistics: n_dk (D, K) client-local, n_wk (V, K) and n_k (K,)
 shared through the parameter server; all float32 counts, exact below 2²⁴.
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import alias as alias_mod
+from repro_torch.core import mhw
 from repro_torch.kernels import ops
 
 
@@ -130,22 +139,118 @@ def build_alias(cfg: LDAConfig, shared: SharedStats
 def sweep(cfg: LDAConfig, local: LocalState, shared: SharedStats,
           tables: alias_mod.AliasTable, stale: torch.Tensor,
           tokens: torch.Tensor, mask: torch.Tensor, key: device_mod.Key,
-          method: str = "mhw", layout: str = "sorted",
-          sorted_layouts=None, device=None
+          method: str = "mhw", layout: str = "scan",
+          sorted_layouts=None, device=None, position_draws=None
           ) -> tuple[LocalState, torch.Tensor, torch.Tensor]:
     """One Gibbs sweep over a client's shard; returns (local', Δn_wk, Δn_k).
-    ``layout="sorted"`` only."""
-    if layout != "sorted":
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet (ROADMAP.md queue A.4, "
-            "the position-scan oracle); use layout='sorted'")
-    if method != "mhw":
-        raise ValueError("layout='sorted' requires method='mhw'")
-    from repro_torch.core import family as family_mod
-    local2, deltas = family_mod.get("lda").sweep_sorted(
-        cfg, local, shared, tables, stale, tokens, mask, key,
-        sorted_layouts, device=device)
-    return local2, deltas["n_wk"], deltas["n_wk"].sum(0)
+
+    ``shared`` is the client's frozen snapshot for the sweep; the tables
+    and ``stale`` may be staler.  ``layout="sorted"`` (mhw only) runs the
+    chunked sorted sweep on the hoisted ``sorted_layouts``;
+    ``position_draws`` replaces the scan sweep's stream (see
+    :func:`scan_sweep_lm`)."""
+    if layout == "sorted":
+        if method != "mhw":
+            raise ValueError("layout='sorted' requires method='mhw'")
+        from repro_torch.core import family as family_mod
+        local2, deltas = family_mod.get("lda").sweep_sorted(
+            cfg, local, shared, tables, stale, tokens, mask, key,
+            sorted_layouts, device=device)
+        return local2, deltas["n_wk"], deltas["n_wk"].sum(0)
+    if layout != "scan":
+        raise ValueError(f"unknown layout {layout!r}")
+    z, n_dk = scan_sweep_lm(cfg, local.z, local.n_dk, shared.n_wk,
+                            shared.n_k, tables, stale, tokens, mask, key,
+                            method=method, prior=cfg.alpha,
+                            position_draws=position_draws, device=device)
+    dwk = delta_wk(cfg, tokens, mask, local.z, z)
+    return LocalState(z=z, n_dk=n_dk), dwk, dwk.sum(0)
+
+
+def delta_wk(cfg, tokens, mask, z_old, z_new) -> torch.Tensor:
+    """(V, K) word-topic delta between two assignments (the batched push
+    of paper §5.3), its adds in any order: exact for integer counts."""
+    w = tokens.reshape(-1)
+    m = mask.reshape(-1).to(torch.float32)
+    delta = torch.zeros((cfg.vocab_size, cfg.n_topics), dtype=torch.float32,
+                        device=tokens.device)
+    add_at(delta, w, z_new.reshape(-1), m)
+    return add_at(delta, w, z_old.reshape(-1), -m)
+
+
+def scan_sweep_lm(cfg, z, n_dk, n_wk, n_k, tables, stale, tokens, mask,
+                  key: device_mod.Key, *, method: str, prior,
+                  prior_eps: bool = False, position_draws=None, device=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The position-scan sweep of the LM families: LDA (``prior`` the
+    float α) and HDP (``prior`` the (K,) vector b1·θ0, with
+    ``prior_eps``: its log target adds 1e-30 inside the first log, as the
+    reference's does).  Returns (z', n_dk').
+
+    At position i every document removes its token's own count (the ^{-di}
+    correction) from ``n_dk`` and from its gathered LM row
+    (n_wk − own + β)/(n_k − own + β̄), then draws its new topic:
+    ``exact`` as argmax(gumbel + log(n_dk + prior) + log(lm + 1e-30));
+    ``mhw`` by :func:`mhw.mh_chain` with the sparse weights n_dk·lm, the
+    dense tables and log p(t) = log(n_dk_t + prior_t) + log(lm_t + 1e-30).
+    Masked positions keep their topic.  The own count is subtracted at the
+    D cells [d, z_old] in place rather than through a (D, K) one-hot: the
+    same float operations on every cell.
+
+    Streams: one generator per sweep, keyed ``key``, drawn in position
+    order, then MH-step order, then the fields of :class:`mhw.StepDraws`
+    (``exact``: one (D, K) Gumbel field a position).
+    ``position_draws(i)`` (optional) gives position i's draws instead: a
+    sequence of ``mh_steps`` :class:`mhw.StepDraws`, or the (D, K)
+    Gumbel field for ``exact``."""
+    if method not in ("exact", "mhw"):
+        raise ValueError(f"unknown method {method!r}")
+    dev = device_mod.resolve(device)
+    d, l = tokens.shape
+    k = cfg.n_topics
+    beta_bar = cfg.beta * cfg.vocab_size
+    docs = torch.arange(d, device=dev)
+    gen = (device_mod.generator(key, dev) if position_draws is None
+           else None)
+    tok_cols = tokens.t().contiguous().to(torch.int32)
+    mask_cols = mask.t().contiguous()
+    z_cols = z.t().contiguous().clone()
+    n_dk = n_dk.clone()
+    denom = n_k + beta_bar
+    vector_prior = isinstance(prior, torch.Tensor)
+    for i in range(l):
+        w, z_old, m = tok_cols[i], z_cols[i], mask_cols[i]
+        zl = z_old.long()
+        mf = m.to(torch.float32)
+        n_dk[docs, zl] -= mf
+        lm = n_wk[w.long()]
+        own = lm[docs, zl] - mf
+        lm.add_(cfg.beta).div_(denom)
+        lm[docs, zl] = (own + cfg.beta) / (n_k[zl] - mf + beta_bar)
+        draws = position_draws(i) if position_draws is not None else None
+        if method == "exact":
+            logits = torch.log(n_dk + prior).add_(torch.log(lm + 1e-30))
+            g = mhw.gumbel(gen, (d, k), dev) if draws is None else draws
+            z_new = torch.argmax(g + logits, dim=-1).to(torch.int32)
+            del logits, g
+        else:
+            def log_p(t):
+                tl = t.long()
+                first = n_dk[docs, tl] + (prior[tl] if vector_prior
+                                          else prior)
+                if prior_eps:
+                    first = first + 1e-30
+                return torch.log(first) + torch.log(lm[docs, tl] + 1e-30)
+
+            prop = mhw.MixtureProposal(n_dk * lm, tables, w)
+            z_new = mhw.mh_chain(gen if draws is None else draws, z_old,
+                                 prop, stale, log_p, cfg.mh_steps)
+            del prop
+        del lm
+        z_new = torch.where(m, z_new, z_old)
+        n_dk[docs, z_new.long()] += mf
+        z_cols[i] = z_new
+    return z_cols.t().contiguous(), n_dk
 
 
 def perplexity(cfg: LDAConfig, shared: SharedStats, tokens: torch.Tensor,

@@ -1,5 +1,5 @@
 """Pitman-Yor topic model / Poisson-Dirichlet process sampler (port of
-``repro.core.pdp``), token-sorted layout only.
+``repro.core.pdp``).
 
 Per (word w, topic t) the sampler keeps m_wk (customers: how often dish w
 was served in restaurant t) and s_wk (tables serving it), and per token a
@@ -7,11 +7,12 @@ table-open indicator r.  The joint conditional over (t, r) of paper eqs.
 5-6, with generalized-Stirling ratios, splits into a document-sparse and a
 dense part like LDA's, over 2K outcomes e = t + K·r.  The dense term
 α·f(t, r) is built into (V, 2K) alias tables by kernel 2 (full builds) or
-kernel 5 (the changed rows, ``core.family.ModelFamily.rebuild_alias_rows``),
-and each sorted chunk of a sweep is one launch of kernel 4
-(``kernels/mhw_fused.py::pdp_sweep_fused``), whose plain version is
-:func:`sorted_chain_pdp`.  The position-scan layout and the exact sampler
-wait for ROADMAP.md queue A.4.
+kernel 5 (the changed rows, ``core.family.ModelFamily.rebuild_alias_rows``).
+The scan sweep (the default layout) runs the exact sampler or
+:func:`repro_torch.core.mhw.mh_chain` over the 2K outcomes at each
+position (kernels 8 and 9 in its MH steps); each sorted chunk of a sorted
+sweep is one launch of kernel 4 (``kernels/mhw_fused.py::pdp_sweep_fused``),
+whose plain version is :func:`sorted_chain_pdp`.
 
 All counts are float32, exact below 2²⁴.  Every scatter-add goes through
 ``lda.add_at`` (``index_add_`` on the flat view).
@@ -171,22 +172,91 @@ def build_alias(cfg: PDPConfig, shared: SharedStats
 def sweep(cfg: PDPConfig, local: LocalState, shared: SharedStats,
           tables: alias_mod.AliasTable, stale: torch.Tensor,
           tokens: torch.Tensor, mask: torch.Tensor, key: device_mod.Key,
-          method: str = "mhw", layout: str = "sorted",
-          sorted_layouts=None, device=None
+          method: str = "mhw", layout: str = "scan",
+          sorted_layouts=None, device=None, position_draws=None
           ) -> tuple[LocalState, torch.Tensor, torch.Tensor]:
-    """One Gibbs sweep; returns (local', Δm_wk, Δs_wk).  ``layout="sorted"``
-    only."""
-    if layout != "sorted":
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet (ROADMAP.md queue A.4, "
-            "the position-scan oracle); use layout='sorted'")
-    if method != "mhw":
-        raise ValueError("layout='sorted' requires method='mhw'")
-    from repro_torch.core import family as family_mod
-    local2, deltas = family_mod.get("pdp").sweep_sorted(
-        cfg, local, shared, tables, stale, tokens, mask, key,
-        sorted_layouts, device=device)
-    return local2, deltas["m_wk"], deltas["s_wk"]
+    """One Gibbs sweep; returns (local', Δm_wk, Δs_wk).  The layouts and
+    ``position_draws`` are LDA's (``lda.sweep``), over the 2K joint
+    outcomes e = t + K·r."""
+    if layout == "sorted":
+        if method != "mhw":
+            raise ValueError("layout='sorted' requires method='mhw'")
+        from repro_torch.core import family as family_mod
+        local2, deltas = family_mod.get("pdp").sweep_sorted(
+            cfg, local, shared, tables, stale, tokens, mask, key,
+            sorted_layouts, device=device)
+        return local2, deltas["m_wk"], deltas["s_wk"]
+    if layout != "scan":
+        raise ValueError(f"unknown layout {layout!r}")
+    if method not in ("exact", "mhw"):
+        raise ValueError(f"unknown method {method!r}")
+    z, r, n_dk = _scan(cfg, local, shared, tables, stale, tokens, mask, key,
+                       method, position_draws, device_mod.resolve(device))
+    delta_m, delta_s = deltas_from(cfg, tokens, mask, local.z, local.r, z, r)
+    return LocalState(z=z, r=r, n_dk=n_dk), delta_m, delta_s
+
+
+def _scan(cfg: PDPConfig, local, shared, tables, stale, tokens, mask, key,
+          method, position_draws, dev):
+    """The position scan of :func:`sweep`, each position's operations
+    those of the reference's ``position_step`` on the (D, K) and (D, 2K)
+    fields: the own-count removal with the CRP repair
+    (:func:`corrected_rows`), the log factors over the corrected
+    aggregates, then the exact Gumbel argmax of log(n_dk_ext + α) + log f,
+    or the MH chain with the sparse weights n_dk_ext·exp(log f).  Streams
+    as ``lda.scan_sweep_lm``'s, over E = 2K."""
+    d, l = tokens.shape
+    k = cfg.n_topics
+    docs = torch.arange(d, device=dev)
+    stirl = stirling.as_tensor(cfg.stirling_n_max, cfg.discount, dev)
+    gen = (device_mod.generator(key, dev) if position_draws is None
+           else None)
+    tok_cols = tokens.t().contiguous().to(torch.int32)
+    mask_cols = mask.t().contiguous()
+    z_cols = local.z.t().contiguous().clone()
+    r_cols = local.r.t().contiguous().clone()
+    n_dk = local.n_dk.clone()
+    for i in range(l):
+        w, z_old, r_old, m = tok_cols[i], z_cols[i], r_cols[i], mask_cols[i]
+        zl, wl = z_old.long(), w.long()
+        mf = m.to(torch.float32)
+        n_dk[docs, zl] -= mf
+        own_t = torch.zeros((d, k), dtype=torch.float32, device=dev)
+        own_t[docs, zl] = mf
+        own_r = own_t * r_old.to(torch.float32)[:, None]
+        m_row, s_row = corrected_rows(shared.m_wk[wl], shared.s_wk[wl],
+                                      own_t, own_r)
+        log_f0, log_f1 = _log_factors(cfg, stirl, m_row, s_row,
+                                      shared.m_k[None, :] - own_t,
+                                      shared.s_k[None, :] - own_r)
+        del m_row, s_row, own_t, own_r
+        log_f = torch.cat([log_f0, log_f1], -1)              # (D, 2K)
+        del log_f0, log_f1
+        n_dk_ext = torch.cat([n_dk, n_dk], -1)
+        draws = position_draws(i) if position_draws is not None else None
+        if method == "exact":
+            logits = torch.log(n_dk_ext + cfg.alpha).add_(log_f)
+            g = mhw.gumbel(gen, (d, 2 * k), dev) if draws is None else draws
+            e_new = torch.argmax(g + logits, dim=-1).to(torch.int32)
+            del logits, g
+        else:
+            def log_p(e):
+                el = e.long()
+                return (torch.log(n_dk_ext[docs, el] + cfg.alpha)
+                        + log_f[docs, el])
+
+            prop = mhw.MixtureProposal(n_dk_ext * torch.exp(log_f), tables,
+                                       w)
+            e_new = mhw.mh_chain(gen if draws is None else draws,
+                                 z_old + k * r_old, prop, stale, log_p,
+                                 cfg.mh_steps)
+            del prop
+        del log_f, n_dk_ext
+        z_new = torch.where(m, e_new % k, z_old)
+        r_new = torch.where(m, e_new // k, r_old)
+        n_dk[docs, z_new.long()] += mf
+        z_cols[i], r_cols[i] = z_new, r_new
+    return z_cols.t().contiguous(), r_cols.t().contiguous(), n_dk
 
 
 def deltas_from(cfg: PDPConfig, tokens, mask, z_old, r_old, z_new, r_new

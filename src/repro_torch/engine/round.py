@@ -20,14 +20,20 @@ update, residual and lag row but drops its delta.  A client's clock
 advances when its push lands (``alive & push_ok``).
 
 RNG: the reference keys sweep s of client c in round r with
-``fold_in(key, r*131 + c*17 + s)`` and chunk ch with a further
-``fold_in(·, ch)``; the port keys the same stream (seed, SWEEP, r, c, s,
-ch) (see :mod:`repro_torch.device`).  Client c's filter in round r is
-keyed (seed, FILTER, r, c), statistic i under it ``fold_in(·, i)`` (the
-reference: ``fold_in(key, 7000 + r*131 + c)``, then ``fold_in(·, i)``).
+``fold_in(key, r*131 + c*17 + s)``; a sorted sweep keys chunk ch with a
+further ``fold_in(·, ch)``, a scan sweep splits it into one key a position.
+The port keys the same streams: a sorted chunk (seed, SWEEP, r, c, s, ch),
+a scan sweep one generator (seed, SWEEP, r, c, s) (see
+:mod:`repro_torch.device`), drawn in position order, then MH-step order,
+then per step u_mix (D,), the sparse term's Gumbel field (D, E), the alias
+slot and coin (D,) and the accept uniform (D,) (``core.mhw.StepDraws``);
+``exact`` draws one (D, E) Gumbel field a position.  Client c's filter in
+round r is keyed (seed, FILTER, r, c), statistic i under it ``fold_in(·,
+i)`` (the reference: ``fold_in(key, 7000 + r*131 + c)``, then
+``fold_in(·, i)``).
 The family's auxiliary step (``post_round``, HDP's CRT tables and θ0) is
 keyed (seed, AUX, r), the reference's ``fold_in(key, 9000 + r)``.
-:class:`RoundStreams` lets a caller supply the sweeps' uniforms and the
+:class:`RoundStreams` lets a caller supply the sweeps' draws and the
 filter's random rows instead.
 """
 
@@ -46,6 +52,8 @@ from repro_torch.core.distributed import filter_push, tau_sweeps
 class RoundConfig:
     """The slice of ``TrainerConfig`` the round body reads."""
 
+    layout: str
+    method: str
     n_clients: int
     tau: int
     filter: ps.FilterSpec
@@ -54,7 +62,8 @@ class RoundConfig:
 
     @classmethod
     def from_trainer(cls, tcfg) -> "RoundConfig":
-        return cls(n_clients=tcfg.n_clients, tau=tcfg.tau,
+        return cls(layout=tcfg.layout, method=tcfg.method,
+                   n_clients=tcfg.n_clients, tau=tcfg.tau,
                    filter=tcfg.filter,
                    alias_rebuild_rows=tcfg.alias_rebuild_rows,
                    alias_rebuild_threshold=tcfg.alias_rebuild_threshold)
@@ -63,17 +72,29 @@ class RoundConfig:
 class RoundStreams:
     """Where a round's random numbers come from.  This default draws the
     port's own streams (keyed as the module docstring says); a replacement
-    with the same two methods supplies others, as the parity tests do
-    with the reference's draws.
+    with the same methods supplies others, as the parity tests do with
+    the reference's draws.
 
     ``chunk_uniforms(r, c, s)``: sweep s of client c in round r's
     ``chunk_uniforms`` callback for ``ModelFamily.sweep_sorted``, or None.
+    ``position_draws(r, c, s)``: that scan sweep's callback from position
+    i to its draws (a sequence of ``core.mhw.StepDraws`` for ``mhw``, the
+    (D, E) Gumbel field for ``exact``), or None.
     ``random_rows(r, c, i)``: the top-k filter's random row ids for
     statistic i of client c in round r, or None.
     """
 
     def chunk_uniforms(self, r: int, c: int, s: int):
         return None
+
+    def position_draws(self, r: int, c: int, s: int):
+        return None
+
+    def sweep_draws(self, layout: str, r: int, c: int, tau: int) -> list:
+        """Each of the ``tau`` sweeps' draws callback for ``layout``."""
+        fn = (self.chunk_uniforms if layout == "sorted"
+              else self.position_draws)
+        return [fn(r, c, s) for s in range(tau)]
 
     def random_rows(self, r: int, c: int, i: int):
         return None
@@ -116,10 +137,10 @@ def run_round(server, model_cfg, rcfg: RoundConfig, incremental: bool,
         loc, acc = tau_sweeps(
             model_cfg, fam, locals_[c], server.client_view(snapshot, lag, c),
             state.tables, state.stale, shard_tokens[c], shard_masks[c],
-            keys, sorted_layouts=layouts[c] if layouts is not None else None,
+            keys, method=rcfg.method, layout=rcfg.layout,
+            sorted_layouts=layouts[c] if layouts is not None else None,
             device=device,
-            sweep_uniforms=[streams.chunk_uniforms(r, c, s)
-                            for s in range(rcfg.tau)])
+            sweep_draws=streams.sweep_draws(rcfg.layout, r, c, rcfg.tau))
         if lag is not None:
             # Read-my-writes: the pre-filter delta rides in the client's
             # lag row until the next refresh, lost push or not (it is in

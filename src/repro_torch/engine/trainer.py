@@ -1,6 +1,7 @@
 """``Trainer``: the driver loop (port of ``repro.engine.trainer``) for
-training any registered family (LDA, PDP, HDP) on the token-sorted
-layout, in process or over the wire.
+training any registered family (LDA, PDP, HDP) on the position-scan
+layout (the default; ``method="mhw"`` or ``"exact"``) or the token-sorted
+layout (``method="mhw"``), in process or over the wire.
 
 Each round: (faults, rejoins) → (alias maintenance) → pull → sample →
 client-local rules → filter → push → project → family auxiliaries (HDP's
@@ -35,7 +36,8 @@ in process.
 The trainer runs on ``cuda`` unless ``device="cpu"`` is passed
 (:mod:`repro_torch.device`).  RNG: the trainer's ``seed`` heads every
 stream key; client c's initial topics come from (seed, INIT, c), round r's
-sweeps from (seed, SWEEP, r, c, s, chunk), its filters from (seed, FILTER,
+sweeps from (seed, SWEEP, r, c, s) (and a sorted sweep's chunks from
+(seed, SWEEP, r, c, s, chunk); :mod:`repro_torch.engine.round`), its filters from (seed, FILTER,
 r, c), and evaluations from (seed, EVAL, 42) — the reference uses
 ``PRNGKey(42)`` there.
 """
@@ -63,7 +65,8 @@ from repro_torch.engine import round as round_mod
 class TrainerConfig:
     """The reference's field names and defaults.
 
-    Ported: ``layout="sorted"``, ``method="mhw"``, ``n_clients``, ``tau``,
+    Ported: ``layout`` (``"scan"`` with ``method="mhw"`` or ``"exact"``;
+    ``"sorted"`` with ``"mhw"``), ``n_clients``, ``tau``,
     ``consistency`` (``"bsp"``, ``"ssp:<bound>"``, ``"async"``),
     ``n_server_shards``, the alias schedules, ``project_every``, every
     ``filter`` kind, ``fault_plan`` (``drop_client`` is its deprecated
@@ -119,8 +122,8 @@ class RunResult:
 
 
 class Trainer:
-    """Multi-client trainer on the sorted layout, in process; the family
-    follows from the type of ``model_cfg``.
+    """Multi-client trainer, in process or over tcp; the family follows
+    from the type of ``model_cfg``.
 
     ``tokens``/``mask`` are (D, L) arrays (numpy or tensors); they are
     split into ``n_clients`` document shards and moved to ``device``.
@@ -130,14 +133,12 @@ class Trainer:
     """
 
     def __init__(self, model_cfg, tokens, mask, *,
-                 config: TrainerConfig = TrainerConfig(layout="sorted"),
+                 config: TrainerConfig = TrainerConfig(),
                  seed: int = 0, device=None,
                  streams: round_mod.RoundStreams | None = None):
-        if config.layout != "sorted":
-            raise NotImplementedError(
-                f"layout={config.layout!r} is not ported yet (ROADMAP.md "
-                "queue A.4, the position-scan oracle); use layout='sorted'")
-        if config.method != "mhw":
+        if config.layout not in ("scan", "sorted"):
+            raise ValueError(f"unknown layout {config.layout!r}")
+        if config.layout == "sorted" and config.method != "mhw":
             raise ValueError("layout='sorted' requires method='mhw'")
         if config.alias_rebuild_threshold is not None and not config.compiled:
             raise ValueError("incremental alias rebuilds "
@@ -228,10 +229,14 @@ class Trainer:
                              for n in self.family.delta_names}
                          for c in self.local_clients}
         self.alias_builds = 0
-        self.layouts = tuple(
-            self.family.build_sorted_layouts(model_cfg, t, m)
-            if c in local_set else None
-            for c, (t, m) in enumerate(self.shards))
+        # Hoisted sorted layouts (the tokens never change between sweeps),
+        # for this process's clients only.
+        self.layouts = None
+        if config.layout == "sorted":
+            self.layouts = tuple(
+                self.family.build_sorted_layouts(model_cfg, t, m)
+                if c in local_set else None
+                for c, (t, m) in enumerate(self.shards))
         self.alias_refresh_every = (
             config.alias_refresh_every
             if config.alias_refresh_every is not None
@@ -534,10 +539,12 @@ class Trainer:
                     for s in range(tcfg.tau)]
             self.locals_[c], acc = round_mod.tau_sweeps(
                 cfg, fam, self.locals_[c], view, self._tcp_tables,
-                self._tcp_stale, t, m, keys, sorted_layouts=self.layouts[c],
+                self._tcp_stale, t, m, keys, method=tcfg.method,
+                layout=tcfg.layout,
+                sorted_layouts=(self.layouts[c] if self.layouts is not None
+                                else None),
                 device=self.device,
-                sweep_uniforms=[streams.chunk_uniforms(r, c, s)
-                                for s in range(tcfg.tau)])
+                sweep_draws=streams.sweep_draws(tcfg.layout, r, c, tcfg.tau))
             if self._lag is not None:
                 # The pre-filter delta rides in the client's lag row until
                 # the next refresh, lost push or not.
@@ -649,7 +656,7 @@ class Trainer:
 
     @classmethod
     def restore(cls, model_cfg, tokens, mask, *,
-                config: TrainerConfig = TrainerConfig(layout="sorted"),
+                config: TrainerConfig = TrainerConfig(),
                 snapshot_dir: str | None = None, step: int | None = None,
                 seed: int = 0, device=None) -> "Trainer":
         """Resume a run from its snapshots: a Trainer built as

@@ -227,6 +227,7 @@ def launch_loopback(*,
                     n_rounds: int = 3,
                     tau: int = 1,
                     consistency: str = "bsp",
+                    layout: str = "scan",
                     n_docs: int = 16,
                     doc_len: int = 12,
                     corpus_seed: int = 3,
@@ -293,6 +294,7 @@ def launch_loopback(*,
             "--n-rounds", str(n_rounds),
             "--tau", str(tau),
             "--consistency", consistency,
+            "--layout", layout,
             "--n-docs", str(n_docs),
             "--doc-len", str(doc_len),
             "--corpus-seed", str(corpus_seed),
@@ -361,6 +363,7 @@ def launch_failover(*,
                     n_rounds: int = 6,
                     tau: int = 1,
                     consistency: str = "bsp",
+                    layout: str = "scan",
                     kill_server_round: int | None = None,
                     kill_client: int | None = None,
                     kill_client_round: int | None = None,
@@ -448,6 +451,7 @@ def launch_failover(*,
             "--n-rounds", str(n_rounds),
             "--tau", str(tau),
             "--consistency", consistency,
+            "--layout", layout,
             "--n-docs", str(n_docs),
             "--doc-len", str(doc_len),
             "--corpus-seed", str(corpus_seed),
@@ -554,12 +558,12 @@ def launch_failover(*,
 def _reference_run(n_rounds: int, *, n_topics: int = 4,
                    vocab_size: int = 64, n_docs: int = 16, doc_len: int = 12,
                    corpus_seed: int = 3, seed: int = 0, corpus_topics=None,
-                   eval_docs: int = 0, device: str = "cuda"
-                   ) -> dict[str, Any]:
-    """The undisturbed in-process BSP run (two clients, the sorted
-    layout) on the workers' corpus and seed: per-stat checksums and the
-    perplexity a worker reports, what a tcp run is compared against bit
-    for bit."""
+                   eval_docs: int = 0, layout: str = "scan",
+                   device: str = "cuda") -> dict[str, Any]:
+    """The undisturbed in-process BSP run (two clients; the reference's
+    default scan layout unless ``layout`` says otherwise) on the workers'
+    corpus and seed: per-stat checksums and the perplexity a worker
+    reports, what a tcp run is compared against bit for bit."""
     from repro_torch.core.lda import LDAConfig
     from repro_torch.data.synthetic import CorpusConfig, make_topic_corpus
     from repro_torch.engine.trainer import Trainer, TrainerConfig
@@ -570,7 +574,7 @@ def _reference_run(n_rounds: int, *, n_topics: int = 4,
         n_docs=n_docs, doc_len=doc_len, seed=corpus_seed))
     ref = Trainer(LDAConfig(n_topics=n_topics, vocab_size=vocab_size),
                   tokens, mask,
-                  config=TrainerConfig(layout="sorted", n_clients=2, tau=1),
+                  config=TrainerConfig(layout=layout, n_clients=2, tau=1),
                   seed=seed, device=device)
     for _ in range(n_rounds):
         ref.step()

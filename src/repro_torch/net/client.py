@@ -676,7 +676,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--n-clients", type=int, default=2)
     ap.add_argument("--n-rounds", type=int, default=4)
     ap.add_argument("--tau", type=int, default=1)
-    ap.add_argument("--layout", default="sorted")
+    ap.add_argument("--layout", default="scan")
     ap.add_argument("--consistency", default="bsp")
     ap.add_argument("--project-every", type=int, default=1)
     ap.add_argument("--n-docs", type=int, default=16)

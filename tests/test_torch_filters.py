@@ -243,7 +243,7 @@ def _sweep_deltas(name, corpus):
     local, shared = fam.init_state(cfg, tokens, mask, (0,))
     tables, stale = fam.build_alias(cfg, shared)
     _, deltas = fam.sweep(cfg, local, shared, tables, stale, tokens, mask,
-                          (1,), device="cpu")
+                          (1,), layout="sorted", device="cpu")
     return fam, shared, deltas
 
 

@@ -31,7 +31,8 @@ from repro_torch.kernels import _build, ops, ref
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_topics_torch.py"
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_topics_torch.py",
+    ROOT / "examples" / "quickstart_torch.py"
 ] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
@@ -61,6 +62,7 @@ def test_scan_covers_the_package():
             "torch_round_split.py", "torch_kernel_split.py",
             "bridge.py", "ckpt.py", "snapshot.py", "engine.py", "client.py",
             "protocol.py", "serve.py", "serve_topics_torch.py",
+            "quickstart_torch.py",
             "fault.py", "server.py", "round.py", "distributed.py"} <= names
     serving = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/server.py",

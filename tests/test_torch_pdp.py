@@ -294,7 +294,7 @@ def test_partial_rebuild_all_rows_equals_full_build():
     loc, sh = fam.init_state(cfg, tt, tm, (0,))
     tables, stale = fam.build_alias(cfg, sh)
     _, d = fam.sweep(cfg, loc, sh, tables, stale, tt, tm, (1,),
-                     device="cpu")
+                     layout="sorted", device="cpu")
     sh = fam.apply_delta(sh, d)
     t_full, s_full = fam.build_alias(cfg, sh)
     rows = torch.arange(cfg.vocab_size, dtype=torch.int32)

@@ -98,7 +98,9 @@ def test_trainer_perplexity_falls_and_launches_nothing_on_cpu(corpus):
 TCP = dict(transport="tcp", server_addrs=("localhost:1",))
 # field: (TrainerConfig overrides, the reference config, raised, message)
 REJECTED = {
-    "layout": ({"layout": "scan"}, _ref_cfg, NotImplementedError, "A.4"),
+    "layout": ({"layout": "bogus"}, _ref_cfg, ValueError, "unknown layout"),
+    "method": ({"method": "exact"}, _ref_cfg, ValueError,
+               "requires method='mhw'"),
     "server_addrs": ({"server_addrs": ("localhost:1",)}, _ref_cfg,
                      ValueError, "tcp-only"),
     "transport": ({"transport": "tcp"}, _ref_cfg, ValueError,
@@ -114,23 +116,23 @@ REJECTED = {
 
 @pytest.mark.parametrize("field,value", [
     ("server_addrs", ("localhost:1",)), ("transport", "tcp"),
-    ("local_clients", (0,)), ("layout", "scan"), ("family", "hdp"),
+    ("local_clients", (0,)), ("layout", "bogus"),
+    ("method", "exact"), ("family", "hdp"),
     ("alias_rebuild_threshold", 0.0)])
 def test_trainer_rejects_unported_options(field, value, corpus):
-    """The scan layout (A.4) raises as unported; the wire's knobs raise
-    where the reference's Trainer raises, with its exception: tcp-only
-    knobs in process, tcp without servers, and over tcp HDP (its
-    post_round needs every client's locals) and incremental rebuilds."""
+    """What both packages reject, the port rejects with the reference's
+    exception: an unknown layout, the sorted layout with the exact
+    sampler, tcp-only knobs in process, tcp without servers, and over tcp
+    HDP (its post_round needs every client's locals) and incremental
+    rebuilds."""
     tokens, mask = corpus
     overrides, ref_cfg, exc, match = REJECTED[field]
     cfg = {"layout": "sorted", **overrides}
     with pytest.raises(exc, match=match):
         Trainer(bridge.config_from(ref_cfg()), tokens, mask,
                 config=TrainerConfig(**cfg), device="cpu")
-    if field != "layout":
-        with pytest.raises(exc):
-            RefTrainer(ref_cfg(), tokens, mask,
-                       config=RefTrainerConfig(**cfg))
+    with pytest.raises(exc):
+        RefTrainer(ref_cfg(), tokens, mask, config=RefTrainerConfig(**cfg))
 
 
 def test_fused_alias_build_names_its_roadmap_item():

@@ -12,7 +12,9 @@ rows the ``jax.random.randint`` draw under ``fold_in(fold_in(key, 7000 +
 r*131 + c), i)``.  Tolerance: none.  At K ≤ 16 the two packages' alias
 tables and chains are equal and every count is a float32 integer, so z,
 n_dk (and PDP's r), the shared statistics, the clocks and the filter's
-residuals must be equal after every round.
+residuals must be equal after every round.  The scan case (``lda-scan``,
+the reference's default layout) feeds each sweep's position draws
+instead, as ``tests/test_torch_scan_trainer.py`` does in process.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from repro_torch.engine import Trainer, TrainerConfig
 from repro_torch.engine.round import RoundStreams
 from repro_torch.net.server import serve_shards
 from tests.conftest import make_family_cfg, make_synthetic_corpus
+from tests.test_torch_scan import ref_position_draws
 
 V, K, ROUNDS = 64, 8, 3
 TIMEOUT = 30.0
@@ -61,14 +64,17 @@ SCENARIOS = {
     "lda-topk": ("lda", {"sparse_push": True}, TOPK, None),
     "lda-faults": ("lda", {}, None, _plan),
     "lda-ssp2": ("lda", {"consistency": "ssp:2"}, None, None),
+    "lda-scan": ("lda", {"layout": "scan"}, None, None),
 }
 
 
 class ReferenceStreams(RoundStreams):
     """The reference's draws, as torch tensors."""
 
-    def __init__(self, key, cfg, n_outcomes, spec: ps.FilterSpec):
+    def __init__(self, key, cfg, n_outcomes, spec: ps.FilterSpec,
+                 shapes=()):
         self.key, self.cfg, self.e, self.spec = key, cfg, n_outcomes, spec
+        self.shapes = shapes
 
     def chunk_uniforms(self, r, c, s):
         key_s = jax.random.fold_in(self.key, r * 131 + c * 17 + s)
@@ -79,6 +85,12 @@ class ReferenceStreams(RoundStreams):
                                        int(lay.rows.shape[0]))
             return tuple(torch.as_tensor(np.asarray(a)) for a in u)
         return draw
+
+    def position_draws(self, r, c, s):
+        d, l = self.shapes[c]
+        return ref_position_draws(
+            jax.random.fold_in(self.key, r * 131 + c * 17 + s), l, d, self.e,
+            "mhw", self.cfg.mh_steps)
 
     def random_rows(self, r, c, i):
         kf = jax.random.fold_in(self.key, 7000 + r * 131 + c)
@@ -126,7 +138,8 @@ def test_tcp_rounds_equal_the_reference_tcp_trainer(name, corpus,
     monkeypatch.setattr(fam, "init_state",
                         lambda cfg_, t, m, k: inits[k[2]])
 
-    common = dict(layout="sorted", n_clients=2, transport="tcp", **extra)
+    common = {"layout": "sorted", "n_clients": 2, "transport": "tcp",
+              **extra}
     ref_srv = ref_serve_shards(fam_name, vocab_size=V, n_clients=2,
                                n_shards=2, consistency=consistency,
                                barrier_timeout=TIMEOUT)
@@ -141,8 +154,9 @@ def test_tcp_rounds_equal_the_reference_tcp_trainer(name, corpus,
             fault_plan=plan(ref_fault) if plan else None))
         spec = ps.FilterSpec(**(filt or {}))
         tr = Trainer(cfg, tokens, mask, device="cpu",
-                     streams=ReferenceStreams(key, rcfg,
-                                              rfam.n_outcomes(rcfg), spec),
+                     streams=ReferenceStreams(
+                         key, rcfg, rfam.n_outcomes(rcfg), spec,
+                         shapes=[tuple(t.shape) for t, _ in ref.shards]),
                      config=TrainerConfig(
                          **common, server_addrs=addrs(srv), filter=spec,
                          fault_plan=plan(fault) if plan else None))
