@@ -116,15 +116,15 @@ phase's final trainer; ``serve_path``):
    timed by stage (``pull_breakdown``), then ``serve.from_servers`` equal
    to ``freeze`` of the in-process statistics; sparse pushes without a
    filter over 1 round, equal to (a)'s first; (b) tcp-topk, the
-   top-k filter with sparse pushes over 3 rounds: counts − (n_wk + Σ
+   top-k filter with sparse pushes over 2 rounds: counts − (n_wk + Σ
    residuals) == 0.0, at most 17,408 rows a push; (c) tcp-ssp2 over 4
    rounds: exact, NOT_MODIFIED on the stale rounds, kernel 2 on the
-   refreshes only; (d) tcp-pdp, phase 6's PDP over 2 rounds, bit-equal to
+   refreshes only; (d) tcp-pdp, phase 6's PDP over 1 round, bit-equal to
    in process; (e) ``launch_loopback``: a shard process (two shards) and
-   two worker processes on the card, 2 rounds, their checksums equal to
-   each other's and to (a)'s, each worker's own launches counted; (f)
-   ``launch_failover`` at a reduced size (``FAILOVER``: its restarts' time
-   and disk), under build/: a dropped push connection, a delayed pull, the
+   two worker processes on the card, 1 round, their checksums equal to
+   each other's and to (a)'s first, each worker's own launches counted;
+   (f) ``launch_failover`` at a reduced size (``FAILOVER``: its restarts'
+   time and disk), under build/: a dropped push connection, a delayed pull, the
    shard process killed at round 3 and restored from its snapshot, worker
    1 killed after round 2 and restored, bit-equal to an undisturbed
    in-process run.  WIRE lines carry the numbers.  Every trainer of
@@ -149,26 +149,59 @@ phase's final trainer; ``serve_path``):
    and the last scan-lda round; one scan sweep at K = 16 on the CPU and
    on the card with the same injected draws.  SCAN lines carry the
    numbers.
+15. The mesh round (``core.distributed.make_round_fn``), on phase 4's
+   corpus at full width, the proposal refreshed before each round (under
+   SSP when the cache is): (a) NCCL at world size 1 in this process
+   (``make_host_mesh(1, 1)``, one client of 65,536 documents): mesh-lda
+   (sorted, 3 rounds), mesh-lda-ssp1 (3; kernel 2 at rounds 0 and 2),
+   mesh-pdp (sorted, 2) and mesh-hdp-scan (the scan layout, 2; kernels 8
+   and 9 exactly 256 positions × mh_steps a round), every round bit-equal
+   to the same round composed in this process without torch.distributed
+   (``composed_round``: ``client_round``, the push, Algorithm 1) from the
+   same key, exact, no violation, HDP's local rules; LDA's held-out
+   perplexity falls; the last round of each profiled.  Each path first
+   holds its kernels against their plain versions at these shapes, on
+   the inputs of its first composed round: kernel 1 or 4 on a slice of
+   the first sorted chunk (4,194,304 positions) whose documents lie in
+   the upper half of the 65,536-row n_dk, the list build on that whole
+   n_dk, kernels 8 and 9 on the first scan position (B = 65,536); (b) a
+   2×2 gloo mesh of four processes with their tensors on this card (NCCL
+   refuses two ranks on one device), two clients of 32,768 documents: 3 rounds under
+   Algorithm 2 over the model group (the last profiled on rank 0), then 2
+   under Algorithm 1 over two server shards with client 1 dead in the
+   last; every rank's state (SHA-256 of each statistic, its client's
+   locals, the row mass; the clocks) equal to every other's and to the
+   rounds composed here from the same keys, exact on the rounds with both
+   clients live, clocks [3, 3] and [2, 1]; then ``sync_compressed`` of
+   each client's next delta (top-k 16,384 + 1,024 rows) equal to the sum
+   of the clients' ``decompress_delta`` computed here.  MESH lines carry
+   each round's ms, tokens/s, each collective's bytes and ms, peak memory
+   per rank and the profiled share; a collective's ms come from the
+   profiled round's trace, whose ranges ``core.collectives`` names.
 
 Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
 serve-hdp, serve-lda-fused, phase 12's bsp, ssp2, ssp2-incremental,
 async, topk, faults and restore, and phase 13's tcp-bsp,
 tcp-from-servers, tcp-sparse, tcp-topk, tcp-ssp2, tcp-pdp and the
-loopback and failover workers, and phase 14's scan-lda,
-scan-lda-incremental, scan-lda-exact, scan-hdp, scan-pdp and tcp-scan) is
-driven with the launch counters zeroed
+loopback and failover workers, phase 14's scan-lda,
+scan-lda-incremental, scan-lda-exact, scan-hdp, scan-pdp and tcp-scan, and
+phase 15's mesh-lda, mesh-lda-ssp1, mesh-pdp, mesh-hdp-scan,
+mesh-2x2-alg2 and mesh-2x2-alg1) is driven with the launch counters zeroed
 just before it and read just after (phase 13's: around each step, and in
-each worker process), and every kernel of the path must have launched;
+each worker process; phase 15b's in each rank, summed), and every kernel
+of the path must have launched;
 launches made only to check a path are left out.
 The last lines are the kernels JSON, the card, and the result JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -249,7 +282,7 @@ ADVERSARIAL_ROWS = 301          # not a multiple of any plan's rows a block
 ADVERSARIAL_ROWS_WIDE = 37
 PROFILE_TAIL = ("alias_build", "sort", "memcpy")   # shown beyond the top 15
 PROFILE_ATTEMPTS = 3            # profiled windows before a lost record fails
-PROFILE_PAD, PROFILE_PAD_S = 200, 0.1   # device_ms's window opening
+PROFILE_PAD, PROFILE_PAD_S = 200, 0.1   # pad_launches: a window's opening
 # The serving paths' engine: 64 documents a step, slots of 256 tokens,
 # 10 sweeps a document (the training-time evaluators' fold-in length).
 SERVE = {"max_slots": 64, "max_len": 256, "n_sweeps": 10}
@@ -312,15 +345,11 @@ def device_ms(fn, reps: int, symbol: str = "alias_build") -> float:
 
     cuda = torch.autograd.DeviceType.CUDA
     fn()
-    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t, n = time.perf_counter(), 0
-            while n < PROFILE_PAD or time.perf_counter() - t < PROFILE_PAD_S:
-                pad.add_(1.0)
-                n += 1
+            pad_launches()
             for _ in range(2 * reps):
                 fn()
             torch.cuda.synchronize()
@@ -510,61 +539,91 @@ def adversarial_check(name: str, dev) -> dict:
     return out
 
 
+def pad_launches() -> None:
+    """``PROFILE_PAD`` small launches over at least ``PROFILE_PAD_S``
+    seconds: the opening of a profiled window where no other call of the
+    measured function can run."""
+    pad = torch.zeros(1, device="cuda")
+    t, n = time.perf_counter(), 0
+    while n < PROFILE_PAD or time.perf_counter() - t < PROFILE_PAD_S:
+        pad.add_(1.0)
+        n += 1
+
+
+def profile_window(fn, opening=None):
+    """``opening()`` (by default ``pad_launches``) then one call of ``fn`` inside the range "measured
+    call", under torch.profiler.  A profiled window may lose device
+    records at its start (see ``profile_round``), which ``opening`` fills.
+    The call is read from the start of its range's device-side copy on
+    (the device's own clock, no host/device clock comparison).  Returns
+    (fn's result, its wall ms closed by a sync, its device-side records by
+    name as [ms, count], whether the trace held the range's device-side
+    copy (the records are empty if not), the trace's events)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (opening or pad_launches)()
+        torch.cuda.synchronize()
+        with record_function("measured call"):
+            t = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.events()
+    span = [e.time_range for e in events
+            if e.name == "measured call" and e.device_type == cuda]
+    by_name: dict[str, list] = {}
+    for e in events:
+        # Device-side entries only (kernels, copies); the host ops that
+        # launched them report the same time again.
+        if (e.device_type != cuda or e.name == "measured call"
+                or not span or e.time_range.start < span[0].start):
+            continue
+        row = by_name.setdefault(e.name[:90], [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    return result, wall_ms, by_name, bool(span), events
+
+
 def profile_round(trainer, label: str, mode: str) -> None:
     """Two more rounds of the trainer's ``mode`` (cadence or incremental)
-    under torch.profiler, the second measured: device time by kernel and
-    the device's busy share of the round's wall time.
+    under torch.profiler (``profile_window``), the first the window's
+    opening, the second measured: device time by kernel and the device's
+    busy share of the round's wall time.
     A profiled window may lose device records: in the fused-LDA round the
     counters showed kernel 6's launch while the trace started ~6 ms in, and
     a warm-up kernel with a 50 ms pause first did not help; one HDP round
     of a later run traced none of its one alias build.  So the first round
-    fills the window's start, the measured round is read from the start
-    of its ``record_function`` range's device-side copy on (the device's
-    own clock, no host/device clock comparison), and a trace that does not
-    hold every alias build the measured round launched is taken again, up
-    to ``PROFILE_ATTEMPTS`` windows; the line says how many it took.
+    fills the window's start, and a trace that does not hold every alias
+    build the measured round launched is taken again, up to
+    ``PROFILE_ATTEMPTS`` windows; the line says how many it took.
     These launches are not main-path launches, so the counters are
     restored afterwards."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from repro_torch.kernels import _build
     cuda = torch.autograd.DeviceType.CUDA
     saved = dict(_build.LAUNCHES)
+    before: dict = {}
+
+    def measured():
+        before.clear()
+        before.update(_build.LAUNCHES)
+        trainer.step()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            trainer.step()
-            torch.cuda.synchronize()
-            before = dict(_build.LAUNCHES)
-            with record_function("measured round"):
-                t = time.perf_counter()
-                trainer.step()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t) * 1e3
+        _, wall_ms, by_name, ranged, events = profile_window(measured,
+                                                             trainer.step)
         builds = sum(n - before.get(name, 0)
                      for name, n in _build.LAUNCHES.items()
                      if name.startswith("alias_build"))
-        events = prof.events()
-        span = [e.time_range for e in events
-                if e.name == "measured round" and e.device_type == cuda]
-        by_name: dict[str, list] = {}
-        for e in events:
-            # Device-side entries only (kernels, copies); the host ops
-            # that launched them report the same time again.
-            if (e.device_type != cuda or e.name == "measured round"
-                    or not span or e.time_range.start < span[0].start):
-                continue
-            row = by_name.setdefault(e.name[:90], [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e3
-            row[1] += 1
         traced = sum(n for name, (_, n) in by_name.items()
                      if "alias_build" in name)
         if traced == builds:
             break
         print(f"PROFILE {label} {mode} window {attempt}: the measured round "
               f"launched {builds} alias builds, the trace holds {traced}"
-              + ("" if span else " (no device-side range)"), flush=True)
+              + ("" if ranged else " (no device-side range)"), flush=True)
     restore_counts(saved)
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
                   reverse=True)
@@ -581,7 +640,7 @@ def profile_round(trainer, label: str, mode: str) -> None:
         print(f"  {ms:9.2f} ms {n:6d} x {k}")
     # Host syncs: each tensor-to-host read waits for the device there.
     host = [e.time_range for e in events
-            if e.name == "measured round" and e.device_type != cuda]
+            if e.name == "measured call" and e.device_type != cuda]
     for op in ("aten::_local_scalar_dense", "aten::nonzero"):
         calls = [e.time_range.elapsed_us() / 1e3 for e in events
                  if e.name == op and e.device_type != cuda and host
@@ -771,25 +830,34 @@ def full_chunk(name, run, gen, dev, e_out, steps, b, bytes_full, ops_full,
             "chunk": figures}
 
 
-def doc_list_kernel(n_dk) -> dict:
+def doc_list_check(n_dk) -> torch.Tensor:
     """The document-list build that kernels 1 and 4 launch first, against
-    its plain version on a client's (D, K) n_dk: the bitmaps and prefix
-    counts equal, and the counts equal up to each document's k_d (the
-    kernel leaves the rest unwritten)."""
+    its plain version on a (D, K) n_dk: the bitmaps and prefix counts
+    equal, and the counts equal up to each document's k_d (the kernel
+    leaves the rest unwritten).  Returns k_d."""
     from repro_torch.kernels import doc_topics, ref
 
     words, counts = doc_topics.doc_topic_lists(n_dk)
     want_w, want_c = ref.doc_topic_lists_ref(n_dk)
-    d, k = n_dk.shape
     k_d = want_w[:, -1, 1].long()
-    valid = torch.arange(k, device=n_dk.device)[None, :] < k_d[:, None]
+    valid = torch.arange(n_dk.shape[1], device=n_dk.device)[None, :] < \
+        k_d[:, None]
     if not (torch.equal(words, want_w)
             and torch.equal(counts[valid], want_c[valid])):
         raise AssertionError(
             f"doc_topic_lists: {int((words != want_w).sum())} words and "
             f"{int((counts[valid] != want_c[valid]).sum())} counts differ "
             "from plain")
-    del words, counts, want_w, want_c, valid
+    return k_d
+
+
+def doc_list_kernel(n_dk) -> dict:
+    """The document-list build on a client's n_dk (``doc_list_check``),
+    timed beside its plain version and its bound."""
+    from repro_torch.kernels import doc_topics, ref
+
+    k_d = doc_list_check(n_dk)
+    d, k = n_dk.shape
     ms = time_ms(lambda: doc_topics.doc_topic_lists(n_dk), 20)
     dev_ms = device_ms(lambda: doc_topics.doc_topic_lists(n_dk), 20,
                        "doc_topics_kernel")
@@ -2511,7 +2579,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         raise AssertionError(f"from_servers != freeze of the in-process "
                              f"statistics: {same}")
     del frozen, want
-    out["checksums"] = per_round[1]
+    out["checksums"] = per_round[0]
     close_wire(out)
     wire_line("tcp-bsp", out)
 
@@ -2550,7 +2618,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
 
     counts["tcp-topk"] = {}
     torch.cuda.reset_peak_memory_stats()
-    out = tcp_rounds("tcp-topk", cfg, tokens, mask, dev, 3,
+    out = tcp_rounds("tcp-topk", cfg, tokens, mask, dev, 2,
                      tcfg_kw={"filter": spec, "sparse_push": True},
                      counts=counts["tcp-topk"], check=conserved)
     path_counts_of("tcp-topk", counts["tcp-topk"], lm_kernels_)
@@ -2582,7 +2650,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     pref = Trainer(pcfg, tokens, mask, config=bsp, seed=0, device=dev)
     counts["tcp-pdp"] = {}
-    out = tcp_rounds("tcp-pdp", pcfg, tokens, mask, dev, 2, ref=pref,
+    out = tcp_rounds("tcp-pdp", pcfg, tokens, mask, dev, 1, ref=pref,
                      counts=counts["tcp-pdp"])
     path_counts_of("tcp-pdp", counts["tcp-pdp"],
                    ("pdp_sweep_fused", "doc_topic_lists", "alias_build"))
@@ -2593,14 +2661,14 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
 
     # (e) loopback: a shard process (two shards) and two worker
     # processes, all on the card; checksums equal to each other's and to
-    # tcp-bsp's after 2 rounds; each worker reports its own launches.
+    # tcp-bsp's after 1 round; each worker reports its own launches.
     shutil.rmtree(root, ignore_errors=True)
     for sub in ("loopback", "failover"):
         (root / sub).mkdir(parents=True)
     t = time.perf_counter()
     res = loopback.launch_loopback(
         family="lda", vocab_size=cfg.vocab_size, n_topics=cfg.n_topics,
-        n_shards=2, client_sets=((0,), (1,)), n_rounds=2,
+        n_shards=2, client_sets=((0,), (1,)), n_rounds=1,
         n_docs=ccfg.n_docs, doc_len=ccfg.doc_len, corpus_seed=ccfg.seed,
         seed=0, layout="sorted", timeout=LOOPBACK_TIMEOUT_S,
         workdir=str(root / "loopback"),
@@ -2675,15 +2743,60 @@ class KernelTap:
     """Pass ``ops.sample_rows`` and ``ops.mh_accept`` through, keeping the
     inputs of their first call (the scan chain's first position and MH
     step) for the kernel checks; the tables by reference, the rest
-    copied (the chain writes its state views over)."""
+    copied (the chain writes its state views over).  Likewise
+    ``ops.mhw_sweep_sorted`` and ``ops.pdp_sweep_sorted`` (the first sorted
+    chunk), kept as kernel 1's or 4's arguments and keywords, the step
+    uniforms drawn here as the wrapper would draw them."""
 
     def __init__(self):
         self.inputs: dict[str, tuple] = {}
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.real = (ops.sample_rows, ops.mh_accept)
-        real8, real9 = self.real
+        self.real = (ops.sample_rows, ops.mh_accept, ops.mhw_sweep_sorted,
+                     ops.pdp_sweep_sorted)
+        real8, real9, real1, real4 = self.real
+
+        def uniforms_of(generator, tables, rows, stats, mh_steps, uniforms):
+            if uniforms is not None:
+                return uniforms
+            return ops._step_uniforms(generator, tables.prob.shape[-1],
+                                      mh_steps, rows.shape[0], stats.device)
+
+        def mhw_sweep_sorted(tables, stale, n_wk, n_k, prior, rows, docs,
+                             z0, n_dk, generator, *, mh_steps, beta,
+                             beta_bar, uniforms=None, device=None):
+            uniforms = uniforms_of(generator, tables, rows, n_wk, mh_steps,
+                                   uniforms)
+            if "mhw_sweep_fused" not in self.inputs:
+                self.inputs["mhw_sweep_fused"] = (
+                    (tables.prob, tables.alias, tables.mass, stale,
+                     *(t.clone() for t in (n_wk, n_k)), prior,
+                     *(t.clone() for t in (rows, docs, z0, n_dk)),
+                     *uniforms), {"beta": beta, "beta_bar": beta_bar})
+            return real1(tables, stale, n_wk, n_k, prior, rows, docs, z0,
+                         n_dk, generator, mh_steps=mh_steps, beta=beta,
+                         beta_bar=beta_bar, uniforms=uniforms, device=device)
+
+        def pdp_sweep_sorted(tables, stale, m_wk, s_wk, m_k, s_k, stirl,
+                             prior, rows, docs, e0, n_dk, generator, *,
+                             mh_steps, concentration, discount, gamma,
+                             gamma_bar, uniforms=None, device=None):
+            uniforms = uniforms_of(generator, tables, rows, m_wk, mh_steps,
+                                   uniforms)
+            if "pdp_sweep_fused" not in self.inputs:
+                self.inputs["pdp_sweep_fused"] = (
+                    (tables.prob, tables.alias, tables.mass, stale,
+                     *(t.clone() for t in (m_wk, s_wk, m_k, s_k)), stirl,
+                     prior, *(t.clone() for t in (rows, docs, e0, n_dk)),
+                     *uniforms),
+                    {"b": concentration, "a": discount, "gamma": gamma,
+                     "gamma_bar": gamma_bar})
+            return real4(tables, stale, m_wk, s_wk, m_k, s_k, stirl, prior,
+                         rows, docs, e0, n_dk, generator, mh_steps=mh_steps,
+                         concentration=concentration, discount=discount,
+                         gamma=gamma, gamma_bar=gamma_bar, uniforms=uniforms,
+                         device=device)
 
         def sample_rows(tables, rows, generator=None, *, uniforms=None,
                         device=None):
@@ -2702,12 +2815,15 @@ class KernelTap:
             return real9(z, cand, lp_z, lp_c, lq_z, lq_c, generator, u=u,
                          device=device)
 
-        ops.sample_rows, ops.mh_accept = sample_rows, mh_accept
+        (ops.sample_rows, ops.mh_accept, ops.mhw_sweep_sorted,
+         ops.pdp_sweep_sorted) = (sample_rows, mh_accept, mhw_sweep_sorted,
+                                  pdp_sweep_sorted)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.sample_rows, ops.mh_accept = self.real
+        (ops.sample_rows, ops.mh_accept, ops.mhw_sweep_sorted,
+         ops.pdp_sweep_sorted) = self.real
         return False
 
 
@@ -3029,6 +3145,627 @@ def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
     return counts, figures
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the mesh round (core.distributed.make_round_fn)
+# ---------------------------------------------------------------------------
+
+# 15b's ranks run ~40 s; a hung one fails the smoke well inside its limit.
+MESH_TIMEOUT_S = 300.0
+# Phase 15b's runs on the 2x2 gloo mesh: (path, server shards, each
+# round's live flags); the last round of the first run is profiled on
+# rank 0.
+MESH_PLAN = (("mesh-2x2-alg2", 1, ([True, True],) * 3),
+             ("mesh-2x2-alg1", 2, ([True, True], [True, False])))
+MESH_SYNC_KEY = 9
+
+
+def sha(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes, read on the host."""
+    import hashlib
+    return hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_init(fam, cfg, shards):
+    """Every client's initial locals, client c from the stream (0, INIT,
+    c), and the statistics summed in client order."""
+    from repro_torch import device as device_mod
+    locals_, shared = [], None
+    for c, (t, m) in enumerate(shards):
+        loc, sh = fam.init_state(cfg, t, m, (0, device_mod.INIT, c))
+        locals_.append(loc)
+        shared = sh if shared is None else fam.shared_from_dict({
+            n: v + fam.stats_dict(sh)[n]
+            for n, v in fam.stats_dict(shared).items()})
+        del sh
+    return locals_, shared
+
+
+def composed_round(fam, server, cfg, dcfg, locals_, state, shards, layouts,
+                   key, alive, dev):
+    """The mesh round of ``len(locals_)`` clients composed in one process
+    without torch.distributed, as its definition reads: the policy's pull,
+    each client's ``client_round`` from ``fold_in(key, c)``, the filter,
+    the push as a sum in client order, ``apply_delta``, Algorithm 1 and
+    the server's bookkeeping.  Returns (locals', state')."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import distributed, projection
+
+    pol = server.policy
+    clock_now = int(state.clocks.max())
+    refresh = not pol.caches or clock_now - state.cache_version > pol.bound
+    snapshot, cache, version = server.pull_round(state, clock_now, refresh)
+    lag = server.reset_lag(state.client_lag, refresh)
+    canonical = server.assemble(state) if pol.caches else snapshot
+    out, total, rows = [], None, []
+    for c, (local, (t, m)) in enumerate(zip(locals_, shards)):
+        key_c = device_mod.fold_in(key, c)
+        loc, deltas = distributed.client_round(
+            cfg, fam, dcfg, local, server.client_view(snapshot, lag, c),
+            state.tables, state.stale, t, m, key_c,
+            sorted_layouts=layouts[c], device=dev)
+        a = 1.0 if alive[c] else 0.0
+        sent, _ = distributed.filter_push(fam, deltas, dcfg.filter,
+                                          device_mod.fold_in(key_c, 7))
+        sent = {n: sent[n] * a for n in fam.delta_names}
+        total = sent if total is None else {n: total[n] + sent[n]
+                                            for n in total}
+        if lag is not None:
+            rows.append({n: lag[n][c] + deltas[n] * a for n in lag})
+        out.append(loc)
+    stats = projection.project(
+        fam.stats_dict(fam.apply_delta(canonical, total)), fam.shared_rules,
+        fam.aggregates)
+    state2 = server.accumulate_mass(
+        server.load_dense(state, fam.shared_from_dict(stats)), total)
+    if lag is not None:
+        lag = {n: torch.stack([r[n] for r in rows]) for n in lag}
+    clocks = state.clocks + torch.tensor(alive, dtype=torch.int32,
+                                         device=state.clocks.device)
+    return out, state2._replace(cache=cache, cache_version=version,
+                                client_lag=lag, clocks=clocks)
+
+
+def state_digests(fam, server, state, locals_) -> dict:
+    """SHA-256 of every shared statistic, of each given client's locals
+    and of the row mass; the clocks and the cache version as they are."""
+    out = {f"stats/{n}": sha(v)
+           for n, v in fam.stats_dict(server.assemble(state)).items()}
+    for c, loc in locals_.items():
+        out.update({f"local{c}/{f}": sha(v)
+                    for f, v in loc._asdict().items()})
+    for n, v in (state.client_lag or {}).items():
+        out[f"lag/{n}"] = sha(v)
+    out["row_mass"] = sha(torch.cat(state.row_mass))
+    out["clocks"] = state.clocks.tolist()
+    out["cache_version"] = int(state.cache_version)
+    return out
+
+
+def states_differ(fam, server, a, b) -> list[str]:
+    """The names of what differs, bit for bit on the device, between two
+    (local, server state) pairs."""
+    (la, sa), (lb, sb) = a, b
+    pairs = [(f"stats/{n}", v, fam.stats_dict(server.assemble(sb))[n])
+             for n, v in fam.stats_dict(server.assemble(sa)).items()]
+    pairs += [(f"local/{f}", v, getattr(lb, f))
+              for f, v in la._asdict().items()]
+    pairs += [(f"lag/{n}", v, sb.client_lag[n])
+              for n, v in (sa.client_lag or {}).items()]
+    pairs += [("row_mass", torch.cat(sa.row_mass), torch.cat(sb.row_mass)),
+              ("clocks", sa.clocks, sb.clocks)]
+    out = [name for name, x, y in pairs if not torch.equal(x, y)]
+    if sa.cache_version != sb.cache_version:
+        out.append("cache_version")
+    return out
+
+
+COLLECTIVE = re.compile(r"(all_reduce|all_gather) (.*) \((\d+) B\)")
+
+
+def collective_spans(events) -> list[dict]:
+    """The collectives of a profiled call in order, from the ranges that
+    ``core.collectives`` opens ("<op> <what> (<bytes> B)", bytes this
+    rank's input): ``host_ms`` the host's time in the call (the whole of a
+    gloo collective, the enqueue of an NCCL one), ``device_ms`` the range's
+    device-side copy (NCCL's kernel; None where the trace holds none)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    host, device = [], {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        m = COLLECTIVE.fullmatch(e.name)
+        if m is None:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.device_type == cuda:
+            device.setdefault(e.name, []).append(ms)
+        else:
+            host.append((m, ms))
+    out, seen = [], {}
+    for m, ms in host:
+        i = seen[m[0]] = seen.get(m[0], -1) + 1
+        on_device = device.get(m[0], [])
+        out.append({"op": m[1], "what": m[2], "bytes": int(m[3]),
+                    "host_ms": ms, "device_ms": on_device[i]
+                    if i < len(on_device) else None})
+    return out
+
+
+def mesh_profile(fn) -> tuple:
+    """``fn()`` in a padded ``profile_window``: (its result, {its wall ms,
+    the device's busy ms and idle share as ``profile_round`` counts them
+    (None where the trace held no device-side copy of the call's range),
+    its collectives})."""
+    result, wall, by_name, ranged, events = profile_window(fn)
+    busy = sum(ms for name, (ms, _) in by_name.items()
+               if not COLLECTIVE.fullmatch(name)) if ranged else None
+    return result, {"wall_ms": wall, "busy_ms": busy,
+                    "idle_share": None if busy is None
+                    else max(0.0, 1 - busy / wall),
+                    "collectives": collective_spans(events)}
+
+
+def launches_are(label: str, counts: dict, want: dict) -> None:
+    """Fail unless each kernel of ``want`` launched exactly that often."""
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{counts.get(name, 0)} times, expected {n}")
+
+
+def collective_line(label: str, spans: list, ranks: int) -> None:
+    for rec in spans:
+        dev_ms = ("not traced" if rec["device_ms"] is None
+                  else f"{rec['device_ms']:.2f} ms")
+        print(f"MESH {label} collective {rec['what']} {rec['op']} over "
+              f"{ranks} ranks: {rec['bytes']} B, host {rec['host_ms']:.2f} "
+              f"ms, device {dev_ms}", flush=True)
+
+
+def mesh_kernel_checks(label: str, inputs: dict) -> dict:
+    """Phase 15a's kernels against their plain versions at the shapes of
+    one client of all 65,536 documents, which no earlier phase gives
+    them, on the inputs ``KernelTap`` kept from a real round: kernel 1 or
+    4 on the first ``SWEEP_SLICE`` (``PDP_SWEEP_SLICE``) positions of the
+    first sorted chunk whose documents lie in the upper half of n_dk (the
+    rows beyond a two-client shard's), at the tolerance of phases 3 and 5;
+    the list build on the whole n_dk, bit for bit; kernels 8 and 9 on the
+    first scan position, B = every document (``scan_kernel_figures``)."""
+    from repro_torch.core import mhw, pdp
+    from repro_torch.kernels import mhw_fused as kmf
+
+    out = {}
+    for name, plain, n, first in (
+            ("mhw_sweep_fused", mhw.sorted_chain, SWEEP_SLICE, 7),
+            ("pdp_sweep_fused", pdp.sorted_chain_pdp, PDP_SWEEP_SLICE, 10)):
+        if name not in inputs:
+            continue
+        args, kw = inputs[name]
+        rows, docs, z0, n_dk = args[first:first + 4]
+        pick = torch.nonzero(docs >= n_dk.shape[0] // 2).squeeze(1)[:n]
+        if pick.numel() == 0:
+            raise AssertionError(f"{label}: no position of the chunk lies "
+                                 "in n_dk's upper half")
+        sliced = (*args[:first], rows[pick], docs[pick], z0[pick], n_dk,
+                  *(u[:, pick] for u in args[first + 4:]))
+        got = getattr(kmf, name)(*sliced, **kw)
+        want = plain(*sliced, **kw)
+        mismatch = float((got != want).float().mean())
+        out[name] = {"positions": int(pick.numel()),
+                     "chunk_positions": int(rows.numel()),
+                     "first_doc": int(docs[pick].min()),
+                     "n_dk_rows": int(n_dk.shape[0]),
+                     "mismatch_rate": mismatch,
+                     "max_abs_err": int((got - want).abs().max())}
+        # As in phases 3 and 5: only rounding (the kernel's 32-block cdf,
+        # log() near an accept tie) can make a chain differ.
+        if not mismatch <= SWEEP_MISMATCH_TOL:
+            raise AssertionError(f"{label}: {name} differs from plain in "
+                                 f"{mismatch:.3g} of chains "
+                                 f"(> {SWEEP_MISMATCH_TOL})")
+        del got, want
+        doc_list_check(n_dk)
+        out["doc_topic_lists"] = {"n_dk_rows": int(n_dk.shape[0]),
+                                  "bit_equal": True}
+    if "alias_sample" in inputs:
+        out.update(scan_kernel_figures(
+            label, inputs, inputs["alias_sample"][0].prob.shape[1]))
+    print(f"MESH {label} kernels against plain {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def mesh_path(label, cfg, dcfg, rounds, shards, ho, dev, mesh, kernels,
+              want: dict, falls_: bool) -> tuple[dict, dict]:
+    """Phase 15a's path: ``rounds`` mesh rounds at world size 1 on NCCL, the
+    proposal refreshed when due (every round; under SSP when the cache
+    is), each bit-equal to :func:`composed_round` from the same key, exact
+    and without violations; the first composed round's kernel inputs
+    checked (``mesh_kernel_checks``); the launch counters zeroed just
+    before and read just after (the composed rounds' and the checks'
+    launches left out); the last round profiled."""
+    from repro_torch import device as device_mod
+    from repro_torch.core import distributed, family
+    from repro_torch.kernels import _build
+
+    fam = family.get(dcfg.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    locals_, shared = mesh_init(fam, cfg, shards)
+    server = distributed.make_server(cfg, dcfg)
+    state = server.init_state(shared, len(shards))
+    del shared
+    layouts = [fam.build_sorted_layouts(cfg, t, m)
+               if dcfg.layout == "sorted" else None for t, m in shards]
+    round_fn = distributed.make_round_fn(cfg, dcfg, mesh, server=server,
+                                         device=dev)
+    ho_t = tuple(torch.as_tensor(x, device=dev) for x in ho)
+    local = locals_[0]
+    del locals_
+    _build.reset_launches()
+    ms, ppl, checks, profile = [], [], None, None
+    for r in range(rounds):
+        if (r == 0 or not server.policy.caches
+                or server.policy.needs_refresh(r, state.cache_version)):
+            state = server.refresh_proposal(cfg, state)
+        saved = dict(_build.LAUNCHES)
+        tap = KernelTap() if r == 0 else contextlib.nullcontext()
+        with tap:
+            ref_locals, ref_state = composed_round(
+                fam, server, cfg, dcfg, [local], state, shards, layouts,
+                (1, r), [True], dev)
+        if r == 0:
+            # The checks' tensors go back to the allocator's cache, which
+            # the rounds reuse; the peak is the rounds' own.
+            checks = mesh_kernel_checks(label, tap.inputs)
+            del tap
+            torch.cuda.reset_peak_memory_stats()
+        restore_counts(saved)
+
+        def step():
+            return round_fn(local, state, *shards[0], (1, r), [True])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if r == rounds - 1:
+            (local, state), profile = mesh_profile(step)
+        else:
+            local, state = step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        differ = states_differ(fam, server, (local, state),
+                               (ref_locals[0], ref_state))
+        if differ:
+            raise AssertionError(f"{label} round {r}: {differ} differ from "
+                                 "the composed round")
+        del ref_locals, ref_state
+        stats = fam.stats_dict(server.assemble(state))
+        counted = fam.count_stats(cfg, *shards[0], local)
+        err = max(float((counted[n] - stats[n]).abs().max())
+                  for n in fam.conserved_stats)
+        viol = fam.count_violations(server.assemble(state))
+        local_viol = fam.count_local_violations(local)
+        ppl.append(fam.perplexity(cfg, server.assemble(state), *ho_t,
+                                  (0, device_mod.EVAL, 42)))
+        print(f"MESH {label} round {r} "
+              f"{ms[-1] if r < rounds - 1 else profile['wall_ms']:.2f} ms "
+              f"clocks={state.clocks.tolist()} cache_version="
+              f"{state.cache_version} consistency_error={err} violations="
+              f"{viol} local_violations={local_viol} heldout_perplexity="
+              f"{ppl[-1]:.3f} equal_to_composed=True", flush=True)
+        if err != 0.0 or viol != 0 or local_viol != 0:
+            raise AssertionError(f"{label} round {r}: consistency {err}, "
+                                 f"violations {viol}, local {local_viol}")
+        if not np.isfinite(ppl[-1]):
+            raise AssertionError(f"{label}: perplexity {ppl[-1]}")
+    counts = dict(_build.LAUNCHES)
+    if falls_ and not ppl[-1] < ppl[0]:
+        raise AssertionError(f"{label}: perplexity did not fall: {ppl}")
+    path_counts_of(label, counts, kernels)
+    launches_are(label, counts, want)
+    collective_line(label, profile["collectives"], 1)
+    n_tok = sum(int(m.sum()) for _, m in shards)
+    summary = {"rounds": rounds, "round_ms": ms,
+               "median_round_ms": statistics.median(ms),
+               "tokens_per_s": n_tok / (sum(ms) / len(ms) / 1e3),
+               "profiled_round": profile, "perplexity": ppl,
+               "kernels_against_plain": checks, "launches": counts,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "clocks": state.clocks.tolist(),
+               "cache_version": state.cache_version}
+    print(f"MESH {label} {json.dumps(summary)}", flush=True)
+    return counts, summary
+
+
+def mesh_world1(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev,
+                root: Path) -> tuple[dict, dict]:
+    """Phase 15a: the mesh round at world size 1 on NCCL, one client of all
+    65,536 documents: LDA sorted (3 rounds), LDA sorted under SSP(1) (3),
+    PDP sorted (2) and HDP on the scan layout (2)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.launch.mesh import make_host_mesh
+
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / "nccl_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    counts, summaries = {}, {}
+    try:
+        mesh = make_host_mesh(1, 1, device=dev)
+        # NCCL builds a communicator at a group's first collective: one
+        # element on each axis first, so no timed round pays for it.
+        t = time.perf_counter()
+        for axis in ("data", "model"):
+            dist.all_reduce(torch.ones(1, device=dev),
+                            group=mesh.get_group(axis))
+        torch.cuda.synchronize()
+        print(f"MESH nccl communicators {(time.perf_counter() - t) * 1e3:.1f}"
+              " ms (first collective of each axis, before the paths)",
+              flush=True)
+        shards = [(torch.as_tensor(tokens, device=dev),
+                   torch.as_tensor(mask, device=dev))]
+        chunks = cfg.sorted_chunks
+        l = tokens.shape[1]
+        for label, mcfg, dcfg, rounds, h, kernels, want, falls_ in (
+                ("mesh-lda", cfg, distributed.DistConfig(
+                    model="lda", layout="sorted"), 3, ho,
+                 ("mhw_sweep_fused", "doc_topic_lists", "alias_build"),
+                 {"mhw_sweep_fused": 3 * chunks, "alias_build": 3}, True),
+                ("mesh-lda-ssp1", cfg, distributed.DistConfig(
+                    model="lda", layout="sorted", consistency="ssp:1"), 3,
+                 ho, ("mhw_sweep_fused", "doc_topic_lists", "alias_build"),
+                 {"mhw_sweep_fused": 3 * chunks, "alias_build": 2}, True),
+                ("mesh-pdp", pcfg, distributed.DistConfig(
+                    model="pdp", layout="sorted"), 2, ho,
+                 ("pdp_sweep_fused", "doc_topic_lists", "alias_build"),
+                 {"pdp_sweep_fused": 2 * pcfg.sorted_chunks,
+                  "alias_build": 2}, False),
+                ("mesh-hdp-scan", hcfg, distributed.DistConfig(
+                    model="hdp"), 2, ho_hdp,
+                 ("alias_build", "alias_sample", "mh_accept"),
+                 {"alias_sample": 2 * l * hcfg.mh_steps,
+                  "mh_accept": 2 * l * hcfg.mh_steps}, False)):
+            t = time.perf_counter()
+            counts[label], summaries[label] = mesh_path(
+                label, mcfg, dcfg, rounds, shards, h, dev, mesh, kernels,
+                want, falls_)
+            torch.cuda.empty_cache()
+            print(f"MESH {label} path {time.perf_counter() - t:.1f} s",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+    return counts, summaries
+
+
+def load_shards(root: str, dev) -> list:
+    return [(torch.as_tensor(np.load(f"{root}/tokens{c}.npy"), device=dev),
+             torch.as_tensor(np.load(f"{root}/mask{c}.npy"), device=dev))
+            for c in range(2)]
+
+
+def sync_deltas(fam, server, cfg, dcfg, state, local, shard, c, dev):
+    """Client c's delta of one more sweep against ``state``, keyed
+    (MESH_SYNC_KEY, c): the real delta phase 15b compresses."""
+    from repro_torch.core import distributed
+    _, deltas = distributed.client_round(
+        cfg, fam, dcfg, local, server.assemble(state), state.tables,
+        state.stale, *shard, (MESH_SYNC_KEY, c),
+        sorted_layouts=fam.build_sorted_layouts(cfg, *shard), device=dev)
+    return deltas["n_wk"]
+
+
+def mesh_rank(mesh, dev, root: str, cfg, plan) -> dict:
+    """Phase 15b on one rank of the 2x2 gloo mesh (tensors on the card):
+    each run of ``plan`` from the initial state, the proposal refreshed
+    before each round, digests of the state after each, rank 0's last
+    round of the first run profiled (its collectives read from the trace);
+    then ``sync_compressed`` of each client's next delta, profiled on
+    rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed, family, ps
+    from repro_torch.kernels import _build
+
+    fam = family.get("lda")
+    c, me = mesh.get_local_rank("data"), dist.get_rank()
+    shards = load_shards(root, dev)
+    out: dict = {"runs": {}, "rank": me, "client": c}
+    for run, (label, n_shards, plan_alive) in enumerate(plan):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        locals_, shared = mesh_init(fam, cfg, shards)
+        local = locals_[c]
+        del locals_
+        dcfg = distributed.DistConfig(model="lda", layout="sorted",
+                                      n_server_shards=n_shards)
+        server = distributed.make_server(cfg, dcfg)
+        state = server.init_state(shared, 2)
+        del shared
+        round_fn = distributed.make_round_fn(cfg, dcfg, mesh, server=server,
+                                             device=dev)
+        _build.reset_launches()
+        rounds = []
+        for r, alive in enumerate(plan_alive):
+            state = server.refresh_proposal(cfg, state)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            profile = None
+            if me == 0 and run == 0 and r == len(plan_alive) - 1:
+                (local, state), profile = mesh_profile(
+                    lambda: round_fn(local, state, *shards[c], (run, r),
+                                     alive))
+            else:
+                local, state = round_fn(local, state, *shards[c], (run, r),
+                                        alive)
+            torch.cuda.synchronize()
+            rounds.append({"ms": (time.perf_counter() - t) * 1e3,
+                           "profile": profile,
+                           "digests": state_digests(fam, server, state,
+                                                    {c: local})})
+        out["runs"][label] = {
+            "rounds": rounds, "launches": dict(_build.LAUNCHES),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    state = server.refresh_proposal(cfg, state)
+    delta = sync_deltas(fam, server, cfg, dcfg, state, local, shards[c], c,
+                        dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+
+    def sync():
+        return distributed.sync_compressed(
+            delta, ps.FilterSpec("topk", **TOPK), (MESH_SYNC_KEY, 7, c),
+            mesh.get_group("data"))
+    profile = None
+    if me == 0:
+        summed, profile = mesh_profile(sync)
+    else:
+        summed = sync()
+    torch.cuda.synchronize()
+    out["sync"] = {"ms": (time.perf_counter() - t) * 1e3,
+                   "profile": profile, "digest": sha(summed),
+                   "rows": int(summed.ne(0).any(1).sum())}
+    return out
+
+
+def mesh_gloo(cfg, tokens, mask, dev, root: Path) -> tuple[dict, dict]:
+    """Phase 15b: the 2x2 mesh over gloo, four processes with their tensors
+    on the one card (NCCL refuses two ranks on one device), phase 4's LDA
+    at full width as two clients of 32,768 documents: ``MESH_PLAN``'s
+    runs, every rank's state bit-equal to every other's and to the rounds
+    composed in this process from the same keys, exact on the rounds with
+    every client live, clocks as the rule gives; then
+    ``sync_compressed`` of each client's next delta, top-k 16,384 + 1,024
+    rows, equal to the sum of each client's ``decompress_delta``.  The
+    shards reach the ranks as files under ``root``, deleted after."""
+    import shutil
+
+    from repro_torch import device as device_mod
+    from repro_torch.core import distributed, family, ps
+    from repro_torch.data.synthetic import shard_corpus
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_on_mesh
+
+    root.mkdir(parents=True, exist_ok=True)
+    for c, (t, m) in enumerate(shard_corpus(tokens, mask, 2)):
+        np.save(root / f"tokens{c}.npy", t)
+        np.save(root / f"mask{c}.npy", m)
+    fam = family.get("lda")
+    shards = load_shards(str(root), dev)
+    layouts = [fam.build_sorted_layouts(cfg, t, m) for t, m in shards]
+    saved = dict(_build.LAUNCHES)
+    expect = {}
+    for run, (label, n_shards, plan_alive) in enumerate(MESH_PLAN):
+        locals_, shared = mesh_init(fam, cfg, shards)
+        dcfg = distributed.DistConfig(model="lda", layout="sorted",
+                                      n_server_shards=n_shards)
+        server = distributed.make_server(cfg, dcfg)
+        state = server.init_state(shared, 2)
+        del shared
+        expect[label] = []
+        for r, alive in enumerate(plan_alive):
+            state = server.refresh_proposal(cfg, state)
+            locals_, state = composed_round(fam, server, cfg, dcfg, locals_,
+                                            state, shards, layouts, (run, r),
+                                            alive, dev)
+            if all(alive):
+                stats = fam.stats_dict(server.assemble(state))
+                count = sum(fam.count_stats(cfg, t, m, loc)["n_wk"]
+                            for (t, m), loc in zip(shards, locals_))
+                err = float((count - stats["n_wk"]).abs().max())
+                if err != 0.0:
+                    raise AssertionError(f"{label} round {r}: consistency "
+                                         f"{err}")
+            expect[label].append(state_digests(fam, server, state,
+                                               dict(enumerate(locals_))))
+    want_clocks = {"mesh-2x2-alg2": [3, 3], "mesh-2x2-alg1": [2, 1]}
+    state = server.refresh_proposal(cfg, state)
+    spec = ps.FilterSpec("topk", **TOPK)
+    want_sync = None
+    for c in range(2):
+        delta = sync_deltas(fam, server, cfg, dcfg, state, locals_[c],
+                            shards[c], c, dev)
+        part = ps.decompress_delta(ps.compress_delta(
+            delta, spec, device_mod.generator((MESH_SYNC_KEY, 7, c), dev)),
+            cfg.vocab_size, cfg.n_topics)
+        want_sync = part if want_sync is None else want_sync + part
+    want_sync = sha(want_sync)
+    restore_counts(saved)
+    del locals_, state, layouts
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ranks = run_on_mesh(mesh_rank, 2, 2, device=dev, backend="gloo",
+                        args=(str(root), cfg, MESH_PLAN),
+                        timeout=MESH_TIMEOUT_S)
+    launched_s = time.perf_counter() - t
+    counts, summaries = {}, {}
+    n_tok = int(mask.sum())
+    for label, _, plan_alive in MESH_PLAN:
+        for r in range(len(plan_alive)):
+            for res in ranks:
+                got = res["runs"][label]["rounds"][r]["digests"]
+                want = {k: v for k, v in expect[label][r].items()
+                        if not k.startswith("local")
+                        or k.startswith(f"local{res['client']}/")}
+                if got != want:
+                    bad = sorted(k for k in want if got.get(k) != want[k])
+                    raise AssertionError(f"{label} round {r} rank "
+                                         f"{res['rank']}: {bad} differ from "
+                                         "the composed round")
+        clocks = ranks[0]["runs"][label]["rounds"][-1]["digests"]["clocks"]
+        if clocks != want_clocks[label]:
+            raise AssertionError(f"{label}: clocks {clocks}, expected "
+                                 f"{want_clocks[label]}")
+        r0 = ranks[0]["runs"][label]["rounds"]
+        ms = [x["ms"] for x in r0 if x["profile"] is None]
+        launched: dict = {}
+        for res in ranks:
+            for name, n in res["runs"][label]["launches"].items():
+                launched[name] = launched.get(name, 0) + n
+        path_counts_of(label, launched, ("mhw_sweep_fused",
+                                         "doc_topic_lists", "alias_build"))
+        n_rounds = len(plan_alive)
+        launches_are(label, launched, {
+            "alias_build": 4 * n_rounds,
+            "mhw_sweep_fused": 4 * n_rounds * cfg.sorted_chunks})
+        counts[label] = launched
+        for x in r0:
+            print(f"MESH {label} round {r0.index(x)} rank 0 {x['ms']:.2f} ms "
+                  f"clocks={x['digests']['clocks']} equal_across_ranks=True "
+                  "equal_to_composed=True", flush=True)
+        profiled = next((x["profile"] for x in r0 if x["profile"]), None)
+        if profiled:
+            collective_line(label, profiled["collectives"], 2)
+        summaries[label] = {
+            "rounds": n_rounds, "round_ms_rank0": [x["ms"] for x in r0],
+            "median_round_ms": statistics.median(ms),
+            "tokens_per_s": n_tok / (sum(ms) / len(ms) / 1e3),
+            "profiled_round_rank0": profiled,
+            "peak_gib_by_rank": [res["runs"][label]["peak_gib"]
+                                 for res in ranks],
+            "launches": launched, "clocks": clocks}
+        print(f"MESH {label} {json.dumps(summaries[label])}", flush=True)
+    for res in ranks:
+        if res["sync"]["digest"] != want_sync:
+            raise AssertionError(f"sync_compressed on rank {res['rank']} "
+                                 "differs from the sum of the clients' "
+                                 "decompressed deltas")
+    summaries["sync_compressed"] = {
+        "rows_nonzero": ranks[0]["sync"]["rows"],
+        "ms_by_rank": [res["sync"]["ms"] for res in ranks],
+        "profiled_rank0": ranks[0]["sync"]["profile"]}
+    collective_line("sync_compressed",
+                    ranks[0]["sync"]["profile"]["collectives"], 2)
+    print(f"MESH sync_compressed {json.dumps(summaries['sync_compressed'])}"
+          f" run_on_mesh {launched_s:.1f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, summaries
+
+
 def sum_device_ms(fn, reps: int) -> float:
     """Median milliseconds, on the device's clock, of all the device work
     one call of ``fn`` enqueues (several kernels): a torch.profiler trace
@@ -3292,6 +4029,20 @@ def main() -> int:
             entry["scan_grid"] = scan_figures["lda"][entry["name"]]
             entry["scan_grid_pdp"] = scan_figures["pdp"][entry["name"]]
     phase("scan", t)
+
+    # --------------------------------------------------------- phase 15
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_counts, _ = mesh_world1(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp,
+                                 dev, ROOT / "build" / "phase15")
+    counts.update(mesh_counts)
+    phase("mesh-nccl", t)
+    t2 = time.perf_counter()
+    mesh_counts, _ = mesh_gloo(cfg, tokens, mask, dev,
+                               ROOT / "build" / "phase15")
+    counts.update(mesh_counts)
+    phase("mesh-gloo", t2)
+    phase("mesh", t)
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

@@ -32,7 +32,8 @@ from repro_torch.kernels import _build, ops, ref
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_topics_torch.py",
-    ROOT / "examples" / "quickstart_torch.py"
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "distributed_lvm_torch.py"
 ] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
@@ -63,7 +64,8 @@ def test_scan_covers_the_package():
             "bridge.py", "ckpt.py", "snapshot.py", "engine.py", "client.py",
             "protocol.py", "serve.py", "serve_topics_torch.py",
             "quickstart_torch.py",
-            "fault.py", "server.py", "round.py", "distributed.py"} <= names
+            "fault.py", "server.py", "round.py", "distributed.py",
+            "mesh.py", "collectives.py", "distributed_lvm_torch.py"} <= names
     serving = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/server.py",
             "src/repro_torch/serve/engine.py",
@@ -74,7 +76,9 @@ def test_scan_covers_the_package():
             "src/repro_torch/net/server.py",
             "src/repro_torch/net/client.py",
             "src/repro_torch/net/chaos.py",
-            "src/repro_torch/launch/loopback.py"} <= serving
+            "src/repro_torch/launch/loopback.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/core/collectives.py"} <= serving
 
 
 def test_filter_keys_collide_with_no_other_stream(monkeypatch):
@@ -297,6 +301,28 @@ def test_wire_requires_card_unless_cpu_asked(call, monkeypatch):
                                                       n_clients=1)}
     with pytest.raises(RuntimeError, match="CUDA"):
         fns[call]()
+
+
+@pytest.mark.parametrize("call", ["make_host_mesh", "run_on_mesh",
+                                  "make_round_fn"])
+def test_mesh_requires_card_unless_cpu_asked(call, monkeypatch):
+    """The mesh round's entry points run on ``cuda`` unless the CPU is
+    asked for, and raise without a card before they start a process or
+    touch a process group; the CPU's backend is gloo."""
+    from repro_torch.core import distributed
+    from repro_torch.launch import mesh
+
+    _no_card(monkeypatch)
+    cfg = _small()[0]
+    fns = {
+        "make_host_mesh": lambda: mesh.make_host_mesh(),
+        "run_on_mesh": lambda: mesh.run_on_mesh(print),
+        "make_round_fn": lambda: distributed.make_round_fn(
+            cfg, distributed.DistConfig(), None)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    assert mesh.default_backend("cpu") == "gloo"
+    assert mesh.default_backend("cuda") == "nccl"
 
 
 @pytest.mark.parametrize("call", ["build_tables", "gather", "sweep"])
