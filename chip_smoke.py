@@ -110,16 +110,16 @@ phase's final trainer; ``serve_path``):
    snapshot's bytes, save and restore seconds.  The snapshots are deleted.
 13. The wire, on phase 4's LDA (two clients, two shard servers, in
    threads of this process unless said): (a) tcp-bsp, a tcp Trainer with
-   both clients over 3 rounds, after each n_wk and every client's z and
+   both clients over 2 rounds, after each n_wk and every client's z and
    n_dk bit-equal to an in-process BSP trainer, exact, its round ms beside
    the in-process round, a pull's and a push's bytes and frames, a pull
    timed by stage (``pull_breakdown``), then ``serve.from_servers`` equal
    to ``freeze`` of the in-process statistics; sparse pushes without a
    filter over 1 round, equal to (a)'s first; (b) tcp-topk, the
    top-k filter with sparse pushes over 2 rounds: counts − (n_wk + Σ
-   residuals) == 0.0, at most 17,408 rows a push; (c) tcp-ssp2 over 4
-   rounds: exact, NOT_MODIFIED on the stale rounds, kernel 2 on the
-   refreshes only; (d) tcp-pdp, phase 6's PDP over 1 round, bit-equal to
+   residuals) == 0.0, at most 17,408 rows a push; (c) tcp-ssp2 over 2
+   rounds: exact, NOT_MODIFIED on the stale round, kernel 2 on the
+   refresh only; (d) tcp-pdp, phase 6's PDP over 1 round, bit-equal to
    in process; (e) ``launch_loopback``: a shard process (two shards) and
    two worker processes on the card, 1 round, their checksums equal to
    each other's and to (a)'s first, each worker's own launches counted;
@@ -178,6 +178,27 @@ phase's final trainer; ``serve_path``):
    each round's ms, tokens/s, each collective's bytes and ms, peak memory
    per rank and the profiled share; a collective's ms come from the
    profiled round's trace, whose ranges ``core.collectives`` names.
+
+16. The LM side (``repro_torch.models``, ``train``, ``optim``; no kernel
+   of its own: the reference's LM path reaches no Pallas kernel).  (a)
+   smollm-360m at full width and depth (32 layers, d 960, vocabulary
+   49,152; 0.36 B parameters): 30 AdamW steps of 8 × 512 ``lm_batches``
+   tokens with remat, the loss finite at every step and its last five
+   steps' mean below its first five's; a checkpoint of the
+   ``{"params", "opt"}`` tree under build/phase16 (deleted after) read
+   back bit-equal, the next step from it within the spread of two twin
+   steps from the live state, and two microbatches against one within
+   5e-2; prefill of 512 tokens and 16 decode steps against the forward
+   (``decode_check``); LM lines with tokens/s, step ms, peak GiB and
+   model FLOPs/s (6·N_active·tokens) as a share of the bf16 dense peak.
+   (b) the other nine at full width, depth cut to 2 layers (zamba2: one
+   group of 6 Mamba-2 layers and its shared block; whisper: 2 encoder and
+   2 decoder layers), batch 2 × 512, random bf16 patch embeddings and
+   audio frames: the forward timed, prefill and 1 decode step (3 for
+   mixtral, rwkv6 and zamba2) against the forward, one full-width train
+   step for those whose 16-byte-a-parameter state fits (``LM_FULL_TRAIN``),
+   and one train step of each of the ten at ``reduced()`` size; each
+   model freed before the next.
 
 Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
 serve-hdp, serve-lda-fused, phase 12's bsp, ssp2, ssp2-incremental,
@@ -2549,14 +2570,14 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
 
     def bsp_check(tr, r, log, stats):
         per_round.append(checksums(stats))
-        return exact_check(2)(tr, r, log, stats)
+        return exact_check(1)(tr, r, log, stats)
 
     # (a) tcp-bsp: bit-equal to an in-process BSP trainer every round.
     torch.cuda.reset_peak_memory_stats()
     ref = Trainer(cfg, tokens, mask, config=bsp, seed=0, device=dev)
     per_round: list[dict] = []
     counts["tcp-bsp"] = {}
-    out = tcp_rounds("tcp-bsp", cfg, tokens, mask, dev, 3, ref=ref,
+    out = tcp_rounds("tcp-bsp", cfg, tokens, mask, dev, 2, ref=ref,
                      check=bsp_check, counts=counts["tcp-bsp"])
     path_counts_of("tcp-bsp", counts["tcp-bsp"], lm_kernels_)
     out["launches"] = counts["tcp-bsp"]
@@ -2565,7 +2586,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     t = time.perf_counter()
     frozen = launched_around(counts["tcp-from-servers"], lambda:
                              snap_mod.from_servers(out["addrs"], cfg,
-                                                   n_clients=2, min_round=3,
+                                                   n_clients=2, min_round=2,
                                                    device=dev))
     torch.cuda.synchronize()
     out["from_servers_s"] = time.perf_counter() - t
@@ -2626,18 +2647,18 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     wire_line("tcp-topk", out)
     torch.cuda.empty_cache()
 
-    # (c) tcp-ssp2: exact every round; NOT_MODIFIED on the stale rounds;
-    # kernel 2 on the refreshes (rounds 0 and 3) only.
+    # (c) tcp-ssp2: exact every round; NOT_MODIFIED on the stale round;
+    # kernel 2 on the refresh (round 0) only.
     counts["tcp-ssp2"] = {}
     torch.cuda.reset_peak_memory_stats()
-    out = tcp_rounds("tcp-ssp2", cfg, tokens, mask, dev, 4,
+    out = tcp_rounds("tcp-ssp2", cfg, tokens, mask, dev, 2,
                      tcfg_kw={"consistency": "ssp:2"},
-                     counts=counts["tcp-ssp2"], check=exact_check(3))
+                     counts=counts["tcp-ssp2"], check=exact_check(1))
     path_counts_of("tcp-ssp2", counts["tcp-ssp2"], lm_kernels_)
     refreshed = [p["refreshed"] for p in out["pull"]]
     k2 = counts["tcp-ssp2"].get("alias_build", 0)
-    if refreshed != [True, False, False, True] \
-            or out["alias_builds"] != 2 or k2 != 2:
+    if refreshed != [True, False] \
+            or out["alias_builds"] != 1 or k2 != 1:
         raise AssertionError(f"tcp-ssp2: pulls refreshed {refreshed}, alias "
                              f"builds {out['alias_builds']}, kernel 2 "
                              f"launched {k2}")
@@ -3766,6 +3787,333 @@ def mesh_gloo(cfg, tokens, mask, dev, root: Path) -> tuple[dict, dict]:
     return counts, summaries
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the LM side (models, one-card AdamW training, prefill, decode)
+# ---------------------------------------------------------------------------
+
+BF16_TENSOR_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores, data sheet
+# 16a: smollm-360m at full width and depth, the launcher's schedule.
+LM_TRAIN = {"arch": "smollm-360m", "batch": 8, "seq": 512, "steps": 30,
+            "decode": 16, "peak_lr": 1e-3, "warmup": 6}
+# 16b: the other nine at full width, depth cut to 2 layers (zamba2: one
+# group of 6 Mamba-2 layers and its shared block; whisper: 2 encoder and 2
+# decoder layers), batch 2 × 512.
+LM_DEPTH = {"zamba2-2.7b": {"n_layers": 6},
+            "whisper-large-v3": {"n_layers": 2, "encoder_layers": 2}}
+LM_BATCH = (2, 512)
+# Those whose 16-bytes-a-parameter training state at that depth stays under
+# ~40 GB take a train step at full width; every one takes one at reduced().
+LM_FULL_TRAIN = ("qwen2-1.5b", "qwen3-14b", "stablelm-1.6b", "rwkv6-3b",
+                 "whisper-large-v3", "zamba2-2.7b")
+LM_MULTI_DECODE = ("mixtral-8x7b", "rwkv6-3b", "zamba2-2.7b")
+# Decode against forward.  In bf16 the two paths round in different orders
+# (a decode step's one-row products; the SSMs' chunked against stepwise f32
+# recurrence, rounded to bf16), so their logits part by a gap: at most
+# 0.012 (smollm) to 0.175 (zamba2) on a row on an H100 (80GB HBM3, 700 W).
+# A top-2 margin below twice a row's gap may flip its argmax on that noise
+# alone, so "argmax equal wherever the margin exceeds 1e-2" would fail on a
+# near tie.  The check: every row's correlation above DECODE_CORR and its
+# largest gap within DECODE_GAP of its logits' range; the argmax flips on
+# rows whose margin exceeds ARGMAX_MARGIN are counted and printed (each
+# within its row's noise, as the gap bounds it).
+ARGMAX_MARGIN, DECODE_CORR, DECODE_GAP = 1e-2, 0.99, 0.1
+MICROBATCH_TOL = 5e-2        # tests/test_arch_smoke.py's bound
+
+
+def lm_inputs(cfg, b: int, s: int, seed: int, dev) -> dict:
+    """``lm_batches``'s affine tokens (b, s) on the card, plus the VLM's
+    patch embeddings or the audio frames: random bf16 from ``seed``."""
+    from repro_torch.data.synthetic import lm_batches
+
+    tokens = next(lm_batches(cfg.vocab_size, b, s, 1, seed=seed,
+                             kind="affine"))["tokens"]
+    out = {"tokens": torch.as_tensor(tokens, device=dev)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.randn(
+            (b, cfg.n_patches, cfg.vision_dim), generator=gen,
+            device=dev).to(torch.bfloat16)
+    if cfg.family == "audio":
+        out["frames"] = torch.randn((b, cfg.n_frames, cfg.d_model),
+                                    generator=gen, device=dev).to(
+                                        torch.bfloat16)
+    return out
+
+
+def synced_ms(fn):
+    """(result, ms) of ``fn()`` on the host's clock, closed by a sync."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def decode_check(label, cfg, params, batch, s: int, n: int) -> dict:
+    """Prefill of ``s`` tokens, then ``n`` decode steps fed the next
+    tokens, against the forward (causal, so its positions up to s + n - 1
+    see what the decode saw; ``batch`` holds a multiple of 64 tokens, the
+    SSMs' chunk), by the rule stated beside ARGMAX_MARGIN."""
+    from repro_torch.models import model
+
+    v = cfg.vocab_size
+    with torch.no_grad():
+        hidden, _ = model.forward(cfg, params, batch, remat=False)
+        want = model.logits_fn(cfg, params, hidden[:, s - 1:s + n])
+    del hidden
+    want = want[..., :v].float().cpu().numpy()
+    pre = dict(batch, tokens=batch["tokens"][:, :s])
+    (first, cache), prefill_ms = synced_ms(
+        lambda: model.prefill(cfg, params, pre, s + n))
+    got, step_ms = [first], []
+    for i in range(n):
+        (logits, cache), ms = synced_ms(lambda: model.decode_step(
+            cfg, params, cache, batch["tokens"][:, s + i:s + i + 1]))
+        got.append(logits)
+        step_ms.append(ms)
+    if int(cache["pos"]) != s + n:
+        raise AssertionError(f"{label}: cache pos {int(cache['pos'])}")
+    got = torch.cat(got, 1)[..., :v].float().cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite decode logits")
+    got, want = got.reshape(-1, v), want.reshape(-1, v)
+    top2 = np.sort(want, -1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    gap = np.abs(got - want).max(-1)
+    rel_gap = gap / (want.max(-1) - want.min(-1))
+    decided = margin > ARGMAX_MARGIN
+    flips = decided & (got.argmax(-1) != want.argmax(-1))
+    corr = min(np.corrcoef(g, w)[0, 1] for g, w in zip(got, want))
+    out = {"prefill_tokens": s, "decode_steps": n,
+           "prefill_ms": prefill_ms, "decode_ms": step_ms,
+           "rows": len(margin), "max_gap": float(gap.max()),
+           "max_rel_gap": float(rel_gap.max()),
+           "argmax_decided": int(decided.sum()),
+           "argmax_flips": int(flips.sum()), "min_corr": float(corr)}
+    if corr <= DECODE_CORR or out["max_rel_gap"] > DECODE_GAP:
+        raise AssertionError(f"{label}: decode against forward {out}")
+    return out
+
+
+def lm_smollm(dev, root: Path, card: str) -> dict:
+    """Phase 16a (see the module docstring)."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    a = LM_TRAIN
+    cfg = ARCHITECTURES[a["arch"]]
+    tcfg = TrainConfig(peak_lr=a["peak_lr"], warmup=a["warmup"],
+                       total_steps=a["steps"], loss_chunk=a["seq"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, seed=0, device=dev)
+    opt = adamw.init(params)
+    step = make_train_step(cfg, tcfg, device=dev)
+    data = list(lm_batches(cfg.vocab_size, a["batch"], a["seq"],
+                           a["steps"] + 1, seed=1, kind="affine"))
+    losses, ms = [], []
+    for i in range(a["steps"]):
+        (params, opt, met), t = synced_ms(lambda: step(params, opt, data[i]))
+        losses.append(float(met["loss"]))
+        ms.append(t)
+        if not (np.isfinite(losses[-1]) and np.isfinite(
+                float(met["grad_norm"]))):
+            raise AssertionError(f"lm-train step {i}: loss {losses[-1]}")
+        print(f"LM 16a {cfg.name} step {i} loss={losses[-1]:.4f} "
+              f"grad_norm={float(met['grad_norm']):.3f} "
+              f"lr={float(met['lr']):.2e} {t:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        raise AssertionError(f"lm-train: loss did not fall: {losses}")
+    tokens = a["batch"] * a["seq"]
+    step_ms = statistics.median(ms[2:])
+    n_active = cfg.active_param_count()
+    flops = 6 * n_active * tokens / (step_ms / 1e3)
+    summary = {"arch": cfg.name, "batch": a["batch"], "seq": a["seq"],
+               "steps": a["steps"], "params": cfg.param_count(),
+               "active_params": n_active, "loss_first5": first5,
+               "loss_last5": last5, "step_ms_median": step_ms,
+               "step_ms": ms, "tokens_per_s": tokens / (step_ms / 1e3),
+               "peak_gib": peak, "model_flops_per_s": flops,
+               "bf16_peak_share": flops / BF16_TENSOR_FLOPS, "card": card}
+
+    # The checkpoint round trip: restored tensors bit-equal to the saved
+    # ones; the next step from them within the spread of two twin steps.
+    shutil.rmtree(root, ignore_errors=True)
+    tree = {"params": params, "opt": opt._asdict()}
+    _, save_ms = synced_ms(lambda: ckpt.save(str(root), cfg.name,
+                                             a["steps"], tree))
+    back, restore_ms = synced_ms(lambda: ckpt.restore(str(root), cfg.name,
+                                                      tree))
+    nbytes = sum(f.stat().st_size for f in root.glob("*.npz"))
+    shutil.rmtree(root, ignore_errors=True)
+    equal = all(torch.equal(x, y.cpu()) for x, y in
+                zip(model.leaves(back), model.leaves(tree)))
+    if not equal:
+        raise AssertionError("lm-train: restored tensors differ")
+    del tree
+
+    def on_card(tr):
+        return model.map_tree(lambda t_: t_.to(dev), tr)
+
+    def clone(tr):
+        return model.map_tree(lambda t_: t_.clone(), tr)
+
+    restored = (on_card(back["params"]),
+                adamw.AdamWState(back["opt"]["step"].to(dev),
+                                 on_card(back["opt"]["m"]),
+                                 on_card(back["opt"]["v"])))
+    del back
+    twin = (clone(params), adamw.AdamWState(opt.step.clone(), clone(opt.m),
+                                            clone(opt.v)))
+    halves = (clone(params), adamw.AdamWState(opt.step.clone(),
+                                              clone(opt.m), clone(opt.v)))
+    nxt = data[-1]
+    mb2 = make_train_step(cfg, TrainConfig(
+        peak_lr=a["peak_lr"], warmup=a["warmup"], total_steps=a["steps"],
+        loss_chunk=a["seq"], microbatches=2), device=dev)
+    params, opt, m_a = step(params, opt, nxt)
+    p_b, _, m_b = step(*twin, nxt)
+    _, _, m_r = step(*restored, nxt)
+    _, _, m_2 = mb2(*halves, nxt)
+    l_a, l_b, l_r, l_2 = (float(m["loss"]) for m in (m_a, m_b, m_r, m_2))
+    twins_equal = all(torch.equal(x, y) for x, y in
+                      zip(model.leaves(params), model.leaves(p_b)))
+    spread = abs(l_a - l_b)
+    del twin, halves, restored, p_b
+    summary.update({
+        "ckpt": {"bytes": nbytes, "save_s": save_ms / 1e3,
+                 "restore_s": restore_ms / 1e3, "bit_equal": equal,
+                 "next_loss": l_r, "twin_losses": [l_a, l_b],
+                 "twins_bit_equal": twins_equal},
+        "microbatches_2": {"loss": l_2, "loss_1": l_a,
+                           "rel": abs(l_2 - l_a) / max(1.0, abs(l_a))}})
+    if abs(l_r - l_a) > spread:
+        raise AssertionError(f"lm-train: resumed step loss {l_r} outside "
+                             f"the twins' {l_a}, {l_b}")
+    if abs(l_2 - l_a) >= MICROBATCH_TOL * max(1.0, abs(l_a)):
+        raise AssertionError(f"lm-train: 2 microbatches {l_2} against 1 "
+                             f"{l_a}")
+
+    batch = lm_inputs(cfg, a["batch"], a["seq"] + 64, 2, dev)
+    summary["decode"] = decode_check("lm-decode " + cfg.name, cfg, params,
+                                     batch, a["seq"], a["decode"])
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    print(f"LM 16a {cfg.name} {a['batch']}x{a['seq']}: "
+          f"{summary['tokens_per_s']:.0f} tokens/s, step {step_ms:.1f} ms "
+          f"(median after 2), peak {peak:.2f} GiB, model FLOPs/s "
+          f"{flops / 1e12:.1f}T = {summary['bf16_peak_share']:.3f} of the "
+          f"bf16 dense peak (989T) on {card}", flush=True)
+    print(f"LM 16a {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def lm_full_width(arch: str, seed: int, dev, card: str) -> dict:
+    """Phase 16b for one architecture at full width, depth cut: forward,
+    prefill and decode against forward, and a train step where it fits."""
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    b, s = LM_BATCH
+    cfg = ARCHITECTURES[arch].replace(**LM_DEPTH.get(arch, {"n_layers": 2}))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, seed=seed, device=dev)
+    n = 3 if arch in LM_MULTI_DECODE else 1
+    batch = lm_inputs(cfg, b, s + 64, 10 + seed, dev)
+    fwd_batch = dict(batch, tokens=batch["tokens"][:, :s])
+    with torch.no_grad():
+        model.forward(cfg, params, fwd_batch, remat=False)      # warm-up
+        (hidden, _), fwd_ms = synced_ms(lambda: model.forward(
+            cfg, params, fwd_batch, remat=False))
+    if not bool(torch.isfinite(hidden).all()):
+        raise AssertionError(f"lm {arch}: non-finite hidden states")
+    del hidden
+    # routing drops depend on the batch: lift the capacity, as the
+    # reference's round-trip test does, so forward and decode compare
+    dcfg = cfg.replace(capacity_factor=float(cfg.n_experts)) \
+        if cfg.n_experts else cfg
+    entry = {"config": {k: getattr(cfg, k) for k in (
+        "n_layers", "encoder_layers", "d_model", "n_heads", "n_kv_heads",
+        "d_ff", "vocab_size", "n_experts")},
+        "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(), "forward_ms": fwd_ms,
+        "forward_tokens_per_s": b * s / (fwd_ms / 1e3),
+        "decode": decode_check(f"lm {arch}", dcfg, params, batch, s, n)}
+    del batch
+    if arch in LM_FULL_TRAIN:
+        opt = adamw.init(params)
+        step = make_train_step(cfg, TrainConfig(loss_chunk=s), device=dev)
+        train_batch = lm_inputs(cfg, b, s, 20 + seed, dev)
+        (_, _, met), ms = synced_ms(lambda: step(params, opt, train_batch))
+        loss = float(met["loss"])
+        if not (np.isfinite(loss) and float(met["grad_norm"]) > 0):
+            raise AssertionError(f"lm {arch}: train step {met}")
+        flops = 6 * cfg.active_param_count() * b * s / (ms / 1e3)
+        entry["train"] = {"step_ms": ms, "loss": loss,
+                          "grad_norm": float(met["grad_norm"]),
+                          "model_flops_per_s": flops,
+                          "bf16_peak_share": flops / BF16_TENSOR_FLOPS}
+        del opt, train_batch
+    entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    train = entry.get("train")
+    print(f"LM 16b {arch} (full width, {cfg.n_layers} layers): forward "
+          f"{fwd_ms:.1f} ms ({entry['forward_tokens_per_s']:.0f} "
+          f"tokens/s), prefill {entry['decode']['prefill_ms']:.1f} ms, "
+          f"decode {statistics.median(entry['decode']['decode_ms']):.2f}"
+          " ms a step, train "
+          + (f"{train['step_ms']:.1f} ms ({train['bf16_peak_share']:.3f}"
+             " of the bf16 peak)" if train else "not at full width")
+          + f", peak {entry['peak_gib']:.2f} GiB on {card}", flush=True)
+    return entry
+
+
+def lm_reduced_step(arch: str, seed: int, dev) -> dict:
+    """One train step of ``arch`` at ``reduced()`` size on the card, so
+    every family's backward runs there."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = reduced(ARCHITECTURES[arch])
+    params = model.init_params(cfg, seed=seed, device=dev)
+    step = make_train_step(cfg, TrainConfig(loss_chunk=64), device=dev)
+    (_, _, met), ms = synced_ms(lambda: step(
+        params, adamw.init(params), lm_inputs(cfg, 2, 64, 30 + seed, dev)))
+    if not np.isfinite(float(met["loss"])):
+        raise AssertionError(f"lm {arch} reduced: train step {met}")
+    return {"step_ms": ms, "loss": float(met["loss"])}
+
+
+def lm_phase(dev, root: Path, card: str) -> dict:
+    """Phase 16: 16a, then 16b (the other nine at full width; all ten at
+    reduced() size); returns their summaries."""
+    from repro_torch.configs.registry import ARCHITECTURES
+
+    out = {"16a": lm_smollm(dev, root, card), "16b": {}}
+    for i, arch in enumerate(sorted(ARCHITECTURES)):
+        entry = {} if arch == LM_TRAIN["arch"] else lm_full_width(
+            arch, i, dev, card)
+        entry["reduced_train"] = lm_reduced_step(arch, i, dev)
+        print(f"LM 16b {arch} {json.dumps(entry)}", flush=True)
+        out["16b"][arch] = entry
+    return out
+
 def sum_device_ms(fn, reps: int) -> float:
     """Median milliseconds, on the device's clock, of all the device work
     one call of ``fn`` enqueues (several kernels): a torch.profiler trace
@@ -4043,6 +4391,12 @@ def main() -> int:
     counts.update(mesh_counts)
     phase("mesh-gloo", t2)
     phase("mesh", t)
+
+    # --------------------------------------------------------- phase 16
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm_phase(dev, ROOT / "build" / "phase16", card)
+    phase("lm", t)
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

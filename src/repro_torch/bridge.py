@@ -12,6 +12,12 @@ converters take the port's family (or its NamedTuple class), LDA by
 default.  Like every entry point of the port, the converters put their
 tensors on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`repro_torch.device.resolve`).
+
+The LM side's state is a tree: nested dicts of arrays with the
+reference's paths (``jax.tree.map(np.asarray, params)``).  The LM
+converters carry parameters, AdamW's ``(step, m, v)`` and the decode cache
+leaf by leaf; a bfloat16 leaf (numpy's ``bfloat16`` extension type, the
+reference's KV caches) arrives as a bfloat16 tensor and leaves as float32.
 """
 
 from __future__ import annotations
@@ -54,6 +60,68 @@ def from_numpy(cls, arrays: Mapping[str, Any], device=None):
     dev = device_mod.resolve(device)
     return cls(**{f: torch.tensor(np.asarray(arrays[f]), device=dev)
                   for f in cls._fields})
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def _array(t) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _tree_from(tree, dev):
+    return {k: _tree_from(v, dev) if isinstance(v, Mapping)
+            else _tensor(v, dev) for k, v in tree.items()}
+
+
+def _tree_to(tree):
+    return {k: _tree_to(v) if isinstance(v, Mapping) else _array(v)
+            for k, v in tree.items()}
+
+
+def lm_params_from(tree: Mapping, device=None) -> dict:
+    """An LM parameter tree of tensors from the reference's tree of
+    arrays (same paths, shapes and dtypes)."""
+    return _tree_from(tree, device_mod.resolve(device))
+
+
+def lm_params_to(params: Mapping) -> dict:
+    """An LM parameter tree as nested dicts of numpy arrays."""
+    return _tree_to(params)
+
+
+def adamw_state_from(state, device=None):
+    """The port's ``AdamWState`` from the reference's (its NamedTuple or
+    ``_asdict()``, arrays or trees of arrays)."""
+    from repro_torch.optim.adamw import AdamWState
+    fields = state if isinstance(state, Mapping) else state._asdict()
+    dev = device_mod.resolve(device)
+    return AdamWState(step=_tensor(fields["step"], dev),
+                      m=_tree_from(fields["m"], dev),
+                      v=_tree_from(fields["v"], dev))
+
+
+def adamw_state_to(state) -> dict:
+    """``{"step", "m", "v"}`` of numpy arrays, the reference's
+    ``AdamWState._asdict()`` layout."""
+    return {"step": _array(state.step), "m": _tree_to(state.m),
+            "v": _tree_to(state.v)}
+
+
+def lm_cache_from(cache: Mapping, device=None) -> dict:
+    """A decode cache (``pos``, ``key_pos``, per-family layers) from the
+    reference's ``prefill``/``init_cache`` tree."""
+    return _tree_from(cache, device_mod.resolve(device))
+
+
+def lm_cache_to(cache: Mapping) -> dict:
+    return _tree_to(cache)
 
 
 def to_numpy(nt) -> dict[str, np.ndarray]:

@@ -1,0 +1,11 @@
+"""Mixtral 8x7B — sparse MoE with sliding-window attention [arXiv:2401.04088]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x7b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=32000,
+    n_experts=8, top_k=2,
+    sliding_window=4096, rope_theta=1e6,
+    citation="[arXiv:2401.04088]",
+)

@@ -1,0 +1,10 @@
+"""Qwen2 1.5B — dense GQA with QKV bias [arXiv:2407.10671]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-1.5b", family="dense",
+    n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2, head_dim=128,
+    d_ff=8960, vocab_size=151936,
+    attn_bias=True, rope_theta=1e6,
+    citation="[arXiv:2407.10671]",
+)

@@ -1,8 +1,10 @@
-"""Synthetic power-law topic corpora (port of ``repro.data.synthetic``).
+"""Synthetic power-law topic corpora and LM token streams (port of
+``repro.data.synthetic``).
 
 numpy only.  For equal :class:`CorpusConfig` values the corpus equals the
-reference's array for array: the generator draws the same numbers from the
-same ``default_rng`` in the same order.
+reference's array for array, and :func:`lm_batches` yields the reference's
+batches: the generator draws the same numbers from the same
+``default_rng`` in the same order.
 """
 
 from __future__ import annotations
@@ -181,3 +183,51 @@ def shard_corpus(tokens, mask, n_shards: int):
     per = d // n_shards
     return [(tokens[i * per:(i + 1) * per], mask[i * per:(i + 1) * per])
             for i in range(n_shards)]
+
+
+# ---------------------------------------------------------------------------
+# LM token stream (for the assigned-architecture trainer; the
+# reference's generator, draw for draw)
+# ---------------------------------------------------------------------------
+
+def lm_batches(vocab_size: int, batch: int, seq_len: int, n_batches: int,
+               seed: int = 0, kind: str = "markov", noise: float = 0.1):
+    """Synthetic language streams without external data.
+
+    kind="affine": next = (3·cur + 1) mod V with ``noise`` random tokens —
+      near-deterministic, learnable to ~1-2 nats within tens of steps (used
+      by convergence tests / examples).
+    kind="markov": sparse random 2nd-order Markov chain — harder, used for
+      longer training runs.
+    """
+    rng = np.random.default_rng(seed)
+    if kind == "affine":
+        for _ in range(n_batches):
+            out = np.zeros((batch, seq_len), np.int64)
+            out[:, 0] = rng.integers(0, vocab_size, size=batch)
+            flip = rng.random((batch, seq_len)) < noise
+            rnd = rng.integers(0, vocab_size, size=(batch, seq_len))
+            for t in range(1, seq_len):
+                nxt = (out[:, t - 1] * 3 + 1) % vocab_size
+                out[:, t] = np.where(flip[:, t], rnd[:, t], nxt)
+            yield {"tokens": out.astype(np.int32)}
+        return
+    branch = 8
+    # successor table: each (context hash) -> `branch` candidate tokens.
+    # Context count scales with vocab so small test vocabularies stay
+    # learnable within tens of steps.
+    n_ctx = min(1 << 16, 4 * vocab_size)
+    succ = rng.integers(0, vocab_size, size=(n_ctx, branch), dtype=np.int64)
+
+    def hash_ctx(a, b):
+        return ((a * 1000003) ^ b) % n_ctx
+
+    for i in range(n_batches):
+        out = np.zeros((batch, seq_len), np.int64)
+        out[:, 0] = rng.integers(0, vocab_size, size=batch)
+        out[:, 1] = rng.integers(0, vocab_size, size=batch)
+        choice = rng.integers(0, branch, size=(batch, seq_len))
+        for t in range(2, seq_len):
+            ctx = hash_ctx(out[:, t - 2], out[:, t - 1])
+            out[:, t] = succ[ctx, choice[:, t]]
+        yield {"tokens": out.astype(np.int32)}

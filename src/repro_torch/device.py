@@ -27,8 +27,9 @@ Key = tuple[int, ...]
 # Purposes of the streams a run draws (second element of every key): AUX
 # keys the per-round auxiliary step (HDP's table counts and θ0); SERVE
 # keys a served request's chain, (request seed, SERVE) at its root; FILTER
-# keys a client's communication filter, (seed, FILTER, round, client).
-INIT, SWEEP, EVAL, AUX, SERVE, FILTER = 0, 1, 2, 3, 4, 5
+# keys a client's communication filter, (seed, FILTER, round, client);
+# MODEL keys an LM's initial weights, (seed, MODEL).
+INIT, SWEEP, EVAL, AUX, SERVE, FILTER, MODEL = 0, 1, 2, 3, 4, 5, 6
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:

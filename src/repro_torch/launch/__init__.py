@@ -1,2 +1,2 @@
-"""Launchers of the port's processes: ``serve`` and ``loopback`` (ports
-of ``repro.launch.serve`` and ``repro.launch.loopback``)."""
+"""Launchers of the port's processes: ``serve``, ``loopback``, ``mesh``
+and ``train`` (ports of the modules of ``repro.launch`` of those names)."""

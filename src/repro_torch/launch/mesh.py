@@ -15,7 +15,8 @@ ranks on one card: NCCL refuses two ranks on one device).  A rank on
 ``cuda`` uses card ``rank % device_count``.
 
 The reference's ``make_production_mesh`` and its TPU v5e roofline
-constants belong to the LM stack and wait for ROADMAP.md queue A.13.
+constants belong to the LM stack's pod dry run and wait for ROADMAP.md
+queue A.13c.
 """
 
 from __future__ import annotations

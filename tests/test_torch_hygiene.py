@@ -4,6 +4,8 @@
   ``tools/torch_*.py`` scripts, imports ``jax`` or the reference package
   ``repro`` (an AST scan of every import).
 * ``Trainer``, the family sweep, ``ops.*``, the ``bridge`` converters, the
+  LM side's (``LM``, ``init_params``, ``make_train_step``, the training
+  launcher's CLI, ``bridge.lm_params_from``), the
   serving entry points (``freeze``, ``from_checkpoint``, ``FoldInEngine``,
   ``reference_fold_in``, ``InferenceServer`` and its CLI,
   ``launch_serve``) and the wire's (shard servers, the client, their
@@ -33,7 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_topics_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "distributed_lvm_torch.py"
+    ROOT / "examples" / "distributed_lvm_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"
 ] + sorted((ROOT / "tools").glob("torch_*.py"))
 
 
@@ -65,7 +68,10 @@ def test_scan_covers_the_package():
             "protocol.py", "serve.py", "serve_topics_torch.py",
             "quickstart_torch.py",
             "fault.py", "server.py", "round.py", "distributed.py",
-            "mesh.py", "collectives.py", "distributed_lvm_torch.py"} <= names
+            "mesh.py", "collectives.py", "distributed_lvm_torch.py",
+            "model.py", "layers.py", "moe.py", "linear_attn.py", "ssm.py",
+            "adamw.py", "loss.py", "train_step.py", "sync.py", "train.py",
+            "registry.py", "smollm_360m.py", "train_lm_torch.py"} <= names
     serving = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/server.py",
             "src/repro_torch/serve/engine.py",
@@ -78,7 +84,12 @@ def test_scan_covers_the_package():
             "src/repro_torch/net/chaos.py",
             "src/repro_torch/launch/loopback.py",
             "src/repro_torch/launch/mesh.py",
-            "src/repro_torch/core/collectives.py"} <= serving
+            "src/repro_torch/core/collectives.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/models/model.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/train/train_step.py"} <= serving
 
 
 def test_filter_keys_collide_with_no_other_stream(monkeypatch):
@@ -323,6 +334,51 @@ def test_mesh_requires_card_unless_cpu_asked(call, monkeypatch):
         fns[call]()
     assert mesh.default_backend("cpu") == "gloo"
     assert mesh.default_backend("cuda") == "nccl"
+
+
+@pytest.mark.parametrize("call", ["LM", "init_params", "make_train_step",
+                                  "launch_train", "lm_params_from",
+                                  "example"])
+def test_lm_requires_card_unless_cpu_asked(call, monkeypatch):
+    """The LM side's entry points run on ``cuda`` unless the CPU is asked
+    for, and raise without a card: the model, its weights, the training
+    step that places its inputs, the launcher's and the example's CLIs and
+    the bridge's converter of the reference's weights."""
+    import importlib.util
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step
+
+    _no_card(monkeypatch)
+    cfg = reduced(ARCHITECTURES["smollm-360m"]).replace(n_layers=1,
+                                                        vocab_size=256)
+    tree = model.init_params(cfg, device="cpu")
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    tokens = np.zeros((2, 8), np.int32)
+    argv = ["--reduced", "--steps", "1", "--batch", "2", "--seq", "8"]
+    fns = {
+        "LM": lambda **kw: model.LM(cfg, **kw).forward({"tokens": tokens}),
+        "init_params": lambda **kw: model.init_params(cfg, **kw),
+        "make_train_step": lambda **kw: train_step.make_train_step(
+            cfg, train_step.TrainConfig(loss_chunk=8), **kw)(
+                tree, adamw.init(tree), {"tokens": tokens}),
+        "launch_train": lambda device="cuda": launch_train.main(
+            argv + ["--device", device]),
+        "lm_params_from": lambda **kw: bridge.lm_params_from(
+            bridge.lm_params_to(tree), **kw),
+        "example": lambda device="cuda": example.main(
+            ["--steps", "1", "--batch", "2", "--seq", "8",
+             "--device", device])}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    fns[call](device="cpu")
 
 
 @pytest.mark.parametrize("call", ["build_tables", "gather", "sweep"])
