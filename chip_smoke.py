@@ -110,13 +110,13 @@ phase's final trainer; ``serve_path``):
    snapshot's bytes, save and restore seconds.  The snapshots are deleted.
 13. The wire, on phase 4's LDA (two clients, two shard servers, in
    threads of this process unless said): (a) tcp-bsp, a tcp Trainer with
-   both clients over 2 rounds, after each n_wk and every client's z and
+   both clients over 1 round, after it n_wk and every client's z and
    n_dk bit-equal to an in-process BSP trainer, exact, its round ms beside
    the in-process round, a pull's and a push's bytes and frames, a pull
    timed by stage (``pull_breakdown``), then ``serve.from_servers`` equal
    to ``freeze`` of the in-process statistics; sparse pushes without a
    filter over 1 round, equal to (a)'s first; (b) tcp-topk, the
-   top-k filter with sparse pushes over 2 rounds: counts − (n_wk + Σ
+   top-k filter with sparse pushes over 1 round: counts − (n_wk + Σ
    residuals) == 0.0, at most 17,408 rows a push; (c) tcp-ssp2 over 2
    rounds: exact, NOT_MODIFIED on the stale round, kernel 2 on the
    refresh only; (d) tcp-pdp, phase 6's PDP over 1 round, bit-equal to
@@ -166,13 +166,13 @@ phase's final trainer; ``serve_path``):
    the upper half of the 65,536-row n_dk, the list build on that whole
    n_dk, kernels 8 and 9 on the first scan position (B = 65,536); (b) a
    2×2 gloo mesh of four processes with their tensors on this card (NCCL
-   refuses two ranks on one device), two clients of 32,768 documents: 3 rounds under
+   refuses two ranks on one device), two clients of 32,768 documents: 2 rounds under
    Algorithm 2 over the model group (the last profiled on rank 0), then 2
    under Algorithm 1 over two server shards with client 1 dead in the
    last; every rank's state (SHA-256 of each statistic, its client's
    locals, the row mass; the clocks) equal to every other's and to the
    rounds composed here from the same keys, exact on the rounds with both
-   clients live, clocks [3, 3] and [2, 1]; then ``sync_compressed`` of
+   clients live, clocks [2, 2] and [2, 1]; then ``sync_compressed`` of
    each client's next delta (top-k 16,384 + 1,024 rows) equal to the sum
    of the clients' ``decompress_delta`` computed here.  MESH lines carry
    each round's ms, tokens/s, each collective's bytes and ms, peak memory
@@ -182,7 +182,7 @@ phase's final trainer; ``serve_path``):
 16. The LM side (``repro_torch.models``, ``train``, ``optim``; no kernel
    of its own: the reference's LM path reaches no Pallas kernel).  (a)
    smollm-360m at full width and depth (32 layers, d 960, vocabulary
-   49,152; 0.36 B parameters): 30 AdamW steps of 8 × 512 ``lm_batches``
+   49,152; 0.36 B parameters): 20 AdamW steps of 8 × 512 ``lm_batches``
    tokens with remat, the loss finite at every step and its last five
    steps' mean below its first five's; a checkpoint of the
    ``{"params", "opt"}`` tree under build/phase16 (deleted after) read
@@ -191,14 +191,40 @@ phase's final trainer; ``serve_path``):
    5e-2; prefill of 512 tokens and 16 decode steps against the forward
    (``decode_check``); LM lines with tokens/s, step ms, peak GiB and
    model FLOPs/s (6·N_active·tokens) as a share of the bf16 dense peak.
-   (b) the other nine at full width, depth cut to 2 layers (zamba2: one
-   group of 6 Mamba-2 layers and its shared block; whisper: 2 encoder and
+   (b) the other nine at full width, depth cut to 1 layer (zamba2: one
+   group of 6 Mamba-2 layers and its shared block; whisper: 1 encoder and
    2 decoder layers), batch 2 × 512, random bf16 patch embeddings and
    audio frames: the forward timed, prefill and 1 decode step (3 for
    mixtral, rwkv6 and zamba2) against the forward, one full-width train
    step for those whose 16-byte-a-parameter state fits (``LM_FULL_TRAIN``),
    and one train step of each of the ten at ``reduced()`` size; each
    model freed before the next.
+
+17. The LM side over a (data, model) mesh (``train/sharding.py``, the
+   mesh step of ``train/train_step.py``; no kernel of its own).  (a)
+   NCCL at world size 1 in this process: one step in each of megatron,
+   zero_seq and zero_batch from 16a's final state on its batch, bit-equal
+   to the one-card step (under the zero modes the one-card step under the
+   mode's activation spec, which holds the block weights in bf16 as the
+   reference's zero modes do; the largest difference to the plain step is
+   printed).  (b) A 2×2 gloo mesh of four processes with their tensors on
+   the card (``mesh_lm_rank``): smollm-360m at full width, depth cut to 8
+   layers, 8 × 512 ``lm_batches`` tokens, three steps a mode from the
+   seed's weights against the same steps on one card: each step's loss
+   and grad_norm and the gathered parameters after the last (Frobenius of
+   the difference over that of the update) within MESH_LM_MARGIN times
+   the one-card run's own spread against two and four microbatches, and
+   at least MESH_LM_FLOOR; every rank's metrics equal, every rank's
+   parameter, m and v blocks of their specs' shapes; the resident bytes
+   a rank beside one card's; ``make_sync_fns``' top-k push (TOPK's rows)
+   equal, digest for digest, to the sum of the clients' ``filter_tree``
+   computed here.  (c) phi3.5-moe at full width (d 4096, 16 experts, d_ff
+   6400), one layer, zero_batch with ``moe_groups`` 4 (one group a rank):
+   ``_moe_a2a``'s block against the one-process grouped dispatch on the
+   same tokens (within MESH_MOE_TOL; the one-process side runs first and
+   is freed), its all_to_all spans present, then one train step.  MESH-LM
+   lines carry step ms and tokens/s, each collective's calls, bytes and
+   ms from a profiled step's spans, the peak GiB a rank and the card.
 
 Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
 serve-hdp, serve-lda-fused, phase 12's bsp, ssp2, ssp2-incremental,
@@ -2577,7 +2603,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     ref = Trainer(cfg, tokens, mask, config=bsp, seed=0, device=dev)
     per_round: list[dict] = []
     counts["tcp-bsp"] = {}
-    out = tcp_rounds("tcp-bsp", cfg, tokens, mask, dev, 2, ref=ref,
+    out = tcp_rounds("tcp-bsp", cfg, tokens, mask, dev, 1, ref=ref,
                      check=bsp_check, counts=counts["tcp-bsp"])
     path_counts_of("tcp-bsp", counts["tcp-bsp"], lm_kernels_)
     out["launches"] = counts["tcp-bsp"]
@@ -2586,7 +2612,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     t = time.perf_counter()
     frozen = launched_around(counts["tcp-from-servers"], lambda:
                              snap_mod.from_servers(out["addrs"], cfg,
-                                                   n_clients=2, min_round=2,
+                                                   n_clients=2, min_round=1,
                                                    device=dev))
     torch.cuda.synchronize()
     out["from_servers_s"] = time.perf_counter() - t
@@ -2639,7 +2665,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
 
     counts["tcp-topk"] = {}
     torch.cuda.reset_peak_memory_stats()
-    out = tcp_rounds("tcp-topk", cfg, tokens, mask, dev, 2,
+    out = tcp_rounds("tcp-topk", cfg, tokens, mask, dev, 1,
                      tcfg_kw={"filter": spec, "sparse_push": True},
                      counts=counts["tcp-topk"], check=conserved)
     path_counts_of("tcp-topk", counts["tcp-topk"], lm_kernels_)
@@ -3175,7 +3201,7 @@ MESH_TIMEOUT_S = 300.0
 # Phase 15b's runs on the 2x2 gloo mesh: (path, server shards, each
 # round's live flags); the last round of the first run is profiled on
 # rank 0.
-MESH_PLAN = (("mesh-2x2-alg2", 1, ([True, True],) * 3),
+MESH_PLAN = (("mesh-2x2-alg2", 1, ([True, True],) * 2),
              ("mesh-2x2-alg1", 2, ([True, True], [True, False])))
 MESH_SYNC_KEY = 9
 
@@ -3281,7 +3307,8 @@ def states_differ(fam, server, a, b) -> list[str]:
     return out
 
 
-COLLECTIVE = re.compile(r"(all_reduce|all_gather) (.*) \((\d+) B\)")
+COLLECTIVE = re.compile(
+    r"(all_reduce|all_gather|reduce_scatter|all_to_all) (.*) \((\d+) B\)")
 
 
 def collective_spans(events) -> list[dict]:
@@ -3702,7 +3729,7 @@ def mesh_gloo(cfg, tokens, mask, dev, root: Path) -> tuple[dict, dict]:
                                          f"{err}")
             expect[label].append(state_digests(fam, server, state,
                                                dict(enumerate(locals_))))
-    want_clocks = {"mesh-2x2-alg2": [3, 3], "mesh-2x2-alg1": [2, 1]}
+    want_clocks = {"mesh-2x2-alg2": [2, 2], "mesh-2x2-alg1": [2, 1]}
     state = server.refresh_proposal(cfg, state)
     spec = ps.FilterSpec("topk", **TOPK)
     want_sync = None
@@ -3793,13 +3820,13 @@ def mesh_gloo(cfg, tokens, mask, dev, root: Path) -> tuple[dict, dict]:
 
 BF16_TENSOR_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores, data sheet
 # 16a: smollm-360m at full width and depth, the launcher's schedule.
-LM_TRAIN = {"arch": "smollm-360m", "batch": 8, "seq": 512, "steps": 30,
+LM_TRAIN = {"arch": "smollm-360m", "batch": 8, "seq": 512, "steps": 20,
             "decode": 16, "peak_lr": 1e-3, "warmup": 6}
-# 16b: the other nine at full width, depth cut to 2 layers (zamba2: one
-# group of 6 Mamba-2 layers and its shared block; whisper: 2 encoder and 2
-# decoder layers), batch 2 × 512.
+# 16b: the other nine at full width, depth cut to 1 layer (zamba2: one
+# group of 6 Mamba-2 layers and its shared block; whisper: 1 encoder and 1
+# decoder layer), batch 2 × 512.
 LM_DEPTH = {"zamba2-2.7b": {"n_layers": 6},
-            "whisper-large-v3": {"n_layers": 2, "encoder_layers": 2}}
+            "whisper-large-v3": {"n_layers": 1, "encoder_layers": 1}}
 LM_BATCH = (2, 512)
 # Those whose 16-bytes-a-parameter training state at that depth stays under
 # ~40 GB take a train step at full width; every one takes one at reduced().
@@ -3896,8 +3923,9 @@ def decode_check(label, cfg, params, batch, s: int, n: int) -> dict:
     return out
 
 
-def lm_smollm(dev, root: Path, card: str) -> dict:
-    """Phase 16a (see the module docstring)."""
+def lm_smollm(dev, root: Path, card: str, keep: dict | None = None) -> dict:
+    """Phase 16a (see the module docstring); its final state, batch and
+    schedule go into ``keep`` (on the host) for phase 17a."""
     import shutil
 
     from repro_torch.checkpoint import ckpt
@@ -4006,6 +4034,12 @@ def lm_smollm(dev, root: Path, card: str) -> dict:
     batch = lm_inputs(cfg, a["batch"], a["seq"] + 64, 2, dev)
     summary["decode"] = decode_check("lm-decode " + cfg.name, cfg, params,
                                      batch, a["seq"], a["decode"])
+    if keep is not None:      # phase 17a's state and batch, on the host
+        keep.update(params=model.map_tree(lambda t_: t_.cpu(), params),
+                    opt=adamw.AdamWState(opt.step.cpu(), model.map_tree(
+                        lambda t_: t_.cpu(), opt.m), model.map_tree(
+                            lambda t_: t_.cpu(), opt.v)),
+                    batch=nxt, tcfg=tcfg)
     del params, opt, batch
     torch.cuda.empty_cache()
     print(f"LM 16a {cfg.name} {a['batch']}x{a['seq']}: "
@@ -4026,7 +4060,7 @@ def lm_full_width(arch: str, seed: int, dev, card: str) -> dict:
     from repro_torch.train.train_step import TrainConfig, make_train_step
 
     b, s = LM_BATCH
-    cfg = ARCHITECTURES[arch].replace(**LM_DEPTH.get(arch, {"n_layers": 2}))
+    cfg = ARCHITECTURES[arch].replace(**LM_DEPTH.get(arch, {"n_layers": 1}))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = model.init_params(cfg, seed=seed, device=dev)
@@ -4100,12 +4134,12 @@ def lm_reduced_step(arch: str, seed: int, dev) -> dict:
     return {"step_ms": ms, "loss": float(met["loss"])}
 
 
-def lm_phase(dev, root: Path, card: str) -> dict:
+def lm_phase(dev, root: Path, card: str, keep: dict | None = None) -> dict:
     """Phase 16: 16a, then 16b (the other nine at full width; all ten at
     reduced() size); returns their summaries."""
     from repro_torch.configs.registry import ARCHITECTURES
 
-    out = {"16a": lm_smollm(dev, root, card), "16b": {}}
+    out = {"16a": lm_smollm(dev, root, card, keep), "16b": {}}
     for i, arch in enumerate(sorted(ARCHITECTURES)):
         entry = {} if arch == LM_TRAIN["arch"] else lm_full_width(
             arch, i, dev, card)
@@ -4113,6 +4147,558 @@ def lm_phase(dev, root: Path, card: str) -> dict:
         print(f"LM 16b {arch} {json.dumps(entry)}", flush=True)
         out["16b"][arch] = entry
     return out
+
+# ---------------------------------------------------------------------------
+# Phase 17: the LM side over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_LM_MODES = ("megatron", "zero_seq", "zero_batch")
+# 17b: smollm-360m at full width, depth cut to 8 layers, 8 x 512 tokens,
+# three steps a mode on a 2x2 gloo mesh of four processes on the card.
+MESH_LM = {"arch": "smollm-360m", "n_layers": 8, "batch": 8, "seq": 512,
+           "steps": 3, "peak_lr": 1e-3}
+# The mesh against the one-card steps: each bound is MESH_LM_MARGIN times
+# the one-card run's own spread (two and four microbatches against one:
+# the same sums in the row splits of the mesh's ranks), and at least the
+# floor: 2^-8 relative for the loss and the grad norm (bf16's epsilon), and
+# 0.05 for the parameters after the last step (Frobenius of the difference
+# over that of the update; AdamW's steps amplify a gradient's last bits
+# where it changes sign between steps).
+MESH_LM_MARGIN = 4.0
+MESH_LM_FLOOR = {"loss": 2.0 ** -8, "grad_norm": 2.0 ** -8, "params": 0.05}
+# 17c: phi3.5-moe at full width, one layer, zero_batch, one token group a
+# rank: the expert-parallel all-to-all.
+MESH_MOE = {"arch": "phi3.5-moe-42b-a6.6b", "n_layers": 1, "moe_groups": 4,
+            "batch": 4, "seq": 512}
+MESH_MOE_TOL = 2.0 ** -7   # a2a block against one process, max |d| / max
+
+
+def lm_tcfg(cfg_kw: dict, microbatches: int = 1):
+    from repro_torch.train.train_step import TrainConfig
+    return TrainConfig(peak_lr=cfg_kw["peak_lr"], warmup=0,
+                       total_steps=cfg_kw["steps"], loss_chunk=cfg_kw["seq"],
+                       microbatches=microbatches)
+
+
+def lm_mesh_config(plan: dict):
+    from repro_torch.configs.registry import ARCHITECTURES
+    kw = {k: plan[k] for k in ("n_layers", "moe_groups") if k in plan}
+    return ARCHITECTURES[plan["arch"]].replace(**kw)
+
+
+def tree_bytes(*trees) -> int:
+    from repro_torch.models import model
+    return sum(x.numel() * x.element_size() for t in trees
+               for x in model.leaves(t))
+
+
+def update_err(got: list, want: list, init: list) -> float:
+    """max over leaves of ||got - want|| / ||want - init|| (float64)."""
+    out = 0.0
+    for g, w, i in zip(got, want, init):
+        w64 = w.double()
+        den = float(torch.linalg.vector_norm(w64 - i.double()))
+        if den > 0:
+            out = max(out, float(torch.linalg.vector_norm(
+                g.double() - w64)) / den)
+    return out
+
+
+def collective_totals(label: str, profile: dict, ranks: int) -> list:
+    """A profiled step's collectives summed by (op, what): calls, bytes
+    (this rank's inputs) and host ms (the whole of a gloo collective);
+    printed a MESH-LM line each."""
+    rows: dict = {}
+    for c in profile["collectives"]:
+        r = rows.setdefault((c["op"], c["what"]), [0, 0, 0.0])
+        r[0] += 1
+        r[1] += c["bytes"]
+        r[2] += c["host_ms"]
+    out = [{"op": op, "what": what, "calls": n, "bytes": b, "host_ms": ms}
+           for (op, what), (n, b, ms) in sorted(rows.items())]
+    for rec in out:
+        print(f"MESH-LM {label} collective {rec['op']} {rec['what']} over "
+              f"{ranks} ranks: {rec['calls']} calls, {rec['bytes']} B, host "
+              f"{rec['host_ms']:.2f} ms of a {profile['wall_ms']:.1f} ms "
+              "step", flush=True)
+    return out
+
+
+def mesh_lm_world1(dev, state: dict, card: str) -> dict:
+    """17a: NCCL at world size 1 in this process: one step in each mode
+    from phase 16a's final state on its batch, against the one-card step
+    from the same state (under megatron the plain step; under the zero
+    modes the step under the mode's activation spec, which holds block
+    weights in bf16 as the reference's zero modes do), bit for bit; the
+    largest difference to the plain step is printed and explained."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers, model
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = ARCHITECTURES[LM_TRAIN["arch"]]
+    tcfg, batch = state["tcfg"], state["batch"]
+    root = ROOT / "build" / "phase17"
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / "nccl_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+
+    on = lambda tr: model.map_tree(lambda t_: t_.to(dev), tr)
+    o = state["opt"]
+    base = (on(state["params"]),
+            adamw.AdamWState(o.step.to(dev), on(o.m), on(o.v)))
+
+    def fresh():              # a copy on the card of 16a's final state
+        c = lambda tr: model.map_tree(torch.clone, tr)
+        return c(base[0]), adamw.AdamWState(base[1].step.clone(),
+                                            c(base[1].m), c(base[1].v))
+
+    def flat(p, o, met):
+        return (model.leaves(p) + model.leaves(o.m) + model.leaves(o.v)
+                + [o.step] + [met[k] for k in sorted(met)])
+
+    out = {}
+    try:
+        mesh = make_host_mesh(1, 1, device=dev)
+        plain = flat(*make_train_step(cfg, tcfg, device=dev)(*fresh(),
+                                                               batch))
+        for mode in MESH_LM_MODES:
+            step = make_train_step(cfg, tcfg, device=dev, mesh=mesh,
+                                   mode=mode)
+            start = fresh()
+            (p, o, met), ms = synced_ms(lambda: step(*start, batch))
+            got = flat(p, o, met)
+            del p, o, start
+            if mode == "megatron":
+                want = plain
+            else:
+                act = sharding.activation_spec(sharding.axis_sizes(mesh),
+                                               mode)
+                with layers.mesh_hooks(act):
+                    want = flat(*make_train_step(cfg, tcfg, device=dev)(
+                        *fresh(), batch))
+            differ = [i for i, (x, y) in enumerate(zip(got, want))
+                      if not torch.equal(x, y)]
+            gap = max(float((x.double() - y.double()).abs().max())
+                      for x, y in zip(got, plain))
+            del got, want
+            out[mode] = {"bit_equal": not differ, "step_ms": ms,
+                         "loss": float(met["loss"]),
+                         "max_abs_diff_to_plain_step": gap}
+            print(f"MESH-LM 17a {mode} world 1 (nccl): bit-equal to the "
+                  f"one-card step{'' if mode == 'megatron' else ' under its activation spec'}"
+                  f" {not differ}; largest difference to the plain "
+                  f"one-card step {gap:.3e}"
+                  + ("" if mode == "megatron" else
+                     " (the zero modes hold the block weights, norm scales"
+                     " included, in bf16, as the reference's do)")
+                  + f"; {ms:.1f} ms on {card}", flush=True)
+            if differ:
+                raise AssertionError(f"17a {mode}: {len(differ)} tensors "
+                                     "differ from the one-card step")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def one_card_runs(dev, plan: dict, root: Path) -> dict:
+    """17b's one-card side: per mode, the steps of ``plan`` from the seed's
+    weights (zero modes under their activation spec), their metrics, and
+    the spread against two and four microbatches; the final parameters of
+    the one-microbatch run saved under ``root`` for the ranks."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import layers, model
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = lm_mesh_config(plan)
+    data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
+                           plan["steps"], seed=1, kind="affine"))
+    init = model.leaves(model.init_params(cfg, seed=0, device=dev))
+    out = {}
+    for mode in MESH_LM_MODES:
+        act = sharding.activation_spec({"data": 2, "model": 2}, mode)
+        runs = {}
+        for mb in (1, 2, 4):
+            params = model.init_params(cfg, seed=0, device=dev)
+            opt = adamw.init(params)
+            step = make_train_step(cfg, lm_tcfg(plan, mb), device=dev)
+            mets, ms = [], []
+            with layers.mesh_hooks(act):
+                for b in data:
+                    (params, opt, m), t_ = synced_ms(
+                        lambda: step(params, opt, b))
+                    mets.append({k: float(m[k]) for k in ("loss",
+                                                          "grad_norm")})
+                    ms.append(t_)
+            runs[mb] = (mets, model.leaves(params), ms)
+            if mb == 1:
+                onebytes = tree_bytes(params, opt.m, opt.v)
+            del params, opt
+        torch.cuda.empty_cache()
+        mets1, final1, ms1 = runs[1]
+        spread = {k: max(abs(runs[mb][0][s][k] - mets1[s][k])
+                         / abs(mets1[s][k]) for mb in (2, 4)
+                         for s in range(len(data)))
+                  for k in ("loss", "grad_norm")}
+        spread["params"] = max(update_err(runs[mb][1], final1, init)
+                               for mb in (2, 4))
+        tmp = root / f"{mode}.pt.tmp"
+        torch.save([x.cpu() for x in final1], tmp)
+        tmp.rename(root / f"{mode}.pt")        # whole, for rank 0
+        out[mode] = {"metrics": mets1, "spread": spread,
+                     "one_card_bytes": onebytes, "step_ms": ms1}
+        del runs, final1
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
+    """17b on one rank of the 2x2 gloo mesh (tensors on the card): per
+    mode, the steps of ``plan`` from the seed's weights cut to the rank's
+    blocks, the last profiled on rank 0; the blocks' shapes against their
+    specs, the resident bytes, the peak memory, the gathered parameters
+    against the one-card run's (rank 0); then ``make_sync_fns``' top-k
+    push of this client's residual."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding, sync
+    from repro_torch.train.train_step import make_train_step, param_layout
+
+    me = dist.get_rank()
+    cfg = lm_mesh_config(plan)
+    data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
+                           plan["steps"], seed=1, kind="affine"))
+    out = {"rank": me, "modes": {}}
+    for mode in MESH_LM_MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        specs = param_layout(cfg, mesh, mode)
+        full = model.init_params(cfg, seed=0, device=dev)
+        params = sharding.shard_tree(full, specs, mesh)
+        init = model.leaves(full) if me == 0 else None
+        del full
+        opt = adamw.init(params)
+        step = make_train_step(cfg, lm_tcfg(plan), device=dev, mesh=mesh,
+                               mode=mode)
+        mets, ms, profile = [], [], None
+        for i, b in enumerate(data):
+            dist.barrier()
+            if me == 0 and i == len(data) - 1:
+                (params, opt, m), profile = mesh_profile(
+                    lambda: step(params, opt, b))
+                ms.append(profile["wall_ms"])
+            else:
+                (params, opt, m), t_ = synced_ms(lambda: step(params, opt,
+                                                              b))
+                ms.append(t_)
+            mets.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        wrong = []
+        for name, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
+            for x, f, sp in zip(model.leaves(tree),
+                                model.leaves(model.param_shapes(cfg)),
+                                model.leaves(specs)):
+                if tuple(x.shape) != sharding.local_shape(f.shape, sp,
+                                                          mesh):
+                    wrong.append(name)
+        rec = {"metrics": mets, "step_ms": ms, "profile": profile,
+               "wrong_shapes": wrong,
+               "resident_bytes": tree_bytes(params, opt.m, opt.v),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        full = model.leaves(sharding.gather_tree(params, specs, mesh))
+        if me == 0:
+            path = Path(root) / f"{mode}.pt"
+            waited = time.perf_counter()
+            while not path.exists():        # the one-card side writes it
+                if time.perf_counter() - waited > MESH_TIMEOUT_S:
+                    raise TimeoutError(f"17b: no {path}")
+                time.sleep(0.1)
+            want = torch.load(path, map_location=dev)
+            rec["params_err"] = update_err(full, want, init)
+            del want
+        del params, opt, full, init
+        torch.cuda.empty_cache()
+        out["modes"][mode] = rec
+    c = mesh.get_local_rank("data")
+    push = sync.make_sync_fns(mesh, sync.SyncConfig(filter=sync_spec))
+    synced, _ = push(sync_residual(cfg, c, dev), (MESH_SYNC_KEY, 17, c))
+    out["sync"] = {n: sha(x) for n, x in synced.items()}
+    del synced
+    torch.cuda.empty_cache()
+    out["moe"] = mesh_moe_rank(mesh, dev)
+    return out
+
+
+def sync_residual(cfg, c: int, dev) -> dict:
+    """Client c's residual for 17b's push: normal draws of the embedding's
+    and the final norm's shapes, from the stream (17, c) on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1700 + c)
+    return {"embed": torch.randn((cfg.padded_vocab, cfg.d_model),
+                                 generator=gen, device=dev),
+            "final_norm": torch.randn((cfg.d_model,), generator=gen,
+                                      device=dev)}
+
+
+def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
+    """17b (see the module docstring)."""
+    import shutil
+
+    from repro_torch.core import ps
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.train import sync
+
+    import threading
+
+    root.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    moe_one = moe_one_process(dev)
+    phase("mesh-lm 17c one process", t)
+    cfg = lm_mesh_config(MESH_LM)
+    spec = ps.FilterSpec("topk", **TOPK)
+    sent = [sync.filter_tree(sync_residual(cfg, c, dev), spec,
+                             (MESH_SYNC_KEY, 17, c)) for c in range(2)]
+    want_sync = {n: sha(sent[0][n] + sent[1][n]) for n in sent[0]}
+    kept = int(sent[0]["embed"].ne(0).any(1).sum())
+    del sent
+    torch.cuda.empty_cache()
+    # The ranks start while this process runs the one-card side (rank 0
+    # waits for each mode's file); 17c's four ranks of ~13 GiB each share
+    # the card after 17b's: their allocators grow segments rather than
+    # cache fixed ones (set before they start).
+    t = time.perf_counter()
+    box: dict = {}
+
+    def ranks_run():
+        try:
+            box["ranks"] = run_on_mesh(
+                mesh_lm_rank, 2, 2, device=dev, backend="gloo",
+                args=(MESH_LM, str(root), spec), timeout=MESH_TIMEOUT_S)
+        except BaseException as e:      # re-raised below, in this thread
+            box["error"] = e
+
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranker = threading.Thread(target=ranks_run)
+        ranker.start()
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    try:
+        one = one_card_runs(dev, MESH_LM, root)
+        phase("mesh-lm 17b one card (beside the ranks)", t)
+    finally:
+        ranker.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    launched_s = time.perf_counter() - t
+    shutil.rmtree(root, ignore_errors=True)
+    tokens = MESH_LM["batch"] * MESH_LM["seq"]
+    summary = {}
+    for mode in MESH_LM_MODES:
+        recs = [r["modes"][mode] for r in ranks]
+        want = one[mode]
+        bounds = {k: max(MESH_LM_MARGIN * want["spread"][k],
+                         MESH_LM_FLOOR[k]) for k in MESH_LM_FLOOR}
+        err = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                      zip(recs[0]["metrics"], want["metrics"]))
+               for k in ("loss", "grad_norm")}
+        err["params"] = recs[0]["params_err"]
+        for r, rec in enumerate(recs):
+            if rec["metrics"] != recs[0]["metrics"]:
+                raise AssertionError(f"17b {mode}: rank {r}'s metrics "
+                                     "differ from rank 0's")
+            if rec["wrong_shapes"]:
+                raise AssertionError(f"17b {mode}: rank {r}'s blocks "
+                                     f"{rec['wrong_shapes']} off their specs")
+        bad = {k: (err[k], bounds[k]) for k in err if err[k] > bounds[k]}
+        step_ms = statistics.median(recs[0]["step_ms"][1:])
+        summary[mode] = {
+            "losses": [m["loss"] for m in recs[0]["metrics"]],
+            "one_card_losses": [m["loss"] for m in want["metrics"]],
+            "err": err, "spread": want["spread"], "bounds": bounds,
+            "step_ms_rank0": recs[0]["step_ms"], "step_ms": step_ms,
+            "one_card_step_ms": statistics.median(want["step_ms"][1:]),
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "resident_bytes_by_rank": [r["resident_bytes"] for r in recs],
+            "one_card_bytes": want["one_card_bytes"],
+            "peak_gib_by_rank": [r["peak_gib"] for r in recs],
+            "profiled_step_ms": recs[0]["profile"]["wall_ms"], "card": card}
+        print(f"MESH-LM 17b {mode}: step {step_ms:.1f} ms (rank 0, median "
+              f"of steps 2-{MESH_LM['steps']}; one card "
+              f"{summary[mode]['one_card_step_ms']:.1f} ms), "
+              f"{summary[mode]['tokens_per_s']:.0f} tokens/s; loss "
+              f"{err['loss']:.2e} (bound {bounds['loss']:.2e}), grad_norm "
+              f"{err['grad_norm']:.2e} (bound {bounds['grad_norm']:.2e}), "
+              f"params {err['params']:.2e} (bound {bounds['params']:.2e}) "
+              "against one card; resident "
+              f"{max(summary[mode]['resident_bytes_by_rank']) / 2**30:.3f}"
+              f" GiB a rank against {want['one_card_bytes'] / 2**30:.3f} "
+              f"on one card; peak "
+              f"{max(summary[mode]['peak_gib_by_rank']):.2f} GiB a rank "
+              f"on {card}", flush=True)
+        summary[mode]["collectives"] = collective_totals(
+            f"17b {mode}", recs[0]["profile"], 4)
+        print(f"MESH-LM 17b {mode} {json.dumps(summary[mode])}", flush=True)
+        if bad:
+            raise AssertionError(f"17b {mode}: {bad} beyond the bounds")
+    for r in ranks:
+        if r["sync"] != want_sync:
+            raise AssertionError(f"17b: make_sync_fns' push on rank "
+                                 f"{r['rank']} differs from the sum of the "
+                                 "clients' filter_tree")
+    summary["sync"] = {"rows_kept_client0": kept, "equal": True}
+    print(f"MESH-LM 17b make_sync_fns top-k push ({TOPK['k_rows']} + "
+          f"{TOPK['random_rows']} rows; client 0 kept {kept} of "
+          f"{cfg.padded_vocab}) equal to the one-process sum on all four "
+          f"ranks; run_on_mesh (17b and 17c) {launched_s:.1f} s",
+          flush=True)
+    summary["17c"] = moe_check(moe_one, [r["moe"] for r in ranks], card)
+    return summary
+
+
+def moe_block_inputs(cfg, dev):
+    """17c's tokens: (batch, seq, d) bf16 normal draws from stream 1717."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1717)
+    return torch.randn((MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model),
+                       generator=gen, device=dev).to(torch.bfloat16)
+
+
+def mesh_moe_rank(mesh, dev) -> dict:
+    """17c on one rank: the MoE block of layer 0 on the rank's row of the
+    tokens with its E/m experts, profiled (the all-to-all spans), then one
+    zero_batch train step."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import layers, model, moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import make_train_step, param_layout
+
+    me = dist.get_rank()
+    cfg = lm_mesh_config(MESH_MOE)
+    full = model.init_params(cfg, seed=0, device=dev)
+    x = moe_block_inputs(cfg, dev)[me:me + 1]
+    m, e = mesh.get_local_rank("model"), cfg.n_experts
+    half = slice(m * e // 2, (m + 1) * e // 2)
+    p = {k: v[0] if k == "router" else v[0, half]
+         for k, v in full["blocks"]["moe"].items()}
+    act = sharding.activation_spec(sharding.axis_sizes(mesh), "zero_batch")
+    with torch.no_grad(), layers.mesh_hooks(act, None, mesh):
+        taken = moe.a2a_applies(cfg, x.shape[0] * x.shape[1] * 4)
+        (out, aux), prof = mesh_profile(lambda: moe.moe_block(cfg, p, x))
+    del p
+    specs = param_layout(cfg, mesh, "zero_batch")
+    params = sharding.shard_tree(full, specs, mesh)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.init(params)
+    batch = next(lm_batches(cfg.vocab_size, MESH_MOE["batch"],
+                            MESH_MOE["seq"], 1, seed=3, kind="affine"))
+    step = make_train_step(cfg, lm_tcfg({**MESH_MOE, "peak_lr": 1e-4,
+                                         "steps": 1}),
+                           device=dev, mesh=mesh, mode="zero_batch")
+    dist.barrier()
+    (_, _, met), t_ = synced_ms(lambda: step(params, opt, batch))
+    return {"taken": taken, "out": out.cpu(), "aux": float(aux),
+            "block_profile": prof, "loss": float(met["loss"]),
+            "grad_norm": float(met["grad_norm"]), "step_ms": t_,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def moe_one_process(dev) -> dict:
+    """17c's one-process side, run first and freed: the grouped dispatch
+    of layer 0's MoE block on all the tokens."""
+    from repro_torch.models import model, moe
+
+    cfg = lm_mesh_config(MESH_MOE)
+    params = model.init_params(cfg, seed=0, device=dev)
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = moe_block_inputs(cfg, dev)
+    with torch.no_grad():
+        (want, aux), ms = synced_ms(lambda: moe.moe_block(cfg, p, x))
+    out = {"out": want.cpu(), "aux": float(aux), "ms": ms}
+    del params, p, x, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_check(one: dict, ranks: list, card: str) -> dict:
+    """17c (see the module docstring): the ranks' a2a block against the
+    one-process dispatch, the all-to-all spans, the train step."""
+    cfg = lm_mesh_config(MESH_MOE)
+    got = torch.cat([r["out"] for r in ranks])
+    want = one["out"]
+    gap = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    spans = sorted({c["what"] + " " + c["op"] for r in ranks
+                    for c in r["block_profile"]["collectives"]})
+    summary = {"a2a_taken": [r["taken"] for r in ranks],
+               "block_spans": spans, "max_rel_diff": gap,
+               "bit_equal": bool(torch.equal(got, want)),
+               "aux": [r["aux"] for r in ranks],
+               "one_process_aux": one["aux"],
+               "one_process_block_ms": one["ms"],
+               "block_ms_rank0": ranks[0]["block_profile"]["wall_ms"],
+               "step": {"loss": ranks[0]["loss"],
+                        "grad_norm": ranks[0]["grad_norm"],
+                        "ms_by_rank": [r["step_ms"] for r in ranks]},
+               "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
+               "card": card}
+    print(f"MESH-LM 17c {cfg.name} (d {cfg.d_model}, {cfg.n_experts} "
+          f"experts, d_ff {cfg.d_ff}, 1 layer, zero_batch, moe_groups 4): "
+          f"_moe_a2a taken on every rank {all(summary['a2a_taken'])}, "
+          f"spans {spans}; block against one process: bit-equal "
+          f"{summary['bit_equal']}, max |diff| / max {gap:.2e} (bound "
+          f"{MESH_MOE_TOL:.2e}); train step loss {ranks[0]['loss']:.4f} "
+          f"grad_norm {ranks[0]['grad_norm']:.3f} "
+          f"{ranks[0]['step_ms']:.1f} ms; peak "
+          f"{max(summary['peak_gib_by_rank']):.2f} GiB a rank on {card}",
+          flush=True)
+    summary["block_collectives"] = collective_totals(
+        "17c moe block", ranks[0]["block_profile"], 4)
+    print(f"MESH-LM 17c {json.dumps(summary)}", flush=True)
+    if not all(summary["a2a_taken"]) or not any(
+            s_.startswith("moe dispatch all_to_all") for s_ in spans):
+        raise AssertionError(f"17c: the a2a path was not taken: {spans}")
+    if gap > MESH_MOE_TOL:
+        raise AssertionError(f"17c: a2a block {gap} from one process")
+    if not (np.isfinite(ranks[0]["loss"]) and np.isfinite(
+            ranks[0]["grad_norm"])):
+        raise AssertionError(f"17c: train step {ranks[0]}")
+    return summary
+
+
+def mesh_lm_phase(dev, state16: dict, root: Path, card: str) -> dict:
+    """Phase 17: 17a, then 17b and 17c in one spawn of four ranks; each
+    prints MESH-LM lines."""
+    t = time.perf_counter()
+    out = {"17a": mesh_lm_world1(dev, state16, card)}
+    state16.clear()
+    torch.cuda.empty_cache()
+    phase("mesh-lm 17a", t)
+    out["17b"] = mesh_lm_gloo(dev, root, card)
+    return out
+
+
 
 def sum_device_ms(fn, reps: int) -> float:
     """Median milliseconds, on the device's clock, of all the device work
@@ -4395,8 +4981,16 @@ def main() -> int:
     # --------------------------------------------------------- phase 16
     t = time.perf_counter()
     torch.cuda.empty_cache()
-    lm_phase(dev, ROOT / "build" / "phase16", card)
+    state16: dict = {}
+    lm_phase(dev, ROOT / "build" / "phase16", card, state16)
     phase("lm", t)
+
+    # --------------------------------------------------------- phase 17
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_lm_phase(dev, state16, ROOT / "build" / "phase17", card)
+    del state16
+    phase("mesh-lm", t)
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

@@ -20,13 +20,23 @@ Weight layout notes:
   (:func:`einsum_f32`).  With ``COMPUTE_DTYPE = torch.float32`` the two
   packages compute the same products.  A product with one f32 operand runs
   in f32, as JAX promotes it.
-- The zero-mode hooks of the reference (``set_activation_spec``,
-  ``constrain``) shard activations over a mesh; off a mesh they are the
-  identity, and the mesh modes wait for ROADMAP A.13b.
+- The mesh hooks (``set_activation_spec``, ``get_activation_spec``,
+  ``get_block_specs``, ``get_mesh``, ``constrain``) carry the layout of a
+  step over a ``torch.distributed`` (data, model) mesh
+  (:mod:`repro_torch.train.sharding`): the activation spec, the
+  parameters' storage specs and the mesh.  Every tensor of such a step is
+  a rank's local block, so ``constrain`` is the identity; the helpers
+  below gather what a computation needs across ranks (a weight at use,
+  an attention's keys and values over the sequence, a token group) with
+  the explicit collectives of ``core.collectives``, whose backward sums
+  over the ranks that computed distinct slices (the gradient rule of
+  ``train/train_step.py``).  Off a mesh every hook is unset and every
+  helper is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -35,6 +45,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
+from repro_torch.train import sharding
 
 Params = dict[str, Any]
 
@@ -43,6 +55,239 @@ COMPUTE_DTYPE = torch.bfloat16
 
 def cast(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Mesh hooks (zero modes and the mesh step; see train/sharding.py)
+# ---------------------------------------------------------------------------
+
+_ACT_SPEC = None
+_BLOCK_SPECS = None   # storage specs of the parameters ("blocks" etc.)
+_MESH = None          # the DeviceMesh of the step
+
+
+def set_activation_spec(spec, block_specs=None, mesh=None) -> None:
+    global _ACT_SPEC, _BLOCK_SPECS, _MESH
+    _ACT_SPEC = spec
+    _BLOCK_SPECS = block_specs
+    _MESH = mesh
+
+
+def get_activation_spec():
+    return _ACT_SPEC
+
+
+def get_block_specs():
+    return _BLOCK_SPECS
+
+
+def get_mesh():
+    return _MESH
+
+
+@contextlib.contextmanager
+def mesh_hooks(spec, block_specs=None, mesh=None):
+    """The hooks set for the ``with`` body (a step's forward and backward,
+    remat's recomputation included), then restored."""
+    saved = _ACT_SPEC, _BLOCK_SPECS, _MESH
+    set_activation_spec(spec, block_specs, mesh)
+    try:
+        yield
+    finally:
+        set_activation_spec(*saved)
+
+
+def constrain(x: torch.Tensor) -> torch.Tensor:
+    """The reference pins (B, S, D) activations to the activation spec;
+    a rank's tensors here are already its block of that layout."""
+    return x
+
+
+def token_spec():
+    """The (B, S) layout of the rank's tokens: the activation spec's first
+    two entries, or the batch over (pod, data) when there is none."""
+    if _ACT_SPEC is not None:
+        return tuple(_ACT_SPEC[:2])
+    ax = sharding.batch_axes(_MESH)
+    return (ax if len(ax) > 1 else ax[0], None)
+
+
+def token_axes() -> tuple[str, ...]:
+    """The mesh axes whose ranks hold distinct tokens (off a mesh none):
+    the axes over which a step's gradients are summed."""
+    if _MESH is None:
+        return ()
+    spec = token_spec()
+    return tuple(a for e in spec for a in sharding.entry_axes(e))
+
+
+def token_group():
+    return sharding.group_of(_MESH, token_axes())
+
+
+def token_ranks() -> int:
+    """How many ranks hold distinct tokens (1 off a mesh)."""
+    sizes = sharding.axis_sizes(_MESH) if _MESH is not None else {}
+    return math.prod(sizes[a] for a in token_axes())
+
+
+def model_size() -> int:
+    return sharding.axis_sizes(_MESH).get("model", 1) \
+        if _MESH is not None else 1
+
+
+def sequence_sharded() -> bool:
+    """zero_seq: the sequence dim of the activations over ``model``."""
+    return (_ACT_SPEC is not None and len(_ACT_SPEC) > 1
+            and _ACT_SPEC[1] is not None and _MESH is not None)
+
+
+def seq_offset(s_local: int) -> int:
+    """Global position of the rank's first sequence position."""
+    if not sequence_sharded():
+        return 0
+    return _MESH.get_local_rank("model") * s_local
+
+
+def gather_seq(x: torch.Tensor, what: str, dim: int = 1) -> torch.Tensor:
+    """The whole sequence of a sequence-sharded tensor (over ``model``;
+    backward: the reduce-scatter of the gradient)."""
+    return collectives.gather_leaves(
+        [x], [(_MESH.get_group("model"), True, {0: dim})], what=what)[0]
+
+
+def local_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The rank's positions of a whole-sequence tensor."""
+    return collectives.local_chunk(x, dim, _MESH.get_group("model"))
+
+
+def sequence_whole(fn):
+    """``fn`` of a (B, S, D) tensor run on the whole sequence under
+    zero_seq (the input gathered over ``model``, the rank's slice of the
+    output kept); for blocks whose every position depends on earlier ones
+    beyond attention: recurrences, token shifts, convolutions."""
+    def run(x, *args):
+        if not sequence_sharded():
+            return fn(x, *args)
+        out = fn(gather_seq(x, "sequence in"), *args)
+        if isinstance(out, tuple):
+            return (local_seq(out[0]),) + tuple(out[1:])
+        return local_seq(out)
+    return run
+
+
+def gather_param(x: torch.Tensor, spec, wire=None) -> torch.Tensor:
+    """A parameter's full value from the ranks' blocks under its storage
+    ``spec`` (see :func:`gather_params`)."""
+    return gather_params({"x": x}, {"x": spec}, wire)["x"]
+
+
+def gather_params(tree: Params, specs, wire=None) -> Params:
+    """A tree's full values from the ranks' blocks under its storage
+    specs, one bucketed all-gather per mesh axis
+    (``collectives.gather_leaves``).  Backward: along an axis whose ranks
+    hold distinct tokens the reduce-scatter of the gradient, along another
+    (megatron's ``model``: its ranks computed the same) the rank's chunk.
+    With ``wire`` (bf16 for the zero modes' blocks, the reference's
+    ``_maybe_cast_blocks``) float32 blocks are rounded to ``wire`` and
+    gathered so; their gradients come back as the ranks' shares summed in
+    float32, for the step to round once to ``wire`` after its last sum, as
+    one process rounds the gradient of the cast weight."""
+    if _MESH is None or specs is None:
+        return tree
+    names, xs, sps = [], [], []
+
+    def walk(t, sp, pre):
+        for k in t:
+            if isinstance(t[k], dict):
+                walk(t[k], sp[k], pre + (k,))
+            else:
+                names.append(pre + (k,))
+                xs.append(t[k])
+                sps.append(sp[k])
+
+    walk(tree, specs, ())
+    tok = token_axes()
+    stages = []
+    for a in _MESH.mesh_dim_names:
+        group = _MESH.get_group(a)
+        dims = {}
+        for i, sp in enumerate(sps):
+            for dim, entry in enumerate(sp):
+                if a in sharding.entry_axes(entry):
+                    if len(sharding.entry_axes(entry)) > 1:
+                        raise NotImplementedError(f"{sp}: one axis a dim")
+                    dims[i] = dim
+        if dims:
+            stages.append((group, a in tok, dims))
+    stages = [st for st in stages if collectives.group_size(st[0]) > 1]
+    take = [i for i, x in enumerate(xs)
+            if any(i in d for _, _, d in stages)
+            or (wire is not None and x.dtype == torch.float32)]
+    if take:
+        remap = {i: j for j, i in enumerate(take)}
+        stages = [(g, r, {remap[i]: d for i, d in dims.items()
+                          if i in remap}) for g, r, dims in stages]
+        got = collectives.gather_leaves([xs[i] for i in take], stages, wire,
+                                        "weights")
+        for i, y in zip(take, got):
+            xs[i] = y
+    out: Params = {}
+    for path, x in zip(names, xs):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return out
+
+
+def block_dtype():
+    """The dtype the zero modes hold block weights in (bf16; the
+    reference's ``_maybe_cast_blocks``), None in megatron and off a mesh.
+    On a mesh they are gathered in it and arrive as float32 holding its
+    values."""
+    return torch.bfloat16 if _ACT_SPEC is not None else None
+
+
+def param_spec(*path):
+    """The storage spec (tree) at ``path`` of the step's parameter specs,
+    None off a mesh."""
+    node = _BLOCK_SPECS
+    for k in path:
+        if node is None:
+            return None
+        node = node.get(k)
+    return node
+
+
+def layer_specs(specs):
+    """A stacked tree's specs without the leading layer dim."""
+    if specs is None:
+        return None
+    return {k: layer_specs(v) if isinstance(v, dict) else tuple(v[1:])
+            for k, v in specs.items()}
+
+
+def tokens_sum(x: torch.Tensor, what: str) -> torch.Tensor:
+    """``x`` summed over the ranks that hold distinct tokens, counted once
+    in the loss (the gradient passes through to each rank's share)."""
+    if _MESH is None:
+        return x
+    return collectives.all_reduce_value(x, token_group(), what)
+
+
+def gather_tokens(x: torch.Tensor, what: str) -> torch.Tensor:
+    """The global (B, S, ...) tensor from the ranks' token blocks (backward:
+    each rank's block of the summed gradient)."""
+    stages = [(sharding.group_of(_MESH, sharding.entry_axes(e)), True,
+               {0: dim}) for dim, e in enumerate(token_spec()) if e]
+    return collectives.gather_leaves([x], stages, what=what)[0]
+
+
+def local_tokens(x: torch.Tensor) -> torch.Tensor:
+    """The rank's block of a global (B, S, ...) tensor."""
+    spec = token_spec() + (None,) * (x.ndim - 2)
+    return sharding.local_shard(x, spec, _MESH)
 
 
 def einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -190,7 +435,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         out = einsum("bgrqk,bkgh->bqgrh", probs.to(q.dtype), v)
         return out.to(q.dtype).reshape(b, c, h, hd)
 
-    if sq <= q_chunk:
+    if sq <= q_chunk or sequence_sharded():
+        # zero_seq: the rank's queries are already S/model long; the
+        # reference does not chunk them either.
         return attend(qg, 0)
     while sq % q_chunk:
         q_chunk -= 1
@@ -201,11 +448,20 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    rope: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    rope: bool = True, window: int | None = None,
+                    seq_sharded: bool | None = None) -> torch.Tensor:
+    """``positions`` are the global positions of ``x``'s rows.  Under
+    zero_seq (``seq_sharded``, by default the hooks' layout) the rank's
+    queries stay local and its keys and values are gathered over the
+    model group; the causal mask and window use global positions."""
     q, k, v = qkv_project(cfg, p, x, positions, rope=rope)
     w = cfg.sliding_window if window is None else window
-    out = sdpa(q, k, v, causal=causal, window=w)
+    if sequence_sharded() if seq_sharded is None else seq_sharded:
+        offset = seq_offset(x.shape[1])
+        k, v = gather_seq(k, "attn k"), gather_seq(v, "attn v")
+        out = sdpa(q, k, v, causal=causal, window=w, q_offset=offset)
+    else:
+        out = sdpa(q, k, v, causal=causal, window=w)
     return einsum("bshk,hkd->bsd", out, cast(p["wo"])).to(x.dtype)
 
 

@@ -15,6 +15,13 @@ functions below take the tree itself, as the reference's do.
   layer inputs.
 - Forward returns *hidden states*, not logits: the loss unembeds in
   sequence chunks (:mod:`repro_torch.train.loss`).
+- Over a (data, model) mesh (``train/train_step.py``'s mesh step, the
+  hooks of ``models/layers.py``) the tree holds a rank's local blocks:
+  each layer's weights are gathered at use inside the layer loop (so a
+  rank holds one block's full weights at a time, again in remat's
+  recomputation), in bf16 under the zero modes (:func:`_maybe_cast_blocks`);
+  the positions are global; under zero_seq the recurrent blocks run on
+  the gathered sequence and attention gathers its keys and values.
 - Decode caches are ring buffers when the config has a sliding window
   shorter than the cache (mixtral).  :func:`prefill` and
   :func:`decode_step` run without autograd; ``decode_step`` writes the
@@ -35,16 +42,37 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as layers_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (attention_block, cast,
                                        cross_attention_block, einsum, embed,
-                                       gelu, init_attention, init_embed,
-                                       init_mlp, init_rms_norm, mlp_block,
-                                       normal, qkv_project, rms_norm, sdpa,
-                                       unembed)
+                                       gather_param, gather_params, gelu,
+                                       get_activation_spec, init_attention,
+                                       init_embed, init_mlp, init_rms_norm,
+                                       layer_specs, mlp_block, normal,
+                                       param_spec, qkv_project, rms_norm,
+                                       sdpa, unembed)
 
 Params = dict[str, Any]
+
+
+# The subtrees whose weights the zero modes use in bf16.
+CAST_TREES = ("blocks", "shared_attn", "encoder")
+
+
+def _maybe_cast_blocks(tree: Params) -> Params:
+    """zero modes: block weights in bf16 before the layer loop, as the
+    reference casts its storage-sharded blocks before the scan so that the
+    per-layer gather moves bf16, not f32.  On a mesh the cast rides in
+    that gather (``layers.gather_param``'s ``wire``), which sums the
+    ranks' gradient shares before rounding; off a mesh (one process under
+    a zero mode's activation spec) the blocks are cast here.  The f32
+    master weights are untouched; gradients flow back through the cast."""
+    if get_activation_spec() is None or layers_mod.get_mesh() is not None:
+        return tree
+    return map_tree(lambda x: x.to(torch.bfloat16)
+                    if x.dtype == torch.float32 else x, tree)
 
 
 # ===========================================================================
@@ -132,7 +160,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     CPU is asked for).  Torch's generator gives other numbers than JAX's;
     parity tests carry the reference's weights across instead."""
     dev = device_mod.resolve(device)
-    gen = device_mod.generator((seed, device_mod.MODEL), dev)
+    return _init_tree(cfg, device_mod.generator((seed, device_mod.MODEL),
+                                                dev), dev)
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree as meta tensors (shapes and dtypes, no storage):
+    what the sharding rules read, at any size."""
+    return _init_tree(cfg, None, torch.device("meta"))
+
+
+def _init_tree(cfg: ModelConfig, gen, dev) -> Params:
     n = (cfg.n_layers,)
     params: Params = {"embed": init_embed(cfg, gen, dev),
                       "final_norm": init_rms_norm(cfg.d_model, dev)}
@@ -220,12 +258,21 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
-def _vlm_prefix(params: Params, batch, x: torch.Tensor) -> torch.Tensor:
-    """The projected patch embeddings written over the first P positions."""
-    proj = params["projector"]
-    pe = einsum("bpv,vd->bpd", cast(batch["patch_embeds"]), cast(proj["w1"]))
+def _vlm_prefix(cfg: ModelConfig, params: Params, batch,
+                x: torch.Tensor) -> torch.Tensor:
+    """The projected patch embeddings written over the first P global
+    positions (under zero_seq those of them that lie in the rank's
+    slice)."""
+    proj = gather_params(params["projector"], param_spec("projector"))
+    patches = batch["patch_embeds"]
+    if patches.shape[1] < cfg.n_patches:        # sequence-sharded patches
+        patches = layers_mod.gather_seq(patches, "patch embeds")
+    pe = einsum("bpv,vd->bpd", cast(patches), cast(proj["w1"]))
     pe = einsum("bpd,de->bpe", gelu(pe), cast(proj["w2"]))
-    return torch.cat([pe.to(x.dtype), x[:, pe.shape[1]:]], dim=1)
+    s = x.shape[1]
+    off = layers_mod.seq_offset(s)
+    n = max(0, min(pe.shape[1] - off, s))
+    return torch.cat([pe[:, off:off + n].to(x.dtype), x[:, n:]], dim=1)
 
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
@@ -245,7 +292,8 @@ def _dense_block_fn(cfg: ModelConfig, bp: Params, x: torch.Tensor,
     return x + m, aux
 
 
-def _rwkv_block_fn(cfg, bp, x):
+@layers_mod.sequence_whole
+def _rwkv_block_fn(x, cfg, bp):
     h, _, _ = ssm_mod.rwkv6_time_mix(cfg, bp["tmix"],
                                      rms_norm(x, bp["ln1"], cfg.norm_eps))
     x = x + h
@@ -254,23 +302,37 @@ def _rwkv_block_fn(cfg, bp, x):
     return x + c, _zero(x)
 
 
-def _mamba_block_fn(cfg, bp, x):
+@layers_mod.sequence_whole
+def _mamba_block_fn(x, cfg, bp):
     h, _, _ = ssm_mod.mamba2_block(cfg, bp["mamba"],
                                    rms_norm(x, bp["ln"], cfg.norm_eps))
     return x + h
 
 
-def _run_blocks(body, stacked: Params, x: torch.Tensor, remat: bool):
+def _run_blocks(body, stacked: Params, x: torch.Tensor, remat: bool,
+                specs=None):
     """``body(layer i's params, x) -> (x', aux)`` over the stacked layers,
-    each checkpointed when ``remat``; returns (x, Σ aux)."""
+    each checkpointed when ``remat``; returns (x, Σ aux).  ``specs`` (the
+    stacked tree's storage specs, on a mesh) gathers each layer's weights
+    inside the checkpointed body."""
     aux = _zero(x)
+    lspecs = layer_specs(specs)
+    wire = layers_mod.block_dtype()
+    run = body if lspecs is None else \
+        (lambda bp, h: body(gather_params(bp, lspecs, wire), h))
     for bp in layers(stacked):
         if remat:
-            x, a = checkpoint(body, bp, x, use_reentrant=False)
+            x, a = checkpoint(run, bp, x, use_reentrant=False)
         else:
-            x, a = body(bp, x)
+            x, a = run(bp, x)
         aux = aux + a
     return x, aux
+
+
+def _positions(s: int, device) -> torch.Tensor:
+    """Global positions of the rank's ``s`` sequence positions."""
+    off = layers_mod.seq_offset(s)
+    return torch.arange(off, off + s, device=device)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict, *,
@@ -278,28 +340,33 @@ def forward(cfg: ModelConfig, params: Params, batch: dict, *,
     """Returns (hidden (B, S, D), aux_loss).  ``batch`` needs "tokens" plus
     "patch_embeds" (vlm) or "frames" (audio)."""
     tokens = batch["tokens"]
-    s = tokens.shape[1]
-    positions = torch.arange(s, device=tokens.device)
-    x = embed(params["embed"], tokens)
+    positions = _positions(tokens.shape[1], tokens.device)
+    x = embed(gather_param(params["embed"], param_spec("embed")), tokens)
 
     fam = cfg.family
     if fam == "vlm":
-        x = _vlm_prefix(params, batch, x)
+        x = _vlm_prefix(cfg, params, batch, x)
+    blocks = _maybe_cast_blocks(params["blocks"])
+    specs = param_spec("blocks")
     if fam in ("dense", "moe", "vlm"):
+        if fam == "moe":
+            specs = moe_mod.block_gather_specs(cfg, specs, tokens.numel())
         x, aux = _run_blocks(
             lambda bp, h: _dense_block_fn(cfg, bp, h, positions),
-            params["blocks"], x, remat)
+            blocks, x, remat, specs)
     elif fam == "ssm":
-        x, aux = _run_blocks(lambda bp, h: _rwkv_block_fn(cfg, bp, h),
-                             params["blocks"], x, remat)
+        x, aux = _run_blocks(lambda bp, h: _rwkv_block_fn(h, cfg, bp),
+                             blocks, x, remat, specs)
     elif fam == "hybrid":
-        x, aux = _hybrid_forward(cfg, params, x, positions, remat)
+        x, aux = _hybrid_forward(cfg, dict(params, blocks=blocks), x,
+                                 positions, remat)
     elif fam == "audio":
-        x, aux = _audio_forward(cfg, params, x, batch["frames"], positions,
-                                remat)
+        x, aux = _audio_forward(cfg, dict(params, blocks=blocks), x,
+                                batch["frames"], positions, remat)
     else:
         raise ValueError(fam)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    final_norm = gather_param(params["final_norm"], param_spec("final_norm"))
+    return rms_norm(x, final_norm, cfg.norm_eps), aux
 
 
 def _grouped(cfg: ModelConfig, tree: Params) -> Params:
@@ -311,33 +378,52 @@ def _grouped(cfg: ModelConfig, tree: Params) -> Params:
 
 def _hybrid_forward(cfg, params, x, positions, remat):
     """Zamba2: groups of ``attn_every`` mamba layers, each followed by the
-    SHARED attention block (same weights every application)."""
-    shared = params["shared_attn"]
+    SHARED attention block (same weights every application, gathered at
+    each)."""
+    shared = _maybe_cast_blocks(params["shared_attn"])
+    shared_specs = param_spec("shared_attn")
+    specs = param_spec("blocks")
+    if specs is not None:           # the group's leading dim, unsharded
+        specs = map_tree(lambda sp: (None,) + tuple(sp), specs)
 
     def group_body(bp_group, h):
         for bp in layers(bp_group):
-            h = _mamba_block_fn(cfg, bp, h)
-        return _dense_block_fn(cfg, shared, h, positions)[0], _zero(h)
+            h = _mamba_block_fn(h, cfg, bp)
+        full = gather_params(shared, shared_specs, layers_mod.block_dtype())
+        return _dense_block_fn(cfg, full, h, positions)[0], _zero(h)
 
-    return _run_blocks(group_body, _grouped(cfg, params["blocks"]), x, remat)
+    return _run_blocks(group_body, _grouped(cfg, params["blocks"]), x, remat,
+                       specs)
 
 
 def _encode(cfg, enc: Params, frames: torch.Tensor, remat: bool):
-    """Whisper's encoder over the stub frame embeddings: the memory."""
+    """Whisper's encoder over the stub frame embeddings: the memory.  On a
+    mesh its weights are gathered at use; sequence-sharded frames
+    (zero_seq) are gathered, the encoder runs on all of them, and the rank
+    keeps its slice of the memory."""
+    specs = param_spec("encoder") or {}
+    sharded = frames.shape[1] < cfg.n_frames
+    if sharded:
+        frames = layers_mod.gather_seq(frames, "frames")
     fpos = torch.arange(frames.shape[1], device=frames.device)
-    mem = einsum("bfd,de->bfe", cast(frames), cast(enc["in_proj"]))
+    wire = layers_mod.block_dtype()
+    in_proj = gather_param(enc["in_proj"], specs.get("in_proj"), wire)
+    mem = einsum("bfd,de->bfe", cast(frames), cast(in_proj))
     mem = mem + _sinusoidal(fpos, cfg.d_model)[None].to(mem.dtype)
 
     def enc_body(bp, h):
         a = attention_block(cfg, bp["attn"],
                             rms_norm(h, bp["ln1"], cfg.norm_eps), fpos,
-                            causal=False, rope=False)
+                            causal=False, rope=False, seq_sharded=False)
         h = h + a
         m = mlp_block(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps))
         return h + m, _zero(h)
 
-    mem, _ = _run_blocks(enc_body, enc["blocks"], mem, remat)
-    return rms_norm(mem, enc["norm"], cfg.norm_eps)
+    mem, _ = _run_blocks(enc_body, enc["blocks"], mem, remat,
+                         specs.get("blocks"))
+    mem = rms_norm(mem, gather_param(enc["norm"], specs.get("norm"), wire),
+                   cfg.norm_eps)
+    return layers_mod.local_seq(mem) if sharded else mem
 
 
 def _cross_kv(bp: Params, mem: torch.Tensor):
@@ -347,8 +433,11 @@ def _cross_kv(bp: Params, mem: torch.Tensor):
 
 def _audio_forward(cfg, params, x, frames, positions, remat):
     """Whisper: encode stub frame embeddings, then causal decoder with
-    cross-attention.  Sinusoidal positions on both sides."""
-    mem = _encode(cfg, params["encoder"], frames, remat)
+    cross-attention.  Sinusoidal positions on both sides.  A rank holding
+    a slice of the memory gathers the cross-attention's keys and values
+    over the model group."""
+    mem_sharded = frames.shape[1] < cfg.n_frames
+    mem = _encode(cfg, _maybe_cast_blocks(params["encoder"]), frames, remat)
     x = x + _sinusoidal(positions, cfg.d_model)[None].to(x.dtype)
 
     def dec_body(bp, h):
@@ -357,6 +446,9 @@ def _audio_forward(cfg, params, x, frames, positions, remat):
                             causal=True, rope=False)
         h = h + a
         mk, mv = _cross_kv(bp, mem)
+        if mem_sharded:
+            mk = layers_mod.gather_seq(mk, "cross k")
+            mv = layers_mod.gather_seq(mv, "cross v")
         c = cross_attention_block(cfg, bp["xattn"],
                                   rms_norm(h, bp["ln_x"], cfg.norm_eps),
                                   mk.to(h.dtype), mv.to(h.dtype))
@@ -364,7 +456,8 @@ def _audio_forward(cfg, params, x, frames, positions, remat):
         m = mlp_block(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps))
         return h + m, _zero(h)
 
-    return _run_blocks(dec_body, params["blocks"], x, remat)
+    return _run_blocks(dec_body, params["blocks"], x, remat,
+                       param_spec("blocks"))
 
 
 def logits_fn(cfg: ModelConfig, params: Params,
@@ -478,7 +571,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
 
     if fam in ("dense", "moe", "vlm"):
         if fam == "vlm":
-            x = _vlm_prefix(params, batch, x)
+            x = _vlm_prefix(cfg, params, batch, x)
         kvs = []
         for bp in layers(params["blocks"]):
             x, k, v = attn_kv(bp, x, window=cfg.sliding_window)

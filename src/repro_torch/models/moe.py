@@ -15,9 +15,24 @@ Dispatch algorithm (static shapes throughout), per token group:
      weighted by router gates.
 
 The dispatch is grouped (``cfg.moe_groups`` token groups, each with its
-own capacity), batched over the groups.  The expert-parallel all-to-all
-form of the reference (``_moe_a2a``) runs over a mesh and waits for
-ROADMAP A.13b.
+own capacity), batched over the groups.
+
+Over a mesh (the hooks of ``models/layers.py``) a rank holds a block of
+the tokens.  The router and the load-balance statistics are computed on
+its own tokens, the statistics summed over the ranks that hold distinct
+tokens before their product (the reference's SPMD program computes them
+over all tokens).  The dispatch then takes one of three forms:
+
+* the rank's tokens are whole groups (rows laid out contiguously, the
+  group size dividing them): the groups are dispatched locally;
+* the reference's expert-parallel all-to-all (:func:`_moe_a2a`), under
+  its condition: a model axis, the batch over every axis (zero_batch),
+  one group a rank and E divisible by the model axis.  Each model rank
+  holds E/m experts (their weights gathered over the other axes only);
+* else a group spans ranks (megatron with ``moe_groups`` unset, zero_seq
+  with a group a row): the token group is gathered before the stable
+  sort, since capacity drops depend on the whole group, every rank
+  dispatches all groups, and keeps its own tokens' outputs.
 """
 
 from __future__ import annotations
@@ -29,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
+from repro_torch.models import layers
 from repro_torch.models.layers import cast, einsum, einsum_f32, normal
 
 Params = dict[str, Any]
@@ -108,19 +125,93 @@ def _combine(out_buf: torch.Tensor, slot, keep, meta, t: int, dtype):
                          contrib.reshape(-1, d).to(dtype)).reshape(g, t, d)
 
 
+def _experts(p: Params, buf: torch.Tensor, dtype) -> torch.Tensor:
+    """The expert MLPs of a (G, E, C, D) buffer."""
+    gate_h = einsum("gecd,edf->gecf", buf, cast(p["w_gate"])).float()
+    up_h = einsum("gecd,edf->gecf", buf, cast(p["w_up"])).float()
+    h = (F.silu(gate_h) * up_h).to(dtype)
+    return einsum("gecf,efd->gecd", h, cast(p["w_down"])).to(dtype)
+
+
+def _groups(cfg: ModelConfig, t_all: int) -> int:
+    g = cfg.moe_groups or 1
+    return 1 if t_all % g else g
+
+
+def a2a_applies(cfg: ModelConfig, t_all: int) -> bool:
+    """The reference's condition for :func:`_moe_a2a`: a mesh with a model
+    axis, a batch spec covering ``model`` (zero_batch), one token group a
+    device and E divisible by the model axis."""
+    mesh, act = layers.get_mesh(), layers.get_activation_spec()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return False
+    batch_covers_model = (act is not None and isinstance(act[0], tuple)
+                          and "model" in act[0])
+    return (batch_covers_model and _groups(cfg, t_all) == mesh.size()
+            and cfg.n_experts % layers.model_size() == 0)
+
+
+def block_gather_specs(cfg: ModelConfig, specs, n_tokens: int):
+    """The blocks' specs to gather at use: under :func:`_moe_a2a` the
+    expert weights keep their expert dim local (each model rank computes
+    its own E/m experts), so ``model`` leaves their gather."""
+    if specs is None or not a2a_applies(cfg, n_tokens * layers.token_ranks()):
+        return specs
+    moe = {n: (sp[0], None) + tuple(sp[2:]) if n.startswith("w_") else sp
+           for n, sp in specs["moe"].items()}
+    return dict(specs, moe=moe)
+
+
+def _constrain_dispatch(buf: torch.Tensor) -> torch.Tensor:
+    """The reference pins its (G, E, C, D) dispatch buffer to the device
+    grid so the data-dependent scatter stays local; a rank's buffer here
+    is already local."""
+    return buf
+
+
+def _moe_a2a(cfg: ModelConfig, p: Params, xt: torch.Tensor,
+             gate_vals: torch.Tensor, expert_ids: torch.Tensor, c: int,
+             dtype) -> torch.Tensor:
+    """Expert-parallel MoE with explicit all-to-all, one token group a rank
+    (the reference's ``_moe_a2a``):
+      1. rank-local sort-based dispatch → (E, C, D);
+      2. ``all_to_all`` over the model group: each model rank keeps its
+         E/m experts and receives their tokens from its peers →
+         (E/m, m·C, D), the peers in rank order;
+      3. the expert MLPs on the rank's E/m experts (``p``'s expert dim is
+         already local);
+      4. the reverse all-to-all and the rank-local combine.
+    Two all-to-alls of exactly the dispatched bytes; their backward is the
+    same exchange in reverse."""
+    t, d = xt.shape
+    e, m = cfg.n_experts, layers.model_size()
+    group = layers.get_mesh().get_group("model")
+    buf, slot, keep, meta = _dispatch(cfg, xt[None], gate_vals[None],
+                                      expert_ids[None], c)
+    send = _constrain_dispatch(buf)[0].reshape(m, e // m, c, d)
+    recv = collectives.all_to_all(send, group, "moe dispatch")
+    buf2 = recv.transpose(0, 1).reshape(1, e // m, m * c, d)
+    out_buf = _experts(p, buf2, dtype)[0]
+    back = out_buf.reshape(e // m, m, c, d).transpose(0, 1)
+    back = collectives.all_to_all(back, group, "moe combine")
+    return _combine(back.reshape(1, e, c, d), slot, keep, meta, t, dtype)[0]
+
+
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     """x: (B, S, D) → (out, aux_loss).
 
     Dispatch is grouped (``cfg.moe_groups`` token groups): each group
-    sorts and packs its own tokens with a per-group capacity.
+    sorts and packs its own tokens with a per-group capacity.  On a mesh
+    ``x`` is the rank's token block and the groups are those of the global
+    batch (see the module docstring).
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    g = cfg.moe_groups or 1
-    if t % g:
-        g = 1
-    tg = t // g
+    ranks = layers.token_ranks()
+    t_all = t * ranks
+    g = _groups(cfg, t_all)
+    tg = t_all // g
     c = capacity(cfg, tg)
     xt = x.reshape(t, d)
 
@@ -129,22 +220,42 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     gate_vals, expert_ids = top_k(probs, k)                   # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
-    # Load-balance auxiliary loss (Switch-style): E * Σ_e f_e · P_e
-    me = probs.mean(0)
+    # Load-balance auxiliary loss (Switch-style): E * Σ_e f_e · P_e, its
+    # statistics over every token of the batch
+    if ranks == 1:
+        me = probs.mean(0)
+    else:
+        me = layers.tokens_sum(probs.sum(0), "moe me") / t_all
     ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add(
         0, expert_ids.reshape(-1),
-        torch.full((t * k,), 1.0 / (t * k), dtype=torch.float32,
+        torch.full((t * k,), 1.0 / (t_all * k), dtype=torch.float32,
                    device=x.device))
+    ce = layers.tokens_sum(ce, "moe ce")
     aux = e * torch.sum(me * ce) * cfg.router_aux_weight
 
-    buf, slot, keep, meta = _dispatch(cfg, xt.reshape(g, tg, d),
-                                      gate_vals.reshape(g, tg, k),
-                                      expert_ids.reshape(g, tg, k), c)
-    gate_h = einsum("gecd,edf->gecf", buf, cast(p["w_gate"])).float()
-    up_h = einsum("gecd,edf->gecf", buf, cast(p["w_up"])).float()
-    h = (F.silu(gate_h) * up_h).to(x.dtype)
-    out_buf = einsum("gecf,efd->gecd", h, cast(p["w_down"])).to(x.dtype)
+    if a2a_applies(cfg, t_all):
+        out = _moe_a2a(cfg, p, xt, gate_vals, expert_ids, c, x.dtype)
+        return out.reshape(b, s, d), aux
+
+    contiguous = not layers.sequence_sharded() or layers.model_size() == 1
+    spans = ranks > 1 and not (contiguous and t % tg == 0)
+    if spans:
+        # a group spans ranks: gather the token group before the sort
+        xg = layers.gather_tokens(x, "moe tokens")
+        shape = xg.shape
+        xt = xg.reshape(-1, d)
+        gate_vals = layers.gather_tokens(gate_vals.reshape(b, s, k),
+                                         "moe gates").reshape(-1, k)
+        expert_ids = layers.gather_tokens(expert_ids.reshape(b, s, k),
+                                          "moe ids").reshape(-1, k)
+    n = xt.shape[0] // tg
+    buf, slot, keep, meta = _dispatch(cfg, xt.reshape(n, tg, d),
+                                      gate_vals.reshape(n, tg, k),
+                                      expert_ids.reshape(n, tg, k), c)
+    out_buf = _experts(p, _constrain_dispatch(buf), x.dtype)
     out = _combine(out_buf, slot, keep, meta, tg, x.dtype)
+    if spans:
+        out = layers.local_tokens(out.reshape(shape))
     return out.reshape(b, s, d), aux
 
 

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models import linear_attn as la
 from repro_torch.models.layers import (cast, einsum, init_rms_norm, normal,
                                        rms_norm)
@@ -216,7 +217,12 @@ def _mamba2_ssm_inputs(cfg, p, dt, bmat, cmat, xc):
     _, h, hd = mamba2_dims(cfg)
     n = cfg.ssm_state
     dt = F.softplus(dt.float() + p["dt_bias"])                      # (B,S,H)
-    log_w = (-torch.exp(p["a_log"])[None, None] * dt)[..., None]    # (B,S,H,1)
+    a_log = p["a_log"]
+    if layers.block_dtype() is not None:
+        # the zero modes hold block weights in bf16 and the reference takes
+        # this exp there; on a mesh they arrive as float32 holding bf16
+        a_log = a_log.to(layers.block_dtype())
+    log_w = (-torch.exp(a_log)[None, None] * dt)[..., None]          # (B,S,H,1)
     v = xc.reshape(b, s, h, hd).float()
     # B/C shared across heads (ngroups=1): k_t = dt·B_t, r_t = C_t
     k = dt[..., None] * bmat[:, :, None, :].float()                 # (B,S,H,N)

@@ -7,6 +7,12 @@ under the reference's names.  :func:`update` works in place, leaf by
 leaf, with the reference's arithmetic: it writes the new parameters and
 moments into the given tensors and returns them, so a step holds one copy
 of the state (a 16-byte-a-parameter step: weights, gradients, m, v).
+
+Over a mesh each rank holds its blocks of the parameters, the gradients
+and the moments under the parameters' storage specs
+(:mod:`repro_torch.train.sharding`): the update is elementwise, so it runs
+on the local blocks as they are, and only the clipping's global norm
+needs the other ranks (:func:`global_norm` with ``specs`` and ``mesh``).
 """
 
 from __future__ import annotations
@@ -38,12 +44,14 @@ def init(params) -> AdamWState:
 @torch.no_grad()
 def update(params, grads, state: AdamWState, *, lr: torch.Tensor | float,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-           weight_decay: float = 0.1, grad_clip: float = 1.0):
+           weight_decay: float = 0.1, grad_clip: float = 1.0,
+           specs=None, mesh=None):
     """One AdamW step with global-norm gradient clipping, in place;
-    returns (params, state).  ``grads`` is a tree like ``params``."""
+    returns (params, state).  ``grads`` is a tree like ``params``; on a
+    mesh, local blocks under ``specs``."""
     g_leaves = leaves(grads)
     if grad_clip:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs=specs, mesh=mesh)
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
         g_leaves = [g * scale for g in g_leaves]
 
@@ -62,8 +70,30 @@ def update(params, grads, state: AdamWState, *, lr: torch.Tensor | float,
     return params, AdamWState(step=step, m=state.m, v=state.v)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+def global_norm(tree, *, specs=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  With ``specs`` and ``mesh``,
+    of the full tree from the ranks' blocks: each rank's sum of squares
+    of the blocks it owns, summed over the job.  A leaf replicated along
+    an axis (not named in its spec) is counted by the rank at coordinate
+    0 of that axis only, so that each element counts once."""
+    if mesh is None:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for x in leaves(tree)))
+    from repro_torch.core import collectives
+    from repro_torch.train import sharding
+
+    names = mesh.mesh_dim_names
+    owned = [x for x, sp in zip(leaves(tree), leaves(specs))
+             if all(mesh.get_local_rank(a) == 0
+                    for a in names if a not in sharding.spec_axes(sp))]
+    some = leaves(tree)[0]
+    total = sum((x.float().square().sum() for x in owned),
+                torch.zeros((), dtype=torch.float32, device=some.device))
+    if mesh.size() > 1:
+        import torch.distributed as dist
+        total = collectives.all_reduce_sum(total, dist.group.WORLD,
+                                           "grad norm")
+    return torch.sqrt(total)
 
 
 def cosine_schedule(step: torch.Tensor, *, peak_lr: float, warmup: int,

@@ -7,9 +7,10 @@ Each client keeps an error-feedback residual of what its filter withheld
 so far; every ``sync_every`` steps it pushes the filtered residual (top-k
 rows by L1 magnitude plus uniformly drawn anti-starvation rows) and keeps
 the rest, so nothing is dropped.  This module holds the filter over a
-gradient tree and the traffic estimate; the clients' loop is the example's
-(``examples/train_lm_torch.py``).  The reference's ``make_sync_fns``, the
-push over a mesh's data axis, waits for ROADMAP A.13b.
+gradient tree, the push over a mesh's data axis (:func:`make_sync_fns`,
+each client a rank of the ``data`` group) and the traffic estimate; the
+clients' loop in one process is the example's
+(``examples/train_lm_torch.py``).
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import torch
+
 from repro_torch import device as device_mod
-from repro_torch.core import ps
-from repro_torch.models.model import leaves, unflatten
+from repro_torch.core import collectives, ps
+from repro_torch.models.model import leaves, map2, map_tree, unflatten
 
 
 @dataclass(frozen=True)
@@ -42,6 +45,24 @@ def filter_tree(grads: Any, spec: ps.FilterSpec, key: device_mod.Key) -> Any:
         return ps.filter_delta(rows, spec, gen).reshape(g.shape)
 
     return unflatten(grads, [one(i, g) for i, g in enumerate(leaves(grads))])
+
+
+def make_sync_fns(mesh, scfg: SyncConfig, data_axis: str = "data"):
+    """Returns push(residual, key) -> (synced, new_residual), the
+    reference's push over the clients of a mesh (a client is a rank of the
+    ``data_axis`` group; every rank of the group calls it): the filtered
+    residual (:func:`filter_tree` with this client's ``key``), summed over
+    the clients, and the residual less what was sent."""
+    group = mesh.get_group(data_axis)
+
+    def push(residual: Any, key: device_mod.Key) -> tuple[Any, Any]:
+        sent = filter_tree(residual, scfg.filter, key)
+        synced = map_tree(lambda s: collectives.all_reduce_sum(
+            s.clone(memory_format=torch.contiguous_format), group,
+            "sync push"), sent)
+        return synced, map2(lambda r, s: r - s, residual, sent)
+
+    return push
 
 
 def sync_bytes_estimate(params: Any, spec: ps.FilterSpec) -> tuple[int, int]:

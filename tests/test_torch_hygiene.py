@@ -71,7 +71,8 @@ def test_scan_covers_the_package():
             "mesh.py", "collectives.py", "distributed_lvm_torch.py",
             "model.py", "layers.py", "moe.py", "linear_attn.py", "ssm.py",
             "adamw.py", "loss.py", "train_step.py", "sync.py", "train.py",
-            "registry.py", "smollm_360m.py", "train_lm_torch.py"} <= names
+            "registry.py", "smollm_360m.py", "train_lm_torch.py",
+            "sharding.py"} <= names
     serving = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/server.py",
             "src/repro_torch/serve/engine.py",
@@ -89,7 +90,9 @@ def test_scan_covers_the_package():
             "src/repro_torch/configs/base.py",
             "src/repro_torch/models/model.py",
             "src/repro_torch/optim/adamw.py",
-            "src/repro_torch/train/train_step.py"} <= serving
+            "src/repro_torch/train/train_step.py",
+            "src/repro_torch/train/sharding.py",
+            "src/repro_torch/train/sync.py"} <= serving
 
 
 def test_filter_keys_collide_with_no_other_stream(monkeypatch):
@@ -379,6 +382,52 @@ def test_lm_requires_card_unless_cpu_asked(call, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         fns[call]()
     fns[call](device="cpu")
+
+
+@pytest.mark.parametrize("call", ["mesh_step", "launch_train_mesh"])
+def test_lm_mesh_requires_card_unless_cpu_asked(call, monkeypatch,
+                                                tmp_path):
+    """The LM side's mesh step and the launcher's ``--mesh`` path run on
+    ``cuda`` unless the CPU is asked for, and raise without a card before
+    they touch a process group or start a process; asked for, the step
+    runs on a mesh of the CPU (here one rank in this process, over
+    gloo)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding, train_step
+
+    _no_card(monkeypatch)
+    cfg = reduced(ARCHITECTURES["smollm-360m"]).replace(n_layers=1,
+                                                        vocab_size=256)
+    tcfg = train_step.TrainConfig(loss_chunk=8)
+    argv = ["--reduced", "--steps", "1", "--batch", "4", "--seq", "8",
+            "--mesh", "data=2,model=2", "--sharding", "zero_batch"]
+    fns = {"mesh_step": lambda: train_step.make_train_step(
+               cfg, tcfg, mesh=object(), mode="zero_batch"),
+           "launch_train_mesh": lambda: launch_train.main(argv)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    if call == "mesh_step":
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_host_mesh(device="cpu")
+            specs = train_step.param_layout(cfg, mesh, "zero_batch")
+            tree = sharding.shard_tree(model.init_params(cfg, device="cpu"),
+                                       specs, mesh)
+            _, _, met = train_step.make_train_step(
+                cfg, tcfg, "cpu", mesh=mesh, mode="zero_batch")(
+                    tree, adamw.init(tree),
+                    {"tokens": np.zeros((2, 8), np.int32)})
+            assert np.isfinite(float(met["loss"]))
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("call", ["build_tables", "gather", "sweep"])

@@ -1,0 +1,41 @@
+"""The port's LM train step over a 2×2 gloo mesh of four CPU processes
+against the port's one-process step and the reference's sharded step, as
+``tests/test_torch_lm_mesh_parity.py`` holds them (the same harness and
+tolerances), for the blocks that reach along the sequence:
+
+* rwkv6-3b in all three modes (under ``zero_seq`` its blocks run on the
+  sequence gathered over the model group, the rank keeping its slice);
+* zamba2-2.7b under ``zero_seq`` (Mamba-2 blocks on the gathered
+  sequence, the shared attention block with its keys and values gathered
+  and global positions);
+* whisper-large-v3 under ``zero_seq`` (the encoder on the gathered frames,
+  the rank keeping its slice of the memory, the cross-attention gathering
+  its keys and values).
+
+All at ``reduced()``, vocabulary 512, batch 8 × 32, two steps.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from tests.test_torch_lm_common import one_torch_thread  # noqa: F401 (autouse)
+from tests.test_torch_lm_mesh_common import MODES, check_job, job, run_jobs
+
+JOBS = {"rwkv6-3b": ("rwkv6-3b", MODES, 21, {}),
+        "zamba2-2.7b": ("zamba2-2.7b", ("zero_seq",), 23, {}),
+        "whisper-large-v3": ("whisper-large-v3", ("zero_seq",), 25, {})}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    jobs = {name: job(arch, modes, seed, **kw)
+            for name, (arch, modes, seed, kw) in JOBS.items()}
+    ranks, ref = run_jobs(tmp_path_factory.mktemp("lm_mesh_seq"), jobs)
+    return jobs, ranks, ref
+
+
+@pytest.mark.parametrize("name", sorted(JOBS))
+def test_mesh_step_matches_one_process_and_reference(name, runs):
+    jobs, ranks, ref = runs
+    check_job(name, jobs[name], ranks, ref)

@@ -10,8 +10,10 @@
   port's launcher is resumed by the reference's; the tensors read back
   bit-equal to the ones written.
 * The launcher and the example on ``--device cpu``, a few steps each,
-  ``--stale-sync`` included; ``--mesh`` and ``--sharding`` beyond one card
-  are refused at parse time.
+  ``--stale-sync`` included; the launcher on a 2×2 mesh of four CPU
+  processes under ``zero_seq`` and ``zero_batch``, 3 steps each, its
+  checkpoint resumed by the port's one-card launcher and by the
+  reference's.
 * The sync's filter over a gradient tree and its traffic estimate equal
   the reference's (top-k without random rows: the port draws those from
   its own stream).
@@ -188,14 +190,48 @@ def test_port_checkpoint_resumed_by_the_reference(tmp_path, capsys):
     assert "resumed from step 2" in out and "training complete" in out
 
 
-@pytest.mark.parametrize("argv,word", [
-    (["--mesh", "data=2,model=1"], "--mesh"),
-    (["--sharding", "zero_seq"], "--sharding")])
-def test_launcher_refuses_meshes_at_parse_time(argv, word, capsys):
-    with pytest.raises(SystemExit):
-        launch.parse_args(argv)
-    err = capsys.readouterr().err
-    assert word in err and "A.13b" in err
+MESH = ["--arch", "smollm-360m", "--reduced", "--batch", "8", "--seq", "16",
+        "--device", "cpu", "--mesh", "data=2,model=2"]
+
+
+@pytest.mark.parametrize("mode", ["zero_seq", "zero_batch"])
+def test_launcher_trains_on_a_mesh_and_both_launchers_resume(mode, tmp_path,
+                                                            capfd):
+    """``--mesh data=2,model=2 --sharding MODE`` trains 3 steps in four
+    processes (rank 0 prints) and writes a checkpoint at step 2 holding
+    the full tree, gathered from the ranks, in the reference's format:
+    the port's one-card launcher and the reference's launcher resume it."""
+    launch.main(MESH + ["--sharding", mode, "--steps", "3", "--ckpt-dir",
+                        str(tmp_path), "--ckpt-every", "2"])
+    out = capfd.readouterr().out
+    assert f"mesh 2x2 (gloo), sharding {mode}" in out
+    assert out.count("step     2") == 1 and "training complete" in out
+    assert out.count("checkpoint:") == 1
+    step, raw = ckpt.load_raw(str(tmp_path), "smollm-360m")
+    shapes = model.param_shapes(
+        reduced(ARCHITECTURES["smollm-360m"]).replace(vocab_size=512))
+    assert step == 2 and raw["opt/step"] == 2
+    for key, leaf in zip(("/".join(p) for p in _paths(shapes)),
+                         model.leaves(shapes)):
+        for pre in ("params/", "opt/m/", "opt/v/"):
+            assert raw[pre + key].shape == tuple(leaf.shape), pre + key
+    launch.main(MESH[:-2] + ["--steps", "3", "--ckpt-dir", str(tmp_path),
+                             "--resume"])
+    out = capfd.readouterr().out
+    assert "resumed from step 2" in out and "step     2" in out
+    ref_launch.main(["--arch", "smollm-360m", "--reduced", "--batch", "8",
+                     "--seq", "16", "--steps", "3", "--ckpt-dir",
+                     str(tmp_path), "--resume"])
+    out = capfd.readouterr().out
+    assert "resumed from step 2" in out and "training complete" in out
+
+
+def _paths(tree, pre=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _paths(tree[k], pre + (k,))
+        else:
+            yield pre + (k,)
 
 
 def _example():
