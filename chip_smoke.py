@@ -209,7 +209,7 @@ phase's final trainer; ``serve_path``):
    reference's zero modes do; the largest difference to the plain step is
    printed).  (b) A 2×2 gloo mesh of four processes with their tensors on
    the card (``mesh_lm_rank``): smollm-360m at full width, depth cut to 8
-   layers, 8 × 512 ``lm_batches`` tokens, three steps a mode from the
+   layers, 8 × 512 ``lm_batches`` tokens, two steps a mode from the
    seed's weights against the same steps on one card: each step's loss
    and grad_norm and the gathered parameters after the last (Frobenius of
    the difference over that of the update) within MESH_LM_MARGIN times
@@ -225,6 +225,30 @@ phase's final trainer; ``serve_path``):
    is freed), its all_to_all spans present, then one train step.  MESH-LM
    lines carry step ms and tokens/s, each collective's calls, bytes and
    ms from a profiled step's spans, the peak GiB a rank and the card.
+
+18. Serving the LM over a mesh (``model.serve_hooks``: bf16 weights over
+   ``model``, rows over (pod, data), caches under ``cache_specs``; no
+   kernel of its own) and one workload of the pod dry run.  (a) NCCL at
+   world size 1 in this process: smollm-360m as published, 16a's final
+   weights in bf16, prefill of 8 × 512 tokens and 16 decode steps, the
+   logits of every call and every cache leaf bit-equal to the same calls
+   on one card.  (b) A 2×2 gloo mesh of four processes on the card
+   (``serve_mesh_rank``, run by phase 17's four processes after 17c,
+   checked here): the same widths at 17b's depth (8 layers), the
+   seed's weights in bf16, prefill of 8 × 512 and 4 decode steps under
+   megatron (the K/V sequence split over ``model``, the softmax combined
+   over the model group by log-sum-exp), then one prefill under zero_seq
+   (each rank's own positions its K/V block): the model ranks of a row
+   block equal, every rank's K/V cache of ``local_shape``'s shapes, the
+   logits against one card's by 16a's decode rule (each row's correlation
+   above DECODE_CORR, its largest gap within DECODE_GAP of its range);
+   decode ms a step, the collectives a step by kind
+   (``collectives.tally``), resident GiB a rank beside one card's.  (c)
+   ``python -m repro_torch.launch.dryrun --arch smollm-360m --shape
+   decode_32k --multi-pod`` in a subprocess started before phase 17 and
+   read after (b) (it needs no card; its fake process group of 512 never
+   meets a real one): status ``ok``, resident bytes a rank, collective
+   bytes and the three roofline terms.  SERVE-MESH lines.
 
 Each path (lda, pdp, hdp, lda-fused, draws, serve-lda, serve-pdp,
 serve-hdp, serve-lda-fused, phase 12's bsp, ssp2, ssp2-incremental,
@@ -4154,9 +4178,9 @@ def lm_phase(dev, root: Path, card: str, keep: dict | None = None) -> dict:
 
 MESH_LM_MODES = ("megatron", "zero_seq", "zero_batch")
 # 17b: smollm-360m at full width, depth cut to 8 layers, 8 x 512 tokens,
-# three steps a mode on a 2x2 gloo mesh of four processes on the card.
+# two steps a mode on a 2x2 gloo mesh of four processes on the card.
 MESH_LM = {"arch": "smollm-360m", "n_layers": 8, "batch": 8, "seq": 512,
-           "steps": 3, "peak_lr": 1e-3}
+           "steps": 2, "peak_lr": 1e-3}
 # The mesh against the one-card steps: each bound is MESH_LM_MARGIN times
 # the one-card run's own spread (two and four microbatches against one:
 # the same sums in the row splits of the mesh's ranks), and at least the
@@ -4437,6 +4461,8 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
     del synced
     torch.cuda.empty_cache()
     out["moe"] = mesh_moe_rank(mesh, dev)
+    torch.cuda.empty_cache()
+    out["serve"] = serve_mesh_rank(mesh, dev, SERVE_GLOO)
     return out
 
 
@@ -4540,7 +4566,7 @@ def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
             "peak_gib_by_rank": [r["peak_gib"] for r in recs],
             "profiled_step_ms": recs[0]["profile"]["wall_ms"], "card": card}
         print(f"MESH-LM 17b {mode}: step {step_ms:.1f} ms (rank 0, median "
-              f"of steps 2-{MESH_LM['steps']}; one card "
+              f"of steps 2-{MESH_LM['steps']}, the last profiled; one card "
               f"{summary[mode]['one_card_step_ms']:.1f} ms), "
               f"{summary[mode]['tokens_per_s']:.0f} tokens/s; loss "
               f"{err['loss']:.2e} (bound {bounds['loss']:.2e}), grad_norm "
@@ -4566,10 +4592,10 @@ def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
     print(f"MESH-LM 17b make_sync_fns top-k push ({TOPK['k_rows']} + "
           f"{TOPK['random_rows']} rows; client 0 kept {kept} of "
           f"{cfg.padded_vocab}) equal to the one-process sum on all four "
-          f"ranks; run_on_mesh (17b and 17c) {launched_s:.1f} s",
+          f"ranks; run_on_mesh (17b, 17c and 18b) {launched_s:.1f} s",
           flush=True)
     summary["17c"] = moe_check(moe_one, [r["moe"] for r in ranks], card)
-    return summary
+    return summary, [r["serve"] for r in ranks]
 
 
 def moe_block_inputs(cfg, dev):
@@ -4688,14 +4714,328 @@ def moe_check(one: dict, ranks: list, card: str) -> dict:
 
 
 def mesh_lm_phase(dev, state16: dict, root: Path, card: str) -> dict:
-    """Phase 17: 17a, then 17b and 17c in one spawn of four ranks; each
-    prints MESH-LM lines."""
+    """Phase 17: 17a, then 17b and 17c in one spawn of four ranks, which
+    also runs 18b's ranks (``serve_mesh_rank``, their results under
+    ``"18b ranks"``); each prints MESH-LM lines."""
     t = time.perf_counter()
     out = {"17a": mesh_lm_world1(dev, state16, card)}
     state16.clear()
     torch.cuda.empty_cache()
     phase("mesh-lm 17a", t)
-    out["17b"] = mesh_lm_gloo(dev, root, card)
+    out["17b"], out["18b ranks"] = mesh_lm_gloo(dev, root, card)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: serving the LM over a mesh, and one dry-run workload
+# ---------------------------------------------------------------------------
+
+# 18a: smollm-360m as published, 16a's final state in the serve layout's
+# bf16, prefill of 8 x 512 tokens then 16 decode steps.
+SERVE_MESH = {"arch": "smollm-360m", "batch": 8, "seq": 512, "decode": 16}
+# 18b: the same widths at 17b's depth on a 2x2 gloo mesh of four processes
+# on the card: prefill 8 x 512 and 4 decode steps under megatron, one
+# prefill under zero_seq.
+SERVE_GLOO = {"arch": "smollm-360m", "n_layers": 8, "batch": 8, "seq": 512,
+              "decode": 4}
+# 18c: one workload of the pod dry run, in a process of its own.
+SERVE_DRY = ("smollm-360m", "decode_32k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def serve_run(cfg, params, tokens, s: int, n: int, mesh=None,
+              mode: str = "megatron", b: int | None = None) -> dict:
+    """Prefill of ``tokens[:, :s]`` then ``n`` decode steps fed the next
+    tokens (on ``mesh``: the rank's rows of the global batch of ``b``
+    rows, in the serve layout, the prefill under ``mode``): each call's
+    logits on the host, the final cache, each step's ms closed by a sync,
+    and the decode steps' collectives by kind (``collectives.tally``)."""
+    from repro_torch.core import collectives
+    from repro_torch.models import model
+    from repro_torch.train import sharding
+
+    max_len = s + n
+    prompt = tokens[:, :s]
+
+    def rows(t, m):
+        if mesh is None:
+            return t
+        return sharding.local_shard(t, sharding.data_specs(t, mesh, m), mesh)
+
+    hooks = (lambda **kw: contextlib.nullcontext()) if mesh is None else \
+        (lambda **kw: model.serve_hooks(cfg, mesh, batch=b,
+                                        max_len=max_len, **kw))
+    with hooks(seq=s, mode=mode):
+        (logits, cache), prefill_ms = synced_ms(lambda: model.prefill(
+            cfg, params, {"tokens": rows(prompt, mode)}, max_len))
+    out = {"logits": [logits.float().cpu()], "prefill_ms": prefill_ms,
+           "decode_ms": []}
+    with hooks(), collectives.tally() as counts:
+        for i in range(n):
+            t = rows(tokens[:, s + i:s + i + 1], "megatron")
+            (logits, cache), ms = synced_ms(
+                lambda: model.decode_step(cfg, params, cache, t))
+            out["logits"].append(logits.float().cpu())
+            out["decode_ms"].append(ms)
+    out["cache"], out["collectives"] = cache, counts
+    return out
+
+
+def serve_world1(dev, params_host: dict, card: str) -> dict:
+    """18a: NCCL at world size 1 in this process, against one card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+
+    a = SERVE_MESH
+    cfg = ARCHITECTURES[a["arch"]]
+    params = model.map_tree(lambda t_: t_.to(dev, torch.bfloat16),
+                            params_host)
+    tokens = lm_inputs(cfg, a["batch"], a["seq"] + 64, 3, dev)["tokens"]
+    one = serve_run(cfg, params, tokens, a["seq"], a["decode"])
+    root = ROOT / "build" / "phase18"
+    root.mkdir(parents=True, exist_ok=True)
+    store = root / "nccl_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=dev)
+        got = serve_run(cfg, params, tokens, a["seq"], a["decode"], mesh,
+                        b=a["batch"])
+    finally:
+        dist.destroy_process_group()
+    logits_equal = all(torch.equal(x, y) for x, y in
+                       zip(got["logits"], one["logits"]))
+    cache_equal = all(torch.equal(x, y) for x, y in zip(
+        model.leaves(got["cache"]), model.leaves(one["cache"])))
+    summary = {"arch": cfg.name, "batch": a["batch"], "prefill": a["seq"],
+               "decode_steps": a["decode"], "logits_bit_equal": logits_equal,
+               "cache_bit_equal": cache_equal,
+               "prefill_ms": got["prefill_ms"],
+               "one_card_prefill_ms": one["prefill_ms"],
+               "decode_ms": got["decode_ms"],
+               "one_card_decode_ms": one["decode_ms"], "card": card}
+    print(f"SERVE-MESH 18a {cfg.name} world 1 (nccl): prefill "
+          f"{a['batch']}x{a['seq']} {got['prefill_ms']:.1f} ms (one card "
+          f"{one['prefill_ms']:.1f}), decode "
+          f"{statistics.median(got['decode_ms'][2:]):.1f} ms a step (one "
+          f"card {statistics.median(one['decode_ms'][2:]):.1f}; median "
+          f"after 2 of {a['decode']}); logits bit-equal {logits_equal}, "
+          f"every cache leaf bit-equal {cache_equal} on {card}", flush=True)
+    print(f"SERVE-MESH 18a {json.dumps(summary)}", flush=True)
+    del params, one, got
+    torch.cuda.empty_cache()
+    if not (logits_equal and cache_equal):
+        raise AssertionError("18a: the served mesh at world size 1 differs "
+                             "from one card")
+    return summary
+
+
+def serve_gloo_config(plan: dict):
+    from repro_torch.configs.registry import ARCHITECTURES
+    return ARCHITECTURES[plan["arch"]].replace(n_layers=plan["n_layers"])
+
+
+def serve_mesh_rank(mesh, dev, plan: dict) -> dict:
+    """18b on one rank of the 2x2 gloo mesh (tensors on the card): the
+    seed's weights in bf16 cut to the rank's serve blocks; a megatron
+    prefill and ``plan``'s decode steps, then a zero_seq prefill; each
+    call's logits (the rank's rows), its cache leaves' shapes against
+    ``local_shape``, its resident bytes, decode ms and collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.models import model
+    from repro_torch.train import sharding
+
+    cfg = serve_gloo_config(plan)
+    b, s, n = plan["batch"], plan["seq"], plan["decode"]
+    full = model.map_tree(lambda t_: t_.to(torch.bfloat16),
+                          model.init_params(cfg, seed=0, device=dev))
+    params = sharding.shard_tree(full, model.serve_param_specs(cfg, mesh),
+                                 mesh)
+    del full
+    tokens = lm_inputs(cfg, b, s + 64, 3, dev)["tokens"]
+    out = {"rank": dist.get_rank(),
+           "data": mesh.get_local_rank("data")}
+    for mode, steps in (("megatron", n), ("zero_seq", 0)):
+        layout = model.cache_layout(cfg, mesh, b, s + steps)
+        shapes = model.cache_shapes(cfg, b, s + steps)
+        dist.barrier()
+        run = serve_run(cfg, params, tokens, s, steps, mesh, mode, b)
+        wrong = [p for p, sp in ((p, model.specs_at(layout, p)) for p in
+                                 (("layers", "k"), ("layers", "v")))
+                 if tuple(model.specs_at(run["cache"], p).shape)
+                 != sharding.local_shape(model.specs_at(shapes, p).shape,
+                                         sp, mesh)]
+        out[mode] = {"logits": run["logits"], "wrong_shapes": wrong,
+                     "prefill_ms": run["prefill_ms"],
+                     "decode_ms": run["decode_ms"],
+                     "collectives": run["collectives"],
+                     "resident_bytes": tree_bytes(params, run["cache"])}
+        del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rows_check(label: str, got, want) -> dict:
+    """The mesh's logits against one card's, by 16a's decode rule: each
+    row's correlation above DECODE_CORR and its largest gap within
+    DECODE_GAP of its logits' range; the measured figures returned."""
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(
+        -1, want.shape[-1])
+    gap = (got - want).abs().amax(-1)
+    rng = want.amax(-1) - want.amin(-1)
+    rel = float((gap / rng).max())
+    corr = min(float(torch.corrcoef(torch.stack([g, w]))[0, 1])
+               for g, w in zip(got, want))
+    flips = int((got.argmax(-1) != want.argmax(-1)).sum())
+    if corr <= DECODE_CORR or rel > DECODE_GAP or not torch.isfinite(
+            got).all():
+        raise AssertionError(f"{label}: gap {rel} corr {corr}")
+    return {"max_rel_gap": rel, "min_corr": corr, "argmax_flips": flips}
+
+
+def serve_gloo(dev, card: str, ranks: list) -> dict:
+    """18b (see the module docstring): the ranks' results (``ranks``, from
+    phase 17's spawn) against the same calls on one card."""
+    from repro_torch.models import model
+
+    plan = SERVE_GLOO
+    cfg = serve_gloo_config(plan)
+    b, s, n = plan["batch"], plan["seq"], plan["decode"]
+    params = model.map_tree(lambda t_: t_.to(torch.bfloat16),
+                            model.init_params(cfg, seed=0, device=dev))
+    tokens = lm_inputs(cfg, b, s + 64, 3, dev)["tokens"]
+    one = serve_run(cfg, params, tokens, s, n)
+    one_bytes = tree_bytes(params, one["cache"])
+    del params
+    torch.cuda.empty_cache()
+    per = b // 2
+    summary = {"arch": cfg.name, "n_layers": plan["n_layers"], "batch": b,
+               "prefill": s, "decode_steps": n, "card": card}
+    for mode in ("megatron", "zero_seq"):
+        calls = len(ranks[0][mode]["logits"])
+        full = []
+        for i in range(calls):
+            rows = [None, None]
+            for r in ranks:
+                got = r[mode]["logits"][i]
+                d = r["data"]
+                if rows[d] is not None and not torch.equal(rows[d], got):
+                    raise AssertionError(f"18b {mode}: the model ranks of "
+                                         f"data {d} differ at call {i}")
+                rows[d] = got
+            full.append(torch.cat(rows))
+        for r in ranks:
+            if r[mode]["wrong_shapes"]:
+                raise AssertionError(f"18b {mode}: rank {r['rank']}'s "
+                                     f"cache {r[mode]['wrong_shapes']} off "
+                                     "local_shape")
+        check = serve_rows_check(f"18b {mode}", torch.stack(full),
+                                 torch.stack(one["logits"][:calls]))
+        rec = ranks[0][mode]
+        steps = max(1, len(rec["decode_ms"]))
+        coll = {k: {"calls": v["calls"] // steps,
+                    "bytes": v["bytes"] // steps,
+                    "out_bytes": v["out_bytes"] // steps}
+                for k, v in rec["collectives"].items()}
+        summary[mode] = dict(
+            check, prefill_ms=rec["prefill_ms"], decode_ms=rec["decode_ms"],
+            one_card_prefill_ms=one["prefill_ms"],
+            one_card_decode_ms=one["decode_ms"],
+            collectives_a_step=coll,
+            resident_bytes_by_rank=[r[mode]["resident_bytes"]
+                                    for r in ranks],
+            one_card_bytes=one_bytes)
+        dec = (f", decode {statistics.median(rec['decode_ms'][1:]):.1f} ms "
+               f"a step (rank 0, median after 1 of {n}; one card "
+               f"{statistics.median(one['decode_ms'][1:]):.1f})"
+               if rec["decode_ms"] else "")
+        print(f"SERVE-MESH 18b {mode} 2x2 gloo {cfg.name} "
+              f"{plan['n_layers']} layers: prefill {b}x{s} "
+              f"{rec['prefill_ms']:.1f} ms (one card "
+              f"{one['prefill_ms']:.1f}){dec}; logits against one card: "
+              f"largest gap {check['max_rel_gap']:.2e} of a row's range "
+              f"(bound {DECODE_GAP}), min corr {check['min_corr']:.6f}, "
+              f"{check['argmax_flips']} argmax flips of {b * calls} rows; "
+              f"every rank's K/V cache of local_shape's shapes; resident "
+              f"{max(summary[mode]['resident_bytes_by_rank']) / 2**30:.3f} "
+              f"GiB a rank against {one_bytes / 2**30:.3f} on one card on "
+              f"{card}", flush=True)
+        for kind, c in sorted(coll.items()):
+            print(f"SERVE-MESH 18b {mode} decode collective {kind}: "
+                  f"{c['calls']} calls, {c['bytes']} B in, "
+                  f"{c['out_bytes']} B out a step a rank", flush=True)
+    print(f"SERVE-MESH 18b {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def serve_dry_run_start():
+    """18c: one workload of the pod dry run, started in a process of its
+    own (its fake process group never meets a real one; it needs no card
+    and runs beside phase 17 and 18a); :func:`serve_dry_run_check`
+    waits."""
+    arch, shape = SERVE_DRY
+    root = ROOT / "build" / "phase18"
+    root.mkdir(parents=True, exist_ok=True)
+    out = root / "dryrun.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod", "--json", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, out
+
+
+def serve_dry_run_check(started, card: str) -> dict:
+    """18c's record: status ``ok``, its bytes and roofline terms."""
+    proc, out = started
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or not out.exists():
+        raise AssertionError(f"18c: dry run exit {proc.returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    (rec,) = json.loads(out.read_text())
+    if rec["status"] != "ok":
+        raise AssertionError(f"18c: {rec}")
+    arch, shape = SERVE_DRY
+    print(f"SERVE-MESH 18c dry run {arch} {shape} {rec['mesh']}: "
+          f"{rec['status']} (its run {rec['run_s']} s, in a process beside "
+          "phase 17; "
+          f"no card, a fake group of 512); resident "
+          f"{rec['resident_total_bytes'] / 2**30:.3f} GiB a rank, "
+          f"collectives {rec['coll_bytes']:.0f} B a step a rank; roofline "
+          f"compute {rec['t_compute_s']:.3e} s, memory "
+          f"{rec['t_memory_s']:.3e} s, collective "
+          f"{rec['t_collective_s']:.3e} s ({rec['bottleneck']}; H100 "
+          f"constants, the card here {card})", flush=True)
+    return rec
+
+
+def serve_mesh_phase(dev, params_host: dict, ranks18: list, dry,
+                     card: str) -> dict:
+    """Phase 18: 18a, 18b's check of its ranks' results (run in phase
+    17's spawn), then 18c's record (``dry``: its process, started before
+    phase 17); SERVE-MESH lines."""
+    t = time.perf_counter()
+    out = {"18a": serve_world1(dev, params_host, card)}
+    phase("serve-mesh 18a", t)
+    t = time.perf_counter()
+    out["18b"] = serve_gloo(dev, card, ranks18)
+    phase("serve-mesh 18b (its one-card side and checks)", t)
+    t = time.perf_counter()
+    out["18c"] = serve_dry_run_check(dry, card)
+    phase("serve-mesh 18c (the rest of its wait)", t)
     return out
 
 
@@ -4985,12 +5325,25 @@ def main() -> int:
     lm_phase(dev, ROOT / "build" / "phase16", card, state16)
     phase("lm", t)
 
-    # --------------------------------------------------------- phase 17
-    t = time.perf_counter()
-    torch.cuda.empty_cache()
-    mesh_lm_phase(dev, state16, ROOT / "build" / "phase17", card)
-    del state16
-    phase("mesh-lm", t)
+    # ------------------------------------------------------ phases 17, 18
+    # 18c's dry run needs no card: its process runs beside phase 17.
+    dry = serve_dry_run_start()
+    try:
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        params16 = state16["params"]          # 16a's final state, for 18a
+        lm17 = mesh_lm_phase(dev, state16, ROOT / "build" / "phase17", card)
+        del state16
+        phase("mesh-lm", t)
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        serve_mesh_phase(dev, params16, lm17["18b ranks"], dry, card)
+        del params16, lm17
+        phase("serve-mesh", t)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].communicate()
 
     for entry in report:
         if entry["name"] in ("mhw_sweep_fused", "pdp_sweep_fused"):

@@ -12,7 +12,11 @@ Each call runs inside a ``torch.profiler.record_function`` range named
 profiler trace shows what each collective moved and how long it took;
 with no profiler running the range costs the host a few microseconds.
 Over a group of one rank the LM side's collectives are the identity and
-are not called.
+are not called.  :func:`tally` counts the same calls without a profiler:
+inside it every collective adds its calls, its input bytes and its output
+bytes on this rank to its kind (``all_gather``, ``reduce_scatter``,
+``all_reduce``, ``all_to_all``); with no tally open the count is one test
+of an empty list.
 
 Gloo runs these collectives on CUDA tensors as well as on CPU ones (the
 several processes of a mesh on one card use it, since NCCL refuses two
@@ -23,6 +27,7 @@ seen to run on an H100 under torch 2.11; NCCL on CUDA tensors only.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -36,8 +41,42 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
-def _span(op: str, what: str, x: torch.Tensor) -> str:
-    return f"{op} {what} ({x.numel() * x.element_size()} B)"
+_TALLIES: list = []
+
+# A collective's output bytes on a rank over its input bytes, by kind and
+# group size n.
+_OUT = {"all_gather": lambda n: n, "reduce_scatter": lambda n: 1 / n,
+        "all_reduce": lambda n: 1, "all_to_all": lambda n: 1}
+
+
+@contextlib.contextmanager
+def tally(by: str = "kind"):
+    """Count the collectives this rank calls in the ``with`` body: yields
+    ``{kind: {"calls", "bytes", "out_bytes"}}``, filled as they run
+    (``bytes``: the rank's input, as the ranges name it; ``out_bytes``:
+    its output, the measure XLA's collective shapes give); ``by="what"``
+    keys them by ``"<kind> <what>"``, the ranges' names."""
+    counts: dict = {}
+    entry = (by, counts)
+    _TALLIES.append(entry)
+    try:
+        yield counts
+    finally:
+        del _TALLIES[next(i for i, e in enumerate(_TALLIES) if e is entry)]
+
+
+def _span(op: str, what: str, x: torch.Tensor, group) -> str:
+    nbytes = x.numel() * x.element_size()
+    if _TALLIES:
+        out = int(nbytes * _OUT[op](group_size(group)))
+        for by, counts in _TALLIES:
+            key = op if by == "kind" else f"{op} {what}"
+            c = counts.setdefault(key, {"calls": 0, "bytes": 0,
+                                        "out_bytes": 0})
+            c["calls"] += 1
+            c["bytes"] += nbytes
+            c["out_bytes"] += out
+    return f"{op} {what} ({nbytes} B)"
 
 
 def group_size(group) -> int:
@@ -47,7 +86,7 @@ def group_size(group) -> int:
 def all_reduce_sum(x: torch.Tensor, group, what: str = "") -> torch.Tensor:
     """Sum ``x`` over the ranks of ``group`` in place and return it: the
     callers pass a fresh contiguous tensor (a product or a column sum)."""
-    with record_function(_span("all_reduce", what, x)):
+    with record_function(_span("all_reduce", what, x, group)):
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
@@ -57,7 +96,7 @@ def all_gather(x: torch.Tensor, group, what: str = "") -> list[torch.Tensor]:
     shape on every rank)."""
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    with record_function(_span("all_gather", what, x)):
+    with record_function(_span("all_gather", what, x, group)):
         dist.all_gather(out, x, group=group)
     return out
 
@@ -69,7 +108,7 @@ def all_to_all_dim0(x: torch.Tensor, group, what: str = "") -> torch.Tensor:
         return x
     src = x.contiguous()
     out = torch.empty_like(src)
-    with record_function(_span("all_to_all", what, src)):
+    with record_function(_span("all_to_all", what, src, group)):
         dist.all_to_all_single(out, src, group=group)
     return out
 
@@ -145,7 +184,8 @@ class _GatherLeaves(torch.autograd.Function):
                 dl = [dims[i] for i in run]
                 flat = _rows([ys[i] for i in run], dl, 1).reshape(-1)
                 out = flat.new_empty((n * flat.numel(),))
-                with record_function(_span("all_gather", what, flat)):
+                with record_function(_span("all_gather", what, flat,
+                                           group)):
                     _gather_into(out, flat, group=group)
                 del flat
                 full = [ctx.shapes[k][i][:d] + (n * ctx.shapes[k][i][d],)
@@ -183,7 +223,8 @@ class _GatherLeaves(torch.autograd.Function):
                     gs[i] = None
                 out = flat.new_empty((flat.numel() // n,))
                 with record_function(_span("reduce_scatter",
-                                           ctx.what + " grad", flat)):
+                                           ctx.what + " grad", flat,
+                                           group)):
                     _reduce_scatter(out, flat, group=group)
                 del flat
                 for i, g in zip(run, _split(out.reshape(1, -1),

@@ -1,5 +1,5 @@
-"""Process meshes for the mesh round (port of ``repro.launch.mesh``'s
-``make_host_mesh``).
+"""Process meshes (port of ``repro.launch.mesh``): ``make_host_mesh``,
+``make_production_mesh`` and the roofline's hardware constants.
 
 JAX runs a mesh as one program over many devices; ``torch.distributed``
 runs one process per rank.  :func:`run_on_mesh` starts those processes
@@ -14,13 +14,23 @@ CPU; gloo over CUDA tensors is used only when the caller names it (several
 ranks on one card: NCCL refuses two ranks on one device).  A rank on
 ``cuda`` uses card ``rank % device_count``.
 
-The reference's ``make_production_mesh`` and its TPU v5e roofline
-constants belong to the LM stack's pod dry run and wait for ROADMAP.md
-queue A.13c.
+:func:`make_production_mesh` lays the reference's production meshes,
+16×16 (data, model) and 2×16×16 (pod, data, model), over the process group
+that is already running: 256 or 512 ranks, in the pod dry run
+(``launch/dryrun.py``) a fake group of which this process is rank 0.
+
+The roofline's denominators are H100 SXM figures, one rank a card:
+``PEAK_FLOPS_BF16`` and ``HBM_BW`` from NVIDIA's H100 data sheet, and one
+collective rate a card, ``NVLINK_BW``: NVLink 4's 450 GB/s each way (900
+GB/s in all) a GPU.  A 256- or 512-GPU mesh spans nodes of eight cards,
+between which NDR InfiniBand gives ~50 GB/s a GPU, so the collective term
+taken at the NVLink rate is a lower bound.  The reference keeps one
+collective term; so does the port.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import queue
@@ -37,6 +47,13 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch import device as device_mod
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
+
+# One card's rates (NVIDIA's H100 SXM data sheet): dense bf16 tensor-core
+# FLOP/s, HBM3 bytes/s, NVLink 4 bytes/s each way.
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+NVLINK_BW = 450e9
 
 
 def default_backend(device) -> str:
@@ -44,41 +61,64 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def make_host_mesh(data: int = 1, model: int = 1, *, device=None,
-                   backend: str | None = None) -> DeviceMesh:
+def _mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+          device_type: str, what: str) -> DeviceMesh:
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what} needs torch.distributed's process "
+                           "group; run_on_mesh starts one per rank")
+    n = math.prod(shape)
+    if n != dist.get_world_size():
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
+                         f"ranks, the job has {dist.get_world_size()}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, pod: int | None = None,
+                   device=None, backend: str | None = None) -> DeviceMesh:
     """The (data, model) ``DeviceMesh`` over this job's ranks, rank
-    ``d·model + m`` at (d, m).  Called in each rank after
-    ``init_process_group``, whose backend must be ``backend`` (by default
-    the device's: no rank switches backend unasked)."""
+    ``d·model + m`` at (d, m); with ``pod`` the (pod, data, model) mesh,
+    rank ``(p·data + d)·model + m`` at (p, d, m), the reference's axis
+    order.  Called in each rank after ``init_process_group``, whose
+    backend must be ``backend`` (by default the device's: no rank switches
+    backend unasked)."""
     dev = device_mod.resolve(device)
     want = backend or default_backend(dev)
-    if not dist.is_initialized():
-        raise RuntimeError("make_host_mesh needs torch.distributed's process "
-                           "group; run_on_mesh starts one per rank")
-    if dist.get_backend() != want:
+    if dist.is_initialized() and dist.get_backend() != want:
         raise ValueError(f"the process group runs {dist.get_backend()!r}, "
                          f"the mesh asks for {want!r}")
-    if data * model != dist.get_world_size():
-        raise ValueError(f"a {data}x{model} mesh needs {data * model} "
-                         f"ranks, the job has {dist.get_world_size()}")
-    return DeviceMesh(dev.type, torch.arange(data * model).reshape(
-        data, model), mesh_dim_names=AXES)
+    if pod is None:
+        return _mesh((data, model), AXES, dev.type, "make_host_mesh")
+    return _mesh((pod, data, model), POD_AXES, dev.type, "make_host_mesh")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """The reference's production mesh over the running process group:
+    (data=16, model=16), 256 ranks, or with ``multi_pod`` (pod=2, data=16,
+    model=16), 512 ranks, the pod an outer data-parallel axis.  The group
+    may run any backend (the dry run's is the fake one); ``device`` is the
+    ranks' device type (``cuda`` unless the CPU is asked for)."""
+    dev = device_mod.resolve(device)
+    if multi_pod:
+        return _mesh((2, 16, 16), POD_AXES, dev.type, "make_production_mesh")
+    return _mesh((16, 16), AXES, dev.type, "make_production_mesh")
 
 
 def _rank_main(job: str, rank: int, data: int, model: int,
                device_type: str, backend: str, store: str, results) -> None:
+    world = data * model
     try:
         with open(job, "rb") as f:
             fn, args = pickle.load(f)
         dev = torch.device("cpu")
         if device_type == "cpu":
-            torch.set_num_threads(max(1, (os.cpu_count() or 1)
-                                      // (data * model)))
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         else:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-        dist.init_process_group(backend, store=dist.FileStore(
-            store, data * model), rank=rank, world_size=data * model)
+        dist.init_process_group(backend, store=dist.FileStore(store, world),
+                                rank=rank, world_size=world)
         out = fn(make_host_mesh(data, model, device=dev, backend=backend),
                  dev, *args)
         blob = pickle.dumps(out)

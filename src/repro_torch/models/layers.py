@@ -32,6 +32,11 @@ Weight layout notes:
   over the ranks that computed distinct slices (the gradient rule of
   ``train/train_step.py``).  Off a mesh every hook is unset and every
   helper is the identity.
+- Serving over a mesh (``model.serve_hooks``) sets the same hooks with no
+  activation spec (the weights are gathered in their own dtype, the serve
+  layout's bf16, never rounded on the wire) and a serve layout: the
+  (B, S) layout of the rank's tokens (:func:`token_spec`) and the decode
+  cache's specs (:func:`cache_spec`).
 """
 
 from __future__ import annotations
@@ -64,13 +69,16 @@ def cast(x: torch.Tensor) -> torch.Tensor:
 _ACT_SPEC = None
 _BLOCK_SPECS = None   # storage specs of the parameters ("blocks" etc.)
 _MESH = None          # the DeviceMesh of the step
+_SERVE = None         # serving: {"tokens": (B, S) spec, "cache": spec tree}
 
 
-def set_activation_spec(spec, block_specs=None, mesh=None) -> None:
-    global _ACT_SPEC, _BLOCK_SPECS, _MESH
+def set_activation_spec(spec, block_specs=None, mesh=None,
+                        serve=None) -> None:
+    global _ACT_SPEC, _BLOCK_SPECS, _MESH, _SERVE
     _ACT_SPEC = spec
     _BLOCK_SPECS = block_specs
     _MESH = mesh
+    _SERVE = serve
 
 
 def get_activation_spec():
@@ -86,11 +94,12 @@ def get_mesh():
 
 
 @contextlib.contextmanager
-def mesh_hooks(spec, block_specs=None, mesh=None):
+def mesh_hooks(spec, block_specs=None, mesh=None, serve=None):
     """The hooks set for the ``with`` body (a step's forward and backward,
-    remat's recomputation included), then restored."""
-    saved = _ACT_SPEC, _BLOCK_SPECS, _MESH
-    set_activation_spec(spec, block_specs, mesh)
+    remat's recomputation included; or a prefill or decode step), then
+    restored."""
+    saved = _ACT_SPEC, _BLOCK_SPECS, _MESH, _SERVE
+    set_activation_spec(spec, block_specs, mesh, serve)
     try:
         yield
     finally:
@@ -105,9 +114,12 @@ def constrain(x: torch.Tensor) -> torch.Tensor:
 
 def token_spec():
     """The (B, S) layout of the rank's tokens: the activation spec's first
-    two entries, or the batch over (pod, data) when there is none."""
+    two entries, else the serve layout's, else the batch over (pod,
+    data)."""
     if _ACT_SPEC is not None:
         return tuple(_ACT_SPEC[:2])
+    if _SERVE is not None:
+        return tuple(_SERVE["tokens"])
     ax = sharding.batch_axes(_MESH)
     return (ax if len(ax) > 1 else ax[0], None)
 
@@ -138,8 +150,45 @@ def model_size() -> int:
 
 def sequence_sharded() -> bool:
     """zero_seq: the sequence dim of the activations over ``model``."""
-    return (_ACT_SPEC is not None and len(_ACT_SPEC) > 1
-            and _ACT_SPEC[1] is not None and _MESH is not None)
+    return _MESH is not None and token_spec()[1] is not None
+
+
+def cache_spec(*path):
+    """The serve layout's spec of the cache leaf at ``path`` without its
+    leading layer dim (None off a mesh)."""
+    if _SERVE is None:
+        return None
+    node = _SERVE["cache"]
+    for k in path:
+        node = node[k]
+    return tuple(node[1:])
+
+
+def model_split(spec) -> list[int]:
+    """The dims of ``spec`` split over ``model`` when the model axis has
+    more than one rank."""
+    if spec is None or model_size() == 1:
+        return []
+    return [d for d, e in enumerate(spec) if "model" in
+            sharding.entry_axes(e)]
+
+
+def gather_model(x: torch.Tensor, spec, what: str) -> torch.Tensor:
+    """The whole of a leaf split over ``model`` under ``spec`` (its other
+    dims as the rank holds them)."""
+    dims = model_split(spec)
+    if not dims:
+        return x
+    return collectives.gather_leaves(
+        [x], [(_MESH.get_group("model"), False, {0: dims[0]})], what=what)[0]
+
+
+def keep_model(x: torch.Tensor, spec) -> torch.Tensor:
+    """The rank's slice of a leaf along the dims ``spec`` splits over
+    ``model`` (no communication)."""
+    for d in model_split(spec):
+        x = collectives.local_chunk(x, d, _MESH.get_group("model"))
+    return x
 
 
 def seq_offset(s_local: int) -> int:
@@ -271,7 +320,7 @@ def layer_specs(specs):
 def tokens_sum(x: torch.Tensor, what: str) -> torch.Tensor:
     """``x`` summed over the ranks that hold distinct tokens, counted once
     in the loss (the gradient passes through to each rank's share)."""
-    if _MESH is None:
+    if _MESH is None or token_ranks() == 1:
         return x
     return collectives.all_reduce_value(x, token_group(), what)
 

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -53,6 +54,7 @@ from repro_torch.models.layers import (attention_block, cast,
                                        layer_specs, mlp_block, normal,
                                        param_spec, qkv_project, rms_norm,
                                        sdpa, unembed)
+from repro_torch.train import sharding
 
 Params = dict[str, Any]
 
@@ -462,8 +464,10 @@ def _audio_forward(cfg, params, x, frames, positions, remat):
 
 def logits_fn(cfg: ModelConfig, params: Params,
               hidden: torch.Tensor) -> torch.Tensor:
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return unembed(table, hidden)
+    """Logits of ``hidden`` against the (tied or separate) table, gathered
+    at use on a mesh."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return unembed(gather_param(params[name], param_spec(name)), hidden)
 
 
 # ===========================================================================
@@ -481,9 +485,31 @@ def _windowed(cfg: ModelConfig, max_len: int) -> bool:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Params:
-    """Zeros/empty cache tree for :func:`decode_step`."""
+               dtype=torch.bfloat16, device=None, *, mesh=None) -> Params:
+    """Zeros/empty cache tree for :func:`decode_step`; with ``mesh`` the
+    rank's blocks of it under the serve layout (:func:`cache_layout`)."""
     dev = device_mod.resolve(device)
+    if mesh is None:
+        return _cache_tree(cfg, batch, max_len, dtype, dev)
+    specs = cache_layout(cfg, mesh, batch, max_len)
+
+    def block(path, leaf):
+        shape = sharding.local_shape(leaf.shape, specs_at(specs, path), mesh)
+        fill = -1 if path[-1] == "key_pos" else 0
+        return torch.full(shape, fill, dtype=leaf.dtype, device=dev)
+
+    return sharding.map_with_path(block, cache_shapes(cfg, batch, max_len,
+                                                      dtype))
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16) -> Params:
+    """The cache tree as meta tensors (shapes and dtypes, no storage)."""
+    return _cache_tree(cfg, batch, max_len, dtype, torch.device("meta"))
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                dev) -> Params:
     hd, kv = cfg.head_dim_, cfg.n_kv_heads
     s = cache_len(cfg, max_len)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -523,8 +549,147 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ===========================================================================
+# Serving over a mesh: the serve layout
+# ===========================================================================
+
+def specs_at(specs, path: tuple):
+    """The node of a tree at ``path`` (its keys)."""
+    node = specs
+    for k in path:
+        node = node[k]
+    return node
+
+
+def serve_param_specs(cfg: ModelConfig, mesh) -> Params:
+    """The serve layout's parameter specs: ``param_specs(fsdp=False)``
+    (the weights over ``model`` only, replicated over the batch axes), as
+    the reference's ``make_lowering_spec`` lays its bf16 serve weights."""
+    return sharding.param_specs(param_shapes(cfg), mesh=mesh, fsdp=False)
+
+
+def cache_layout(cfg: ModelConfig, mesh, batch: int,
+                 max_len: int) -> Params:
+    """``cache_specs`` of the global cache: rows over (pod, data), each
+    attention cache's sequence over ``model`` (flash-decode), the SSM and
+    conv states' and token shifts' trailing dim over ``model`` where it
+    divides; ``pos`` and ``key_pos`` replicated."""
+    return sharding.cache_specs(cache_shapes(cfg, batch, max_len), mesh)
+
+
+def serve_layout(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
+                 seq: int = 1, mode: str = "megatron") -> tuple:
+    """(parameter specs, serve layout) of :func:`serve_hooks`: the
+    parameter blocks under :func:`serve_param_specs`; the rank's token
+    rows, and under zero_seq its positions, as ``data_specs`` lays a
+    (``batch``, ``seq``) batch in activation ``mode`` (already resolved by
+    ``sharding.resolve_mode``; decode takes megatron's, ``seq`` 1); the
+    cache blocks under :func:`cache_layout`."""
+    probe = torch.empty((batch, seq), device="meta")
+    tokens = sharding.data_specs(probe, mesh, mode)
+    return serve_param_specs(cfg, mesh), {
+        "tokens": tuple(tokens),
+        "cache": cache_layout(cfg, mesh, batch, max_len)}
+
+
+def serve_hooks(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
+                seq: int = 1, mode: str = "megatron"):
+    """The hooks (``layers.mesh_hooks``) under which :func:`prefill` and
+    :func:`decode_step` run over ``mesh`` in the serve layout
+    (:func:`serve_layout`)."""
+    pspecs, serve = serve_layout(cfg, mesh, batch=batch, max_len=max_len,
+                                 seq=seq, mode=mode)
+    return layers_mod.mesh_hooks(None, pspecs, mesh, serve)
+
+
+def _cache_block(x: torch.Tensor, path: tuple) -> torch.Tensor:
+    """The rank's block, under the serve layout's spec of the cache leaf at
+    ``path``, of one layer's leaf ``x`` that holds the rank's token rows
+    and is whole along its other dims (off a mesh ``x``).  Where the rows
+    also lie over ``model`` (a zero_batch prefill) an all-to-all over the
+    model group trades the rank's slice of its peers' rows for theirs of
+    its own (or, the leaf not split over ``model``, the rows are
+    gathered)."""
+    spec = layers_mod.cache_spec(*path)
+    if spec is None:
+        return x
+    rows = sharding.entry_axes(layers_mod.token_spec()[0])
+    dims = layers_mod.model_split(spec)
+    if "model" not in rows or layers_mod.model_size() == 1:
+        return layers_mod.keep_model(x, spec)
+    group = layers_mod.get_mesh().get_group("model")
+    if not dims:
+        return collectives.gather_leaves([x], [(group, False, {0: 0})],
+                                         what="cache rows")[0]
+    m, d = layers_mod.model_size(), dims[0]
+    send = x.unflatten(d, (m, x.shape[d] // m)).movedim(d, 0)
+    recv = collectives.all_to_all_dim0(send, group, "cache relayout")
+    return recv.flatten(0, 1)
+
+
+def _split_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """Attention of ``q`` (B, Sq, H, hd) over keys and values split along
+    their sequence over ``model`` (k, v: the rank's (B, Sk_local, KV, hd);
+    ``valid``: which of its keys count, None for all): each rank's partial
+    softmax (its running max, sum of exponentials and unnormalised
+    output), gathered over the model group in one all-gather and combined
+    by log-sum-exp in rank order, so every model rank gets the same
+    output.  The keys and values never move."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    scores = einsum("bqgrh,bkgh->bgrqk", qg, k).float() * scale
+    if valid is not None:
+        scores = torch.where(valid, scores, -1e30)
+    mx = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - mx)
+    part = torch.cat([mx, e.sum(-1, keepdim=True),
+                      einsum("bgrqk,bkgh->bgrqh", e.to(q.dtype), v).float()],
+                     dim=-1)
+    parts = collectives.all_gather(part, layers_mod.get_mesh().get_group(
+        "model"), "decode softmax")
+    top = torch.stack([p[..., :1] for p in parts]).amax(0)
+    den = torch.zeros_like(top)
+    num = torch.zeros_like(part[..., 2:])
+    for p in parts:
+        w = torch.exp(p[..., :1] - top)
+        den = den + p[..., 1:2] * w
+        num = num + p[..., 2:] * w
+    out = (num / den).to(q.dtype)                        # (B, G, R, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+# ===========================================================================
 # Prefill: full-sequence forward that also materializes the decode cache
 # ===========================================================================
+
+@layers_mod.sequence_whole
+def _rwkv_prefill_block(x, cfg, bp):
+    xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    o, sh1, state = ssm_mod.rwkv6_time_mix(cfg, bp["tmix"], xn)
+    x = x + o
+    xn2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    c, _ = ssm_mod.rwkv6_channel_mix(cfg, bp["cmix"], xn2)
+    return x + c, state, sh1, xn2[:, -1:]
+
+
+@layers_mod.sequence_whole
+def _mamba_prefill_block(x, cfg, bp):
+    xn = rms_norm(x, bp["ln"], cfg.norm_eps)
+    o, conv, state = ssm_mod.mamba2_block(cfg, bp["mamba"], xn)
+    return x + o, conv, state
+
+
+def _layer_params(cfg: ModelConfig, stacked: Params, specs,
+                  n_tokens: int = 0):
+    """Each layer's weights of a stacked tree, gathered at use on a mesh
+    (the MoE's expert dim kept local under its all-to-all)."""
+    if cfg.family == "moe":
+        specs = moe_mod.block_gather_specs(cfg, specs, n_tokens)
+    lspecs = layer_specs(specs)
+    for bp in layers(stacked):
+        yield gather_params(bp, lspecs)
+
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
@@ -533,19 +698,34 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
     Returns (last-token logits (B, 1, Vp), cache with pos = S).  For
     sliding-window configs only the last ``window`` keys are retained
     (ring-buffer layout, aligned so subsequent decode writes continue it).
+
+    Over a mesh (:func:`serve_hooks`) ``params`` are the rank's blocks of
+    the serve layout, ``batch`` its token rows (and under zero_seq its
+    positions), and the result its rows' logits and its blocks of the
+    cache.  Each layer's weights are gathered at use; a rank's products
+    are those of its whole rows, not split over ``model`` (ROADMAP B.11).
+    Under zero_seq attention gathers its keys and values over the model
+    group, the recurrences run on the gathered sequence, and a rank keeps
+    its own keys and values as its cache block where the cache is the
+    sequence (else its slice of the whole sequence's); under zero_batch an
+    all-to-all over ``model`` moves each leaf from the rank's rows to the
+    cache's rows over (pod, data).
     """
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    b, s_local = tokens.shape
     dev = tokens.device
-    positions = torch.arange(s, device=dev)
-    x = embed(params["embed"], tokens)
+    positions = _positions(s_local, dev)
+    seq_sharded = layers_mod.sequence_sharded()
+    s = s_local * (layers_mod.model_size() if seq_sharded else 1)
+    x = embed(gather_param(params["embed"], param_spec("embed")), tokens)
     fam = cfg.family
     s_cache = cache_len(cfg, max_len)
+    own_kv = seq_sharded and s == s_cache
     cache: Params = {"pos": torch.tensor(s, dtype=torch.int32, device=dev)}
 
     def clip_kv(k):  # keep the last s_cache positions, ring-aligned
         if s <= s_cache:
-            pad = k.new_zeros((b, s_cache - s) + k.shape[2:])
+            pad = k.new_zeros((k.shape[0], s_cache - s) + k.shape[2:])
             return torch.cat([k, pad], dim=1)
         return torch.roll(k[:, s - s_cache:], s % s_cache, dims=1)
 
@@ -557,24 +737,36 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
         cache["key_pos"] = torch.where((last >= 0) & (last >= s - s_cache),
                                        last, -1).to(torch.int32)
 
-    def attn_kv(bp, h, rope=True, window=0):
-        """Self-attention of one block: (h + out, clipped k, clipped v)."""
+    def attn_kv(bp, h, path, rope=True, window=0):
+        """Self-attention of one block: (h + out, k block, v block)."""
         xn = rms_norm(h, bp["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(cfg, bp["attn"], xn, positions, rope=rope)
-        o = sdpa(q, k, v, causal=True, window=window)
+        if seq_sharded:
+            kl, vl = k, v
+            k = layers_mod.gather_seq(k, "prefill k")
+            v = layers_mod.gather_seq(v, "prefill v")
+            o = sdpa(q, k, v, causal=True, window=window,
+                     q_offset=layers_mod.seq_offset(s_local))
+        else:
+            o = sdpa(q, k, v, causal=True, window=window)
         h = h + einsum("bshk,hkd->bsd", o, cast(bp["attn"]["wo"])).to(h.dtype)
-        return h, clip_kv(k), clip_kv(v)
+        if own_kv:
+            return h, kl, vl
+        return (h, _cache_block(clip_kv(k), path + ("k",)),
+                _cache_block(clip_kv(v), path + ("v",)))
 
     def stack(kvs):
         return {"k": torch.stack([k for k, _ in kvs]).to(torch.bfloat16),
                 "v": torch.stack([v for _, v in kvs]).to(torch.bfloat16)}
 
+    blocks = _layer_params(cfg, params["blocks"], param_spec("blocks"),
+                           tokens.numel())
     if fam in ("dense", "moe", "vlm"):
         if fam == "vlm":
             x = _vlm_prefix(cfg, params, batch, x)
         kvs = []
-        for bp in layers(params["blocks"]):
-            x, k, v = attn_kv(bp, x, window=cfg.sliding_window)
+        for bp in blocks:
+            x, k, v = attn_kv(bp, x, ("layers",), window=cfg.sliding_window)
             inner = rms_norm(x, bp["ln2"], cfg.norm_eps)
             if "moe" in bp:
                 m, _ = moe_mod.moe_block(cfg, bp["moe"], inner)
@@ -586,31 +778,26 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
 
     elif fam == "ssm":
         st, s1, s2 = [], [], []
-        for bp in layers(params["blocks"]):
-            xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            o, sh1, state = ssm_mod.rwkv6_time_mix(cfg, bp["tmix"], xn)
-            x = x + o
-            xn2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-            c, _ = ssm_mod.rwkv6_channel_mix(cfg, bp["cmix"], xn2)
-            x = x + c
-            st.append(state)
-            s1.append(sh1)
-            s2.append(xn2[:, -1:])
+        for bp in blocks:
+            x, state, sh1, sh2 = _rwkv_prefill_block(x, cfg, bp)
+            st.append(_cache_block(state, ("layers", "state")))
+            s1.append(_cache_block(sh1, ("layers", "shift1")))
+            s2.append(_cache_block(sh2, ("layers", "shift2")))
         cache["layers"] = {"state": torch.stack(st),
                            "shift1": torch.stack(s1).float(),
                            "shift2": torch.stack(s2).float()}
 
     elif fam == "hybrid":
-        shared = params["shared_attn"]
+        shared = gather_params(params["shared_attn"],
+                               param_spec("shared_attn"))
         conv, st, kvs = [], [], []
-        for i, bp in enumerate(layers(params["blocks"])):
-            xn = rms_norm(x, bp["ln"], cfg.norm_eps)
-            o, c, state = ssm_mod.mamba2_block(cfg, bp["mamba"], xn)
-            x = x + o
-            conv.append(c)
-            st.append(state)
+        for i, bp in enumerate(blocks):
+            x, c, state = _mamba_prefill_block(x, cfg, bp)
+            conv.append(_cache_block(c, ("layers", "conv")))
+            st.append(_cache_block(state, ("layers", "state")))
             if (i + 1) % cfg.attn_every == 0:
-                x, k, v = attn_kv(shared, x, window=cfg.sliding_window)
+                x, k, v = attn_kv(shared, x, ("shared_attn",),
+                                  window=cfg.sliding_window)
                 x = x + mlp_block(shared["mlp"],
                                   rms_norm(x, shared["ln2"], cfg.norm_eps))
                 kvs.append((k, v))
@@ -619,42 +806,77 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
         cache["shared_attn"] = stack(kvs)
 
     elif fam == "audio":
-        mem = _encode(cfg, params["encoder"], batch["frames"], remat=False)
+        frames = batch["frames"]
+        mem_sharded = frames.shape[1] < cfg.n_frames
+        mem = _encode(cfg, params["encoder"], frames, remat=False)
         x = x + _sinusoidal(positions, cfg.d_model)[None].to(x.dtype)
         kvs, xkvs = [], []
-        for bp in layers(params["blocks"]):
-            x, k, v = attn_kv(bp, x, rope=False)
+        for bp in blocks:
+            x, k, v = attn_kv(bp, x, ("layers",), rope=False)
             mk, mv = _cross_kv(bp, mem)
+            if mem_sharded:
+                mk = layers_mod.gather_seq(mk, "cross k")
+                mv = layers_mod.gather_seq(mv, "cross v")
             x = x + cross_attention_block(
                 cfg, bp["xattn"], rms_norm(x, bp["ln_x"], cfg.norm_eps),
                 mk.to(x.dtype), mv.to(x.dtype))
             x = x + mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps))
             kvs.append((k, v))
-            xkvs.append((mk, mv))
+            xkvs.append((_cache_block(mk, ("cross", "k")),
+                         _cache_block(mv, ("cross", "v"))))
         cache["layers"] = stack(kvs)
         cache["cross"] = stack(xkvs)
     else:
         raise ValueError(fam)
 
-    h = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    last = x[:, -1:]
+    if seq_sharded:             # the last position lies on the last rank
+        last = layers_mod.gather_seq(last, "prefill last")[:, -1:]
+    final_norm = gather_param(params["final_norm"], param_spec("final_norm"))
+    h = rms_norm(last, final_norm, cfg.norm_eps)
     return logits_fn(cfg, params, h), cache
 
 
-def _attn_step(cfg, bp, x, k_cache, v_cache, pos, key_pos, rope=True):
+def _attn_step(cfg, bp, x, k_cache, v_cache, pos, key_pos, rope=True,
+               spec=None):
     """One-token attention against a cache layer, the new key and value
-    written into it in place; returns the block's output."""
+    written into it in place; returns the block's output.  With ``spec``
+    (the serve layout's spec of the layer's cache) splitting the sequence
+    over ``model``, the rank holds a contiguous block of the slots: only
+    the rank whose block holds the write slot writes it (the others write
+    back what they hold), and the softmax spans the model group
+    (:func:`_split_attend`)."""
+    split = 1 in layers_mod.model_split(spec)
     s_cache = k_cache.shape[1]
+    total = s_cache * layers_mod.model_size() if split else s_cache
     windowed = key_pos is not None
-    write_at = torch.remainder(pos, s_cache) if windowed else pos
+    write_at = torch.remainder(pos, total) if windowed else pos
     q, k, v = qkv_project(cfg, bp, x, pos.view(1, 1), rope=rope)
-    at = write_at.view(1).long()
-    k_cache.index_copy_(1, at, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+    if not split:
+        at = write_at.view(1).long()
+        k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+        if windowed:
+            # ring buffer: mask by key_pos validity instead of a prefix
+            # length
+            out = _ring_sdpa(q, k_cache, v_cache, key_pos, write_at)
+        else:
+            out = sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
+        return einsum("bshk,hkd->bsd", out, cast(bp["wo"])).to(x.dtype)
+    first = layers_mod.get_mesh().get_local_rank("model") * s_cache
+    local = write_at - first
+    mine = (local >= 0) & (local < s_cache)
+    at = local.clamp(0, s_cache - 1).view(1).long()
+    for new, buf in ((k, k_cache), (v, v_cache)):
+        buf.index_copy_(1, at, torch.where(mine, new.to(buf.dtype),
+                                           buf.index_select(1, at)))
+    slots = first + torch.arange(s_cache, device=q.device)
     if windowed:
-        # ring buffer: mask by key_pos validity instead of a prefix length
-        out = _ring_sdpa(q, k_cache, v_cache, key_pos, write_at)
+        valid = (key_pos[first:first + s_cache] >= 0) | (slots == write_at)
     else:
-        out = sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
+        valid = slots < pos + 1
+    out = _split_attend(q, k_cache, v_cache, valid,
+                        1.0 / math.sqrt(q.shape[-1]))
     return einsum("bshk,hkd->bsd", out, cast(bp["wo"])).to(x.dtype)
 
 
@@ -672,22 +894,49 @@ def _ring_sdpa(q, k_cache, v_cache, key_pos, write_at):
     return out.reshape(b, 1, h, hd)
 
 
+def _state_step(fn, lay: Params, path: tuple, i: int, *names):
+    """``fn`` of layer ``i``'s states ``names`` of ``lay`` (each gathered
+    over ``model`` where the serve layout splits it), which returns
+    (out, new states); the new states written back in place (the rank's
+    slice of each)."""
+    specs = [layers_mod.cache_spec(*path, n) for n in names]
+    held = [layers_mod.gather_model(lay[n][i], sp, "decode state")
+            for n, sp in zip(names, specs)]
+    out, new = fn(*held)
+    for n, sp, t in zip(names, specs, new):
+        lay[n][i].copy_(layers_mod.keep_model(t, sp))
+    return out
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: torch.Tensor):
     """One decode step for a (B, 1) token batch.  Returns (logits, cache):
-    the cache's tensors updated in place, ``pos`` advanced."""
+    the cache's tensors updated in place, ``pos`` advanced.
+
+    Over a mesh (:func:`serve_hooks`, megatron's layout) ``params`` are the
+    rank's serve blocks, ``tokens`` and the logits its rows, ``cache`` its
+    blocks: each layer's weights gathered at use (products not split over
+    ``model``, ROADMAP B.11); an attention cache's sequence split over
+    ``model`` stays put, its softmax combined over the model group
+    (:func:`_split_attend`); an SSM or conv state or a token shift split
+    over ``model`` is gathered for its layer's step (at most (B, H, K, P)
+    a layer) and the rank keeps its slice of the new one."""
     pos = cache["pos"]
-    x = embed(params["embed"], tokens)
+    x = embed(gather_param(params["embed"], param_spec("embed")), tokens)
     fam = cfg.family
     key_pos = cache.get("key_pos")
     lay = cache["layers"]
+    kv_spec = layers_mod.cache_spec("layers", "k") if "k" in lay else None
+    blocks = _layer_params(cfg, params["blocks"], param_spec("blocks"),
+                           tokens.numel())
 
     if fam in ("dense", "moe", "vlm"):
-        for i, bp in enumerate(layers(params["blocks"])):
+        for i, bp in enumerate(blocks):
             x = x + _attn_step(cfg, bp["attn"],
                                rms_norm(x, bp["ln1"], cfg.norm_eps),
-                               lay["k"][i], lay["v"][i], pos, key_pos)
+                               lay["k"][i], lay["v"][i], pos, key_pos,
+                               spec=kv_spec)
             inner = rms_norm(x, bp["ln2"], cfg.norm_eps)
             if "moe" in bp:
                 m, _ = moe_mod.moe_block(cfg, bp["moe"], inner)
@@ -696,53 +945,73 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
             x = x + m
 
     elif fam == "ssm":
-        for i, bp in enumerate(layers(params["blocks"])):
-            h, sh1, state = ssm_mod.rwkv6_time_mix_step(
-                cfg, bp["tmix"], rms_norm(x, bp["ln1"], cfg.norm_eps),
-                lay["shift1"][i], lay["state"][i])
-            x = x + h
+        for i, bp in enumerate(blocks):
+            def tmix(shift1, state):
+                h, sh1, new = ssm_mod.rwkv6_time_mix_step(
+                    cfg, bp["tmix"], rms_norm(x, bp["ln1"], cfg.norm_eps),
+                    shift1, state)
+                return h, (sh1, new)
+
+            x = x + _state_step(tmix, lay, ("layers",), i, "shift1", "state")
             xn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-            c, _ = ssm_mod.rwkv6_channel_mix(cfg, bp["cmix"], xn,
-                                             shift_prev=lay["shift2"][i])
-            x = x + c
-            # the token shift carries the *normalized* stream of both mixes
-            lay["state"][i].copy_(state)
-            lay["shift1"][i].copy_(sh1)
-            lay["shift2"][i].copy_(xn[:, -1:])
+
+            def cmix(shift2):
+                c, _ = ssm_mod.rwkv6_channel_mix(cfg, bp["cmix"], xn,
+                                                 shift_prev=shift2)
+                # the token shift carries the *normalized* stream of both
+                # mixes
+                return c, (xn[:, -1:],)
+
+            x = x + _state_step(cmix, lay, ("layers",), i, "shift2")
 
     elif fam == "hybrid":
-        shared = params["shared_attn"]
-        for i, bp in enumerate(layers(params["blocks"])):
-            h, conv, state = ssm_mod.mamba2_step(
-                cfg, bp["mamba"], rms_norm(x, bp["ln"], cfg.norm_eps),
-                lay["conv"][i], lay["state"][i])
-            x = x + h
-            lay["conv"][i].copy_(conv)
-            lay["state"][i].copy_(state)
+        shared = gather_params(params["shared_attn"],
+                               param_spec("shared_attn"))
+        shared_spec = layers_mod.cache_spec("shared_attn", "k")
+        for i, bp in enumerate(blocks):
+            def mamba(conv, state):
+                h, conv2, state2 = ssm_mod.mamba2_step(
+                    cfg, bp["mamba"], rms_norm(x, bp["ln"], cfg.norm_eps),
+                    conv, state)
+                return h, (conv2, state2)
+
+            x = x + _state_step(mamba, lay, ("layers",), i, "conv", "state")
             if (i + 1) % cfg.attn_every == 0:
                 g = i // cfg.attn_every
                 x = x + _attn_step(cfg, shared["attn"],
                                    rms_norm(x, shared["ln1"], cfg.norm_eps),
                                    cache["shared_attn"]["k"][g],
-                                   cache["shared_attn"]["v"][g], pos, key_pos)
+                                   cache["shared_attn"]["v"][g], pos, key_pos,
+                                   spec=shared_spec)
                 x = x + mlp_block(shared["mlp"],
                                   rms_norm(x, shared["ln2"], cfg.norm_eps))
 
     elif fam == "audio":
         x = x + _sinusoidal(pos.view(1), cfg.d_model)[None].to(x.dtype)
-        for i, bp in enumerate(layers(params["blocks"])):
+        cross_split = 1 in layers_mod.model_split(
+            layers_mod.cache_spec("cross", "k"))
+        for i, bp in enumerate(blocks):
             x = x + _attn_step(cfg, bp["attn"],
                                rms_norm(x, bp["ln1"], cfg.norm_eps),
                                lay["k"][i], lay["v"][i], pos, key_pos,
-                               rope=False)
-            x = x + cross_attention_block(
-                cfg, bp["xattn"], rms_norm(x, bp["ln_x"], cfg.norm_eps),
-                cache["cross"]["k"][i], cache["cross"]["v"][i])
+                               rope=False, spec=kv_spec)
+            xn = rms_norm(x, bp["ln_x"], cfg.norm_eps)
+            mk, mv = cache["cross"]["k"][i], cache["cross"]["v"][i]
+            if cross_split:
+                q = einsum("bsd,dhk->bshk", xn,
+                           cast(bp["xattn"]["wq"])).to(xn.dtype)
+                out = _split_attend(q, mk, mv, None,
+                                    1.0 / math.sqrt(q.shape[-1]))
+                x = x + einsum("bshk,hkd->bsd", out,
+                               cast(bp["xattn"]["wo"])).to(x.dtype)
+            else:
+                x = x + cross_attention_block(cfg, bp["xattn"], xn, mk, mv)
             x = x + mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps))
     else:
         raise ValueError(fam)
 
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    final_norm = gather_param(params["final_norm"], param_spec("final_norm"))
+    h = rms_norm(x, final_norm, cfg.norm_eps)
     logits = logits_fn(cfg, params, h)
     if key_pos is not None:
         key_pos.index_copy_(0, torch.remainder(pos, key_pos.shape[0]).view(

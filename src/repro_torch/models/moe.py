@@ -140,13 +140,14 @@ def _groups(cfg: ModelConfig, t_all: int) -> int:
 
 def a2a_applies(cfg: ModelConfig, t_all: int) -> bool:
     """The reference's condition for :func:`_moe_a2a`: a mesh with a model
-    axis, a batch spec covering ``model`` (zero_batch), one token group a
-    device and E divisible by the model axis."""
-    mesh, act = layers.get_mesh(), layers.get_activation_spec()
+    axis, a batch spec covering ``model`` (zero_batch, in training or in
+    a served prefill), one token group a device and E divisible by the
+    model axis."""
+    mesh = layers.get_mesh()
     if mesh is None or "model" not in mesh.mesh_dim_names:
         return False
-    batch_covers_model = (act is not None and isinstance(act[0], tuple)
-                          and "model" in act[0])
+    rows = layers.token_spec()[0]
+    batch_covers_model = isinstance(rows, tuple) and "model" in rows
     return (batch_covers_model and _groups(cfg, t_all) == mesh.size()
             and cfg.n_experts % layers.model_size() == 0)
 

@@ -53,10 +53,15 @@ def P(*entries) -> Spec:
 
 
 def axis_sizes(mesh) -> dict[str, int]:
-    """{axis: size} of a ``DeviceMesh`` or of a mapping."""
+    """{axis: size} of a ``DeviceMesh`` or of a mapping (a mesh's read
+    once and kept on it: under ``FakeTensorMode`` its rank table cannot be
+    read)."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    if "_axis_sizes" not in mesh.__dict__:
+        mesh.__dict__["_axis_sizes"] = dict(zip(mesh.mesh_dim_names,
+                                                mesh.mesh.shape))
+    return dict(mesh.__dict__["_axis_sizes"])
 
 
 def _names(mesh) -> tuple[str, ...]:
@@ -344,16 +349,29 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
 
 
 def group_of(mesh, axes: tuple[str, ...]):
-    """The process group of the ranks that differ only along ``axes``
-    (one axis: its ``DeviceMesh`` group; every axis: the whole job, whose
-    ranks ``make_host_mesh`` lays out in the mesh's row-major order)."""
+    """The process group of the ranks that differ only along ``axes`` (any
+    sub-tuple of the mesh's axes): one axis, its ``DeviceMesh`` group;
+    every axis, the whole job (whose ranks ``make_host_mesh`` lays out in
+    the mesh's row-major order); else the group of ``DeviceMesh``'s own
+    flattening of those axes, e.g. (pod, data).  A flattened group is
+    built once per mesh and kept on it: building one is collective, so
+    every rank meets the same sequence of new axis tuples, which the
+    layers' fixed order of calls gives."""
     names = _names(mesh)
+    if set(axes) - set(names):
+        raise ValueError(f"axes {axes} of a mesh {names}")
+    axes = tuple(a for a in names if a in axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    if tuple(axes) == names:
+    if axes == names:
         import torch.distributed as dist
         return dist.group.WORLD
-    raise NotImplementedError(f"a group over {axes} of a mesh {names}")
+    if not axes:
+        raise ValueError("a group over no axis")
+    cache = mesh.__dict__.setdefault("_groups_by_axes", {})
+    if axes not in cache:
+        cache[axes] = mesh[axes]._flatten().get_group()
+    return cache[axes]
 
 
 @torch.no_grad()

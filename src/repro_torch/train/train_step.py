@@ -18,7 +18,15 @@ computes on it:
 
 * the targets and mask are formed from the global rows, then each
   microbatch (global rows, as the reference splits them) is cut to the
-  rank's block by ``data_specs``;
+  rank's block by ``data_specs``.  A microbatch must split over the
+  ranks that hold distinct rows: where ``tcfg.microbatches`` would cut
+  the batch finer (16 microbatches of a 256-row batch over the 32 (pod,
+  data) ranks of a 2×16×16 mesh), consecutive microbatches are merged
+  until they split (:func:`mesh_microbatches`), so a rank's share of a
+  microbatch is what it would hold on the smaller mesh.  The
+  reference's partitioner lays such a microbatch over part of the ranks
+  instead; the mean loss is the same, the MoE's load-balance statistics
+  and token groups span the merged rows;
 * the forward gathers each weight at use (``models/model.py``); the loss
   is the global mean, the MoE's load-balance statistics global;
 * the gradient rule: a leaf's gradient is the sum of the per-rank
@@ -38,6 +46,7 @@ each product is later work (ROADMAP B).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -115,6 +124,23 @@ def param_layout(cfg: ModelConfig, mesh, mode: str = "megatron"):
     return sharding.param_specs(
         model_lib.param_shapes(cfg), mesh=mesh, fsdp=True,
         mode="zero_seq" if mode == "zero_batch" else mode)
+
+
+def mesh_microbatches(microbatches: int, global_batch: int, mesh,
+                      mode: str = "megatron") -> int:
+    """The microbatches the mesh step runs: the largest divisor of
+    ``microbatches`` whose microbatch rows split evenly over the ranks
+    that hold distinct rows in ``mode`` (``microbatches`` itself where
+    they already do)."""
+    act = sharding.activation_spec(mesh, mode)
+    rows = act[0] if act is not None else sharding.batch_axes(mesh)
+    sizes = sharding.axis_sizes(mesh)
+    ranks = math.prod(sizes[a] for a in sharding.entry_axes(rows))
+    for n in range(microbatches, 0, -1):
+        if microbatches % n == 0 and global_batch % n == 0 \
+                and (global_batch // n) % ranks == 0:
+            return n
+    return microbatches
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, *,
@@ -211,7 +237,8 @@ def _mesh_step(cfg: ModelConfig, tcfg: TrainConfig, dev, mesh, mode: str):
         """(loss, metrics, gradient blocks): the metrics global, each
         block the rank's block of the global gradient."""
         batch = model_lib.to_batch(batch, dev)
-        n_mb = tcfg.microbatches
+        n_mb = mesh_microbatches(tcfg.microbatches,
+                                 batch["tokens"].shape[0], mesh, mode)
         with layers.mesh_hooks(act, pspecs, mesh):
             ranks = layers.token_ranks()
 

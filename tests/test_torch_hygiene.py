@@ -1,16 +1,18 @@
 """The port stands alone and never falls back.
 
-* No module of ``src/repro_torch``, nor ``chip_smoke.py`` or the
-  ``tools/torch_*.py`` scripts, imports ``jax`` or the reference package
-  ``repro`` (an AST scan of every import).
+* No module of ``src/repro_torch`` (the pod dry run's ``launch/specs.py``,
+  ``roofline.py`` and ``dryrun.py`` among them), nor ``chip_smoke.py`` or
+  the ``tools/torch_*.py`` scripts, imports ``jax`` or the reference
+  package ``repro`` (an AST scan of every import).
 * ``Trainer``, the family sweep, ``ops.*``, the ``bridge`` converters, the
   LM side's (``LM``, ``init_params``, ``make_train_step``, the training
   launcher's CLI, ``bridge.lm_params_from``), the
   serving entry points (``freeze``, ``from_checkpoint``, ``FoldInEngine``,
   ``reference_fold_in``, ``InferenceServer`` and its CLI,
-  ``launch_serve``) and the wire's (shard servers, the client, their
-  CLIs, the tcp Trainer, ``from_servers``) run on ``cuda`` by default and
-  raise when there is no card and the CPU was not asked for.
+  ``launch_serve``), the wire's (shard servers, the client, their
+  CLIs, the tcp Trainer, ``from_servers``) and the pod dry run's
+  (``make_production_mesh``, ``make_lowering_spec``) run on ``cuda`` by
+  default and raise when there is no card and the CPU was not asked for.
 * On the card (tests marked ``cuda``, skipped here without one): a CUDA
   tensor handed to a kernel wrapper reaches the kernel, as the launch
   counters show, and each kernel agrees with its plain version.
@@ -72,7 +74,7 @@ def test_scan_covers_the_package():
             "model.py", "layers.py", "moe.py", "linear_attn.py", "ssm.py",
             "adamw.py", "loss.py", "train_step.py", "sync.py", "train.py",
             "registry.py", "smollm_360m.py", "train_lm_torch.py",
-            "sharding.py"} <= names
+            "sharding.py", "specs.py", "roofline.py", "dryrun.py"} <= names
     serving = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/serve/server.py",
             "src/repro_torch/serve/engine.py",
@@ -92,7 +94,10 @@ def test_scan_covers_the_package():
             "src/repro_torch/optim/adamw.py",
             "src/repro_torch/train/train_step.py",
             "src/repro_torch/train/sharding.py",
-            "src/repro_torch/train/sync.py"} <= serving
+            "src/repro_torch/train/sync.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/roofline.py",
+            "src/repro_torch/launch/dryrun.py"} <= serving
 
 
 def test_filter_keys_collide_with_no_other_stream(monkeypatch):
@@ -428,6 +433,42 @@ def test_lm_mesh_requires_card_unless_cpu_asked(call, monkeypatch,
             assert np.isfinite(float(met["loss"]))
         finally:
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("call", ["make_production_mesh",
+                                  "make_lowering_spec"])
+def test_dry_run_requires_card_unless_cpu_asked(call, monkeypatch):
+    """The pod dry run's pieces that take a device (the production mesh,
+    a workload's spec) run on ``cuda`` unless the CPU is asked for, and
+    raise without a card before they touch a process group or build a
+    tensor; the dry run itself asks for the CPU (it runs on no device)."""
+    from repro_torch.configs.base import InputShape, reduced
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs
+
+    _no_card(monkeypatch)
+    cfg = reduced(ARCHITECTURES["smollm-360m"]).replace(vocab_size=256)
+    shape = InputShape("tiny_decode", 16, 2, "decode")
+    fns = {"make_production_mesh": mesh_mod.make_production_mesh,
+           "make_lowering_spec": lambda **kw: specs.make_lowering_spec(
+               cfg, shape, {"data": 1, "model": 1}, **kw)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fns[call]()
+    if call == "make_production_mesh":
+        with pytest.raises(RuntimeError, match="process group"):
+            fns[call](device="cpu")
+        return
+    spec = fns[call](device="cpu")
+    assert all(x.device.type == "cpu" for x in model_leaves(spec.args))
+
+
+def model_leaves(tree) -> list:
+    from repro_torch.models import model
+    out = []
+    for x in tree:
+        out += model.leaves(x) if isinstance(x, dict) else [x]
+    return out
 
 
 @pytest.mark.parametrize("call", ["build_tables", "gather", "sweep"])

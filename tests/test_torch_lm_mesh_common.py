@@ -320,3 +320,89 @@ def job(arch: str, modes, seed: int, **cfg_kw) -> tuple:
     cfg = config(arch, **cfg_kw)
     return arch, cfg_kw, tuple(modes), weights(cfg, seed), batches(
         cfg, seed + 1)
+
+
+# ------------------------------------------- the reference's served decode
+
+SERVE_SCRIPT = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+from tests.test_torch_lm_mesh_common import reference_decode
+reference_decode(sys.argv[1])
+"""
+
+
+def start_reference_decode(tmp: Path, arch: str, np_tree: dict,
+                           tokens: np.ndarray, prompt: int, max_len: int,
+                           steps: int):
+    """Start the reference's served decode (:func:`reference_decode`) of
+    ``arch`` from ``np_tree`` on ``tokens`` in a subprocess; returns a
+    handle for :func:`reference_decode_result`."""
+    np.savez(tmp / "serve-weights.npz", **_flat(np_tree))
+    np.save(tmp / "serve-tokens.npy", tokens)
+    spec = {"arch": arch, "vocab": VOCAB, "prompt": prompt,
+            "max_len": max_len, "steps": steps,
+            "weights": str(tmp / "serve-weights.npz"),
+            "tokens": str(tmp / "serve-tokens.npy"),
+            "out": str(tmp / "serve-ref.npy")}
+    (tmp / "serve.json").write_text(json.dumps(spec))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.Popen([sys.executable, "-c", SERVE_SCRIPT,
+                             str(tmp / "serve.json")], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, spec
+
+
+def reference_decode_result(handle) -> np.ndarray:
+    """(steps, B, Vp) logits of the reference's served decode steps."""
+    proc, spec = handle
+    _, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, err[-4000:]
+    return np.load(spec["out"])
+
+
+def reference_decode(spec_path: str) -> None:
+    """The reference's decode as its dry run lowers it, run: the prompt
+    through its ``prefill`` (one device), then the spec's decode steps
+    under ``make_lowering_spec``'s decode kind (the serve layout: weights
+    over ``model``, rows over ``data``, the K/V sequence over ``model``)
+    jitted on a forced 4-device ``make_host_mesh(2, 2)`` with the spec's
+    shardings; float32 compute, the spec's weights in float32.  Writes the
+    steps' logits."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import InputShape
+    from repro.configs.base import reduced as ref_reduced
+    from repro.configs.registry import ARCHITECTURES as REF_ARCHS
+    from repro.launch.mesh import make_host_mesh
+    from repro.launch.specs import make_lowering_spec
+    from repro.models import layers as ref_layers
+    from repro.models import model as ref_model
+    from tests.test_torch_lm_mesh_reference import FAST_COMPILE, _tree
+
+    spec = json.loads(Path(spec_path).read_text())
+    ref_layers.COMPUTE_DTYPE = jnp.float32
+    cfg = ref_reduced(REF_ARCHS[spec["arch"]]).replace(
+        vocab_size=spec["vocab"])
+    params = jax.tree.map(jnp.asarray, _tree(np.load(spec["weights"])))
+    tokens = jnp.asarray(np.load(spec["tokens"]))
+    s, max_len = spec["prompt"], spec["max_len"]
+    _, cache = jax.jit(lambda p, t: ref_model.prefill(
+        cfg, p, {"tokens": t}, max_len))(params, tokens[:, :s])
+    mesh = make_host_mesh(2, 2)
+    shape = InputShape("serve", max_len, int(tokens.shape[0]), "decode")
+    with mesh:
+        ls = make_lowering_spec(cfg, shape, mesh)
+        fn = jax.jit(ls.fn, in_shardings=ls.in_shardings,
+                     out_shardings=ls.out_shardings)
+        args = (params, cache, tokens[:, s:s + 1])
+        step = fn.lower(*args).compile(compiler_options=FAST_COMPILE)
+        out = []
+        for i in range(spec["steps"]):
+            logits, cache = step(params, cache, tokens[:, s + i:s + i + 1])
+            out.append(np.asarray(logits)[:, 0])
+    ref_model.set_activation_spec(None)
+    np.save(spec["out"], np.stack(out))
