@@ -216,7 +216,12 @@ phase's final trainer; ``serve_path``):
    the one-card run's own spread against two and four microbatches, and
    at least MESH_LM_FLOOR; every rank's metrics equal, every rank's
    parameter, m and v blocks of their specs' shapes; the resident bytes
-   a rank beside one card's; ``make_sync_fns``' top-k push (TOPK's rows)
+   a rank beside one card's; under megatron the tensor-parallel products
+   (each model rank its heads, d_ff and vocabulary slice; the weights
+   gathered over ``data`` and re-laid over ``model``, none gathered whole
+   over ``model``), every collective of a step by name and process group
+   from ``collectives.tally`` (calls and bytes a step a rank; the weights'
+   gathers and the re-layouts summed apart); ``make_sync_fns``' top-k push (TOPK's rows)
    equal, digest for digest, to the sum of the clients' ``filter_tree``
    computed here.  (c) phi3.5-moe at full width (d 4096, 16 experts, d_ff
    6400), one layer, zero_batch with ``moe_groups`` 4 (one group a rank):
@@ -236,14 +241,19 @@ phase's final trainer; ``serve_path``):
    (``serve_mesh_rank``, run by phase 17's four processes after 17c,
    checked here): the same widths at 17b's depth (8 layers), the
    seed's weights in bf16, prefill of 8 × 512 and 4 decode steps under
-   megatron (the K/V sequence split over ``model``, the softmax combined
+   megatron (the serve weights re-laid once into their compute split,
+   ``model.serve_params``; each model rank its heads' and slices'
+   products; the K/V sequence split over ``model``, the softmax combined
    over the model group by log-sum-exp), then one prefill under zero_seq
    (each rank's own positions its K/V block): the model ranks of a row
    block equal, every rank's K/V cache of ``local_shape``'s shapes, the
    logits against one card's by 16a's decode rule (each row's correlation
    above DECODE_CORR, its largest gap within DECODE_GAP of its range);
-   decode ms a step, the collectives a step by kind
-   (``collectives.tally``), resident GiB a rank beside one card's.  (c)
+   decode ms a step, the collectives a step a rank by name
+   (``collectives.tally``; no weight gathered, and fewer bytes than
+   DECODE_BYTES_BEFORE, the step's bytes when each layer's weights were
+   gathered whole), the re-layout's bytes once, resident GiB a rank
+   beside one card's.  (c)
    ``python -m repro_torch.launch.dryrun --arch smollm-360m --shape
    decode_32k --multi-pod`` in a subprocess started before phase 17 and
    read after (b) (it needs no card; its fake process group of 512 never
@@ -4248,6 +4258,50 @@ def collective_totals(label: str, profile: dict, ranks: int) -> list:
     return out
 
 
+def step_tally(counts: dict, steps: int) -> dict:
+    """A tally's counts a step (integer division of its calls and bytes
+    by ``steps``)."""
+    return {k: {f: v[f] // steps for f in ("calls", "bytes", "out_bytes")}
+            for k, v in counts.items()}
+
+
+def tally_lines(label: str, counts: dict, model_group: tuple,
+                per: str) -> dict:
+    """Print a tally a ``per`` (step) by name, the model group's entries
+    marked, then its totals: every collective, the weights' gathers and
+    the re-layouts; returns those totals and the all-gathers of weights
+    over the model group (``model_weight_gathers``)."""
+    tag = f"@{model_group}"
+    for key, c in sorted(counts.items()):
+        name, _, group = key.rpartition(" @")
+        over = "model" if key.endswith(tag) else f"ranks {group}"
+        print(f"{label} collective {name} over {over}: {c['calls']} calls, "
+              f"{c['bytes']} B in, {c['out_bytes']} B out a {per} a rank",
+              flush=True)
+
+    def total(keep):
+        got = [c for k, c in counts.items() if keep(k)]
+        return {"calls": sum(c["calls"] for c in got),
+                "bytes": sum(c["bytes"] for c in got),
+                "out_bytes": sum(c["out_bytes"] for c in got)}
+
+    out = {"all": total(lambda k: True),
+           "weights": total(lambda k: " weights" in k
+                            and k.startswith("all_gather")),
+           "weights_grad": total(lambda k: " weights grad" in k),
+           "relayout": total(lambda k: " relayout " in k),
+           "model_weight_gathers": sorted(
+               k for k in counts if k.startswith("all_gather")
+               and k.endswith(tag) and " weights" in k
+               and "mixer weights" not in k)}
+    for part in ("all", "weights", "weights_grad", "relayout"):
+        c = out[part]
+        print(f"{label} collectives {part}: {c['calls']} calls, "
+              f"{c['bytes']} B in, {c['out_bytes']} B out a {per} a rank",
+              flush=True)
+    return out
+
+
 def mesh_lm_world1(dev, state: dict, card: str) -> dict:
     """17a: NCCL at world size 1 in this process: one step in each mode
     from phase 16a's final state on its batch, against the one-card step
@@ -4394,6 +4448,7 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
     push of this client's residual."""
     import torch.distributed as dist
 
+    from repro_torch.core import collectives
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import model
     from repro_torch.optim import adamw
@@ -4417,17 +4472,19 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
         step = make_train_step(cfg, lm_tcfg(plan), device=dev, mesh=mesh,
                                mode=mode)
         mets, ms, profile = [], [], None
-        for i, b in enumerate(data):
-            dist.barrier()
-            if me == 0 and i == len(data) - 1:
-                (params, opt, m), profile = mesh_profile(
-                    lambda: step(params, opt, b))
-                ms.append(profile["wall_ms"])
-            else:
-                (params, opt, m), t_ = synced_ms(lambda: step(params, opt,
-                                                              b))
-                ms.append(t_)
-            mets.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        with collectives.tally(by="group") as counts:
+            for i, b in enumerate(data):
+                dist.barrier()
+                if me == 0 and i == len(data) - 1:
+                    (params, opt, m), profile = mesh_profile(
+                        lambda: step(params, opt, b))
+                    ms.append(profile["wall_ms"])
+                else:
+                    (params, opt, m), t_ = synced_ms(
+                        lambda: step(params, opt, b))
+                    ms.append(t_)
+                mets.append({k: float(m[k]) for k in ("loss",
+                                                      "grad_norm")})
         wrong = []
         for name, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
             for x, f, sp in zip(model.leaves(tree),
@@ -4437,7 +4494,10 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
                                                           mesh):
                     wrong.append(name)
         rec = {"metrics": mets, "step_ms": ms, "profile": profile,
-               "wrong_shapes": wrong,
+               "wrong_shapes": wrong, "tally": step_tally(counts,
+                                                          len(data)),
+               "model_group": tuple(dist.get_process_group_ranks(
+                   mesh.get_group("model"))),
                "resident_bytes": tree_bytes(params, opt.m, opt.v),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         full = model.leaves(sharding.gather_tree(params, specs, mesh))
@@ -4580,6 +4640,13 @@ def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
               f"on {card}", flush=True)
         summary[mode]["collectives"] = collective_totals(
             f"17b {mode}", recs[0]["profile"], 4)
+        summary[mode]["tally"] = tally_lines(
+            f"MESH-LM 17b {mode}", recs[0]["tally"], recs[0]["model_group"],
+            "step")
+        if mode == "megatron" and summary[mode]["tally"]["model_weight_gathers"]:
+            raise AssertionError("17b megatron: weights gathered over the "
+                                 "model group: " + str(
+                                     summary[mode]["tally"]))
         print(f"MESH-LM 17b {mode} {json.dumps(summary[mode])}", flush=True)
         if bad:
             raise AssertionError(f"17b {mode}: {bad} beyond the bounds")
@@ -4738,6 +4805,10 @@ SERVE_MESH = {"arch": "smollm-360m", "batch": 8, "seq": 512, "decode": 16}
 # prefill under zero_seq.
 SERVE_GLOO = {"arch": "smollm-360m", "n_layers": 8, "batch": 8, "seq": 512,
               "decode": 4}
+# 18b's decode bytes a step a rank when each layer's weights were gathered
+# whole at use (H100, 700 W, before the tensor-parallel products): the
+# megatron decode step must now move fewer.
+DECODE_BYTES_BEFORE = 346_283_520
 # 18c: one workload of the pod dry run, in a process of its own.
 SERVE_DRY = ("smollm-360m", "decode_32k")
 DRYRUN_TIMEOUT_S = 300
@@ -4770,7 +4841,7 @@ def serve_run(cfg, params, tokens, s: int, n: int, mesh=None,
             cfg, params, {"tokens": rows(prompt, mode)}, max_len))
     out = {"logits": [logits.float().cpu()], "prefill_ms": prefill_ms,
            "decode_ms": []}
-    with hooks(), collectives.tally() as counts:
+    with hooks(), collectives.tally(by="group") as counts:
         for i in range(n):
             t = rows(tokens[:, s + i:s + i + 1], "megatron")
             (logits, cache), ms = synced_ms(
@@ -4855,12 +4926,19 @@ def serve_mesh_rank(mesh, dev, plan: dict) -> dict:
     b, s, n = plan["batch"], plan["seq"], plan["decode"]
     full = model.map_tree(lambda t_: t_.to(torch.bfloat16),
                           model.init_params(cfg, seed=0, device=dev))
-    params = sharding.shard_tree(full, model.serve_param_specs(cfg, mesh),
+    from repro_torch.core import collectives
+
+    blocks = sharding.shard_tree(full, model.serve_param_specs(cfg, mesh),
                                  mesh)
     del full
+    with collectives.tally(by="group") as relaid:
+        params = model.serve_params(cfg, blocks, mesh)
+    del blocks
     tokens = lm_inputs(cfg, b, s + 64, 3, dev)["tokens"]
     out = {"rank": dist.get_rank(),
-           "data": mesh.get_local_rank("data")}
+           "data": mesh.get_local_rank("data"), "relayout": relaid,
+           "model_group": tuple(dist.get_process_group_ranks(
+               mesh.get_group("model")))}
     for mode, steps in (("megatron", n), ("zero_seq", 0)):
         layout = model.cache_layout(cfg, mesh, b, s + steps)
         shapes = model.cache_shapes(cfg, b, s + steps)
@@ -4939,10 +5017,7 @@ def serve_gloo(dev, card: str, ranks: list) -> dict:
                                  torch.stack(one["logits"][:calls]))
         rec = ranks[0][mode]
         steps = max(1, len(rec["decode_ms"]))
-        coll = {k: {"calls": v["calls"] // steps,
-                    "bytes": v["bytes"] // steps,
-                    "out_bytes": v["out_bytes"] // steps}
-                for k, v in rec["collectives"].items()}
+        coll = step_tally(rec["collectives"], steps)
         summary[mode] = dict(
             check, prefill_ms=rec["prefill_ms"], decode_ms=rec["decode_ms"],
             one_card_prefill_ms=one["prefill_ms"],
@@ -4966,10 +5041,20 @@ def serve_gloo(dev, card: str, ranks: list) -> dict:
               f"{max(summary[mode]['resident_bytes_by_rank']) / 2**30:.3f} "
               f"GiB a rank against {one_bytes / 2**30:.3f} on one card on "
               f"{card}", flush=True)
-        for kind, c in sorted(coll.items()):
-            print(f"SERVE-MESH 18b {mode} decode collective {kind}: "
-                  f"{c['calls']} calls, {c['bytes']} B in, "
-                  f"{c['out_bytes']} B out a step a rank", flush=True)
+        if rec["decode_ms"]:
+            totals = tally_lines(f"SERVE-MESH 18b {mode} decode", coll,
+                                 ranks[0]["model_group"], "step")
+            summary[mode]["decode_totals"] = totals
+            if totals["weights"]["calls"] or totals["relayout"]["calls"]:
+                raise AssertionError(f"18b {mode}: a decode step moved "
+                                     f"weights: {totals}")
+            if totals["all"]["bytes"] >= DECODE_BYTES_BEFORE:
+                raise AssertionError(
+                    f"18b {mode}: {totals['all']['bytes']} B a decode step "
+                    f"a rank, not below {DECODE_BYTES_BEFORE}")
+    summary["relayout_once"] = tally_lines(
+        "SERVE-MESH 18b serve_params (once)", ranks[0]["relayout"],
+        ranks[0]["model_group"], "call")["relayout"]
     print(f"SERVE-MESH 18b {json.dumps(summary)}", flush=True)
     return summary
 

@@ -5,7 +5,14 @@ of several tensors along their dims (:func:`gather_leaves`, whose
 backward is the reduce-scatter), a SUM all-reduce of a value counted once
 (:func:`all_reduce_value`) and an ``all_to_all`` of equal chunks along
 dim 0 (:func:`all_to_all`), each differentiable, its backward the adjoint
-collective.
+collective.  Megatron's tensor-parallel products add the conjugate of
+``all_reduce_value`` (:func:`all_reduce_grad`: the identity forward, a SUM
+all-reduce of the gradient backward, on the replicated input of a product
+split over the group), a differentiable re-layout of a tensor from a split
+along one dim to a split along another (:func:`relayout`, one
+``all_to_all`` with uneven splits; the split it goes to may give a slice
+to several ranks, whose gradients it sums backward), the gather of such
+slices into the whole (:func:`gather_ranges`) and a MAX all-reduce.
 
 Each call runs inside a ``torch.profiler.record_function`` range named
 ``"<op> <what> (<bytes> B)"``, ``bytes`` being this rank's input, so a
@@ -16,7 +23,8 @@ are not called.  :func:`tally` counts the same calls without a profiler:
 inside it every collective adds its calls, its input bytes and its output
 bytes on this rank to its kind (``all_gather``, ``reduce_scatter``,
 ``all_reduce``, ``all_to_all``); with no tally open the count is one test
-of an empty list.
+of an empty list.  Inside :func:`repeated` each call counts as several
+(the dry run's microbatches that repeat one run's shapes).
 
 Gloo runs these collectives on CUDA tensors as well as on CPU ones (the
 several processes of a mesh on one card use it, since NCCL refuses two
@@ -42,6 +50,7 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
 
 
 _TALLIES: list = []
+_WEIGHT = [1]   # how many times a call counts in the open tallies
 
 # A collective's output bytes on a rank over its input bytes, by kind and
 # group size n.
@@ -55,7 +64,8 @@ def tally(by: str = "kind"):
     ``{kind: {"calls", "bytes", "out_bytes"}}``, filled as they run
     (``bytes``: the rank's input, as the ranges name it; ``out_bytes``:
     its output, the measure XLA's collective shapes give); ``by="what"``
-    keys them by ``"<kind> <what>"``, the ranges' names."""
+    keys them by ``"<kind> <what>"``, the ranges' names; ``by="group"`` by
+    ``"<kind> <what> @<the group's global ranks>"``."""
     counts: dict = {}
     entry = (by, counts)
     _TALLIES.append(entry)
@@ -65,17 +75,33 @@ def tally(by: str = "kind"):
         del _TALLIES[next(i for i, e in enumerate(_TALLIES) if e is entry)]
 
 
-def _span(op: str, what: str, x: torch.Tensor, group) -> str:
+@contextlib.contextmanager
+def repeated(times: int):
+    """Count every collective of the ``with`` body ``times`` times in the
+    open tallies."""
+    _WEIGHT.append(_WEIGHT[-1] * times)
+    try:
+        yield
+    finally:
+        _WEIGHT.pop()
+
+
+def _span(op: str, what: str, x: torch.Tensor, group,
+          out_bytes: int | None = None) -> str:
     nbytes = x.numel() * x.element_size()
     if _TALLIES:
-        out = int(nbytes * _OUT[op](group_size(group)))
+        w = _WEIGHT[-1]
+        out = int(nbytes * _OUT[op](group_size(group))) \
+            if out_bytes is None else out_bytes
         for by, counts in _TALLIES:
             key = op if by == "kind" else f"{op} {what}"
+            if by == "group":
+                key += f" @{tuple(dist.get_process_group_ranks(group))}"
             c = counts.setdefault(key, {"calls": 0, "bytes": 0,
                                         "out_bytes": 0})
-            c["calls"] += 1
-            c["bytes"] += nbytes
-            c["out_bytes"] += out
+            c["calls"] += w
+            c["bytes"] += nbytes * w
+            c["out_bytes"] += out * w
     return f"{op} {what} ({nbytes} B)"
 
 
@@ -88,6 +114,14 @@ def all_reduce_sum(x: torch.Tensor, group, what: str = "") -> torch.Tensor:
     callers pass a fresh contiguous tensor (a product or a column sum)."""
     with record_function(_span("all_reduce", what, x, group)):
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, group, what: str = "") -> torch.Tensor:
+    """The elementwise largest ``x`` over the ranks of ``group``, in place
+    (not differentiable)."""
+    with record_function(_span("all_reduce", what, x, group)):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 
@@ -286,3 +320,149 @@ def all_to_all(x: torch.Tensor, group, what: str = "") -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _AllToAll.apply(x, group, what)
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    """Megatron's "f": the identity forward; backward the SUM all-reduce of
+    the gradient over the group.  On a replicated tensor that each rank
+    uses in its own slice of a product: each rank's gradient is then the
+    sum of every slice's."""
+
+    @staticmethod
+    def forward(ctx, x, group, what):
+        ctx.group, ctx.what = group, what
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(memory_format=torch.contiguous_format),
+                              ctx.group, ctx.what + " grad"), None, None
+
+
+def all_reduce_grad(x: torch.Tensor, group, what: str = "") -> torch.Tensor:
+    """The identity, its backward the SUM all-reduce over ``group`` (see
+    ``_AllReduceGrad``)."""
+    if group_size(group) == 1:
+        return x
+    return _AllReduceGrad.apply(x, group, what)
+
+
+def _partition(ranges: list, n: int) -> bool:
+    """Whether ``ranges`` cut [0, n) into consecutive pieces in order."""
+    at = 0
+    for lo, hi in ranges:
+        if lo != at:
+            return False
+        at = hi
+    return at == n
+
+
+def _exchange(x: torch.Tensor, send_dim: int, send: list, recv_dim: int,
+              recv: list, full: int, group, what: str) -> torch.Tensor:
+    """One ``all_to_all_single``: rank j gets ``x`` narrowed to ``send[j]``
+    along ``send_dim``; the pieces this rank gets, rank i's holding
+    ``recv[i]`` along ``recv_dim``, are put together along it (whose whole
+    is ``full``): concatenated where the ranges cut it in order, else
+    summed into zeros (a slice several ranks held)."""
+    me = dist.get_rank(group)
+    pieces = [x.narrow(send_dim, lo, hi - lo).reshape(-1) for lo, hi in send]
+    buf = torch.cat(pieces)
+    shapes = []
+    for lo, hi in recv:
+        s = list(x.shape)
+        s[send_dim] = send[me][1] - send[me][0]
+        s[recv_dim] = hi - lo
+        shapes.append(s)
+    splits_out = [math.prod(s) for s in shapes]
+    out = buf.new_empty((sum(splits_out),))
+    with record_function(_span("all_to_all", what, buf, group,
+                               out.numel() * out.element_size())):
+        dist.all_to_all_single(out, buf, splits_out,
+                               [p.numel() for p in pieces], group=group)
+    del buf, pieces
+    parts = [t.reshape(s) for t, s in zip(out.split(splits_out), shapes)]
+    if _partition(recv, full):
+        return torch.cat(parts, dim=recv_dim)
+    s = list(shapes[0])
+    s[recv_dim] = full
+    acc = out.new_zeros(s)
+    for (lo, hi), p in zip(recv, parts):
+        acc.narrow(recv_dim, lo, hi - lo).add_(p)
+    return acc
+
+
+class _Relayout(torch.autograd.Function):
+    """:func:`relayout`; backward the same exchange the other way, the
+    gradients of a slice several ranks held summed."""
+
+    @staticmethod
+    def forward(ctx, x, group, what, src, dst):
+        ctx.group, ctx.what, ctx.src, ctx.dst = group, what, src, dst
+        ctx.full = x.shape[dst[0]]
+        (sd, sr), (dd, dr) = src, dst
+        return _exchange(x, dd, dr, sd, sr, sr[-1][1], group, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        (sd, sr), (dd, dr) = ctx.src, ctx.dst
+        return (_exchange(g.contiguous(), sd, sr, dd, dr, ctx.full,
+                          ctx.group, ctx.what + " grad"),
+                None, None, None, None)
+
+
+def relayout(x: torch.Tensor, group, src: tuple, dst: tuple,
+             what: str = "") -> torch.Tensor:
+    """``x`` moved from one split over ``group`` to another: ``src`` =
+    (dim, ranges) says which slice of ``dim`` each rank holds (ranges in
+    rank order that cut the dim in order; ``x`` whole along the other
+    dims), ``dst`` = (dim', ranges') which slice of ``dim'`` each rank is
+    to hold (the ranges may overlap or be empty; the result whole along
+    ``dim``).  One ``all_to_all`` with uneven splits: a rank sends each
+    peer that peer's slice of its block and receives its own slice of
+    every peer's.  Differentiable."""
+    if group_size(group) == 1:
+        return x
+    return _Relayout.apply(x, group, what, (src[0], tuple(src[1])),
+                           (dst[0], tuple(dst[1])))
+
+
+def owned(ranges: list) -> list:
+    """The ranges cut so that each index lies in the first range that
+    holds it (ranges sorted by their start, covering [0, n))."""
+    out, at = [], 0
+    for lo, hi in ranges:
+        lo2 = max(lo, at)
+        hi2 = max(hi, lo2)
+        out.append((lo2, hi2))
+        at = hi2
+    return out
+
+
+@torch.no_grad()
+def gather_ranges(xs: list, group, what: str = "") -> list:
+    """The wholes of tensors split over ``group`` as ``relayout``'s result
+    is: ``xs`` = [(x, dim, ranges)], rank r holding ``ranges[r]`` of
+    ``dim`` (sorted, covering the dim, possibly overlapping); one
+    ``all_gather`` of every tensor's block, padded to the longest range;
+    an index several ranks held is taken from the first."""
+    if not xs or group_size(group) == 1:
+        return [x for x, _, _ in xs]
+    flat, shapes = [], []
+    for x, dim, ranges in xs:
+        longest = max(hi - lo for lo, hi in ranges)
+        pad = list(x.shape)
+        pad[dim] = longest - x.shape[dim]
+        shapes.append(x.shape[:dim] + (longest,) + x.shape[dim + 1:])
+        flat.append(torch.cat([x, x.new_zeros(pad)], dim).reshape(-1))
+    parts = all_gather(torch.cat(flat), group, what)
+    out = []
+    at = 0
+    for (x, dim, ranges), shape in zip(xs, shapes):
+        size = math.prod(shape)
+        whole = []
+        for p, (lo, hi), (lo2, hi2) in zip(parts, ranges, owned(ranges)):
+            blk = p[at:at + size].reshape(shape)
+            whole.append(blk.narrow(dim, lo2 - lo, hi2 - lo2))
+        out.append(torch.cat(whole, dim))
+        at += size
+    return out

@@ -16,7 +16,7 @@ full-attention architectures), or ``fail`` with the error.  A failure is a
 fault of the port, not a skip.  An ``ok`` record holds:
 
 * the rank's resident bytes: its parameter, optimiser and cache blocks
-  (``sharding.local_shape`` of their specs);
+  (the serve weights in their compute split, ``model.serve_params``);
 * ``peak_bytes``: those plus the largest set of tensors alive at once in
   the step, as ``torch.distributed._tools.mem_tracker.MemTracker`` follows
   the fake tensors (null where the tracker fails);
@@ -24,10 +24,11 @@ fault of the port, not a skip.  An ``ok`` record holds:
   memory terms and the collective term of the bytes the rank's step
   called (``core.collectives.tally``), by kind.
 
-Under megatron the port's per-rank compute is not the reference's: a rank
-gathers each layer's whole weights over ``model`` and computes its rows'
-whole products, where XLA splits each product over ``model`` (ROADMAP
-B.11); the collective bytes and the peak are the port's.
+A train step of n microbatches runs the first two and counts each later
+one as a repeat of the second (``make_train_step(repeat_second=True)``):
+the tally is mb1 + (n − 1)·mb2 and the peak the larger of the two, exact
+in fake mode, where every later microbatch has the second's shapes and
+live set (the reference's ``lax.scan`` likewise lowers its body once).
 
 Usage (CPU, no card):
 
@@ -105,13 +106,17 @@ def _peak(step) -> tuple:
 
 def run_one(arch: str, shape_name, *, multi_pod: bool = False,
             verbose: bool = True, sharding_mode: str = "megatron",
-            cfg=None, mesh_shape: dict | None = None) -> dict:
+            cfg=None, mesh_shape: dict | None = None,
+            microbatches: int | None = None,
+            repeat_second: bool = True) -> dict:
     """One workload as rank 0 of the production mesh, on the fake group
     that must be running (256 ranks, or 512 with ``multi_pod``); returns
     its record.  ``cfg`` (a config in place of the registry's),
     ``shape_name`` an ``InputShape`` and ``mesh_shape`` ({axis: size}, a
-    mesh over the running group in place of the production one) are for
-    tests at small sizes."""
+    mesh over the running group in place of the production one),
+    ``microbatches`` (in place of the reference's count) and
+    ``repeat_second=False`` (run every microbatch) are for tests at small
+    sizes."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = cfg or ARCHITECTURES[arch]
@@ -136,7 +141,9 @@ def run_one(arch: str, shape_name, *, multi_pod: bool = False,
         with FakeTensorMode():
             spec = specs_lib.make_lowering_spec(cfg, shape, mesh,
                                                 mode=sharding_mode,
-                                                device="cpu")
+                                                device="cpu",
+                                                microbatches=microbatches,
+                                                repeat_second=repeat_second)
             resident = spec.resident_bytes()
             with collectives.tally() as counts:
                 _, peak = _peak(spec.run)

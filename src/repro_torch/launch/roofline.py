@@ -21,9 +21,11 @@ the measure the reference's HLO parse sums), not parsed from a compiled
 program: torch has no HLO.  So the reference's HLO-only fields
 (``hlo_flops``, ``hlo_bytes``, ``t_compute_hlo_s``, ``t_memory_hlo_s``,
 ``coll_loop_corrected``) are left out of :meth:`Roofline.row`, not faked.
-Under megatron the port's ranks gather whole weights and do not split a
-product over ``model`` (ROADMAP B.11), so its collective bytes are the
-port's, not the reference's tensor-parallel ones.
+Under megatron the port splits the block products over ``model`` as
+XLA splits the reference's (``layers.tensor_parallel``), with collectives
+of its own choosing (a re-layout of each weight to its compute split, the
+activations' sums), so the bytes are the port's; the SSM mixers' weights
+are still gathered whole over ``model``.
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@ the reference's mode logic:
 * the parameters are stored in zero_seq's layout when the activations run
   zero_batch, with FSDP over ``data`` for train only;
 * prefill and decode take the serve layout: bf16 weights over ``model``
-  (``param_specs(fsdp=False)``), caches under ``cache_specs``.
+  (``param_specs(fsdp=False)``) re-laid once into their compute split
+  (``model.serve_params``, while the spec is built), caches under
+  ``cache_specs``.
 
 The arguments are built with ``torch.zeros`` of the rank's block shapes
 (``sharding.local_shape``); under ``FakeTensorMode`` (``launch/dryrun.py``)
@@ -147,10 +149,13 @@ def _blocks(shapes, specs, mesh, dev, dtype=None):
 def make_lowering_spec(cfg: ModelConfig, shape: InputShape, mesh, *,
                        microbatches: int | None = None,
                        tcfg: TrainConfig | None = None,
-                       mode: str = "megatron", device=None) -> WorkloadSpec:
+                       mode: str = "megatron", device=None,
+                       repeat_second: bool = False) -> WorkloadSpec:
     """The rank's :class:`WorkloadSpec` of ``cfg`` at ``shape`` on
     ``mesh`` (a ``DeviceMesh``) in ``mode``, its arguments on ``device``
-    (``cuda`` unless the CPU is asked for)."""
+    (``cuda`` unless the CPU is asked for).  ``repeat_second``: the train
+    step runs two microbatches and counts the later ones as repeats of the
+    second (``make_train_step``; the dry run)."""
     dev = device_mod.resolve(device)
     cfg = apply_overrides(cfg, shape)
     act_mode = mode if shape.kind in ("train", "prefill") else "megatron"
@@ -177,7 +182,8 @@ def make_lowering_spec(cfg: ModelConfig, shape: InputShape, mesh, *,
             v=_blocks(shapes, pspecs, mesh, dev))
         batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
                  for k, v in batch_template(cfg, shape).items()}
-        step = make_train_step(cfg, tcfg, dev, mesh=mesh, mode=act_mode)
+        step = make_train_step(cfg, tcfg, dev, mesh=mesh, mode=act_mode,
+                               repeat_second=repeat_second)
         run = mesh_microbatches(tcfg.microbatches, shape.global_batch, mesh,
                                 act_mode)
         return WorkloadSpec(
@@ -190,7 +196,8 @@ def make_lowering_spec(cfg: ModelConfig, shape: InputShape, mesh, *,
     # Inference: bf16 serve weights over ``model``, replicated over the
     # batch axes.
     serve_specs = model_lib.serve_param_specs(cfg, mesh)
-    params = _blocks(shapes, serve_specs, mesh, dev, torch.bfloat16)
+    params = model_lib.serve_params(
+        cfg, _blocks(shapes, serve_specs, mesh, dev, torch.bfloat16), mesh)
     b, s = shape.global_batch, shape.seq_len
 
     if shape.kind == "prefill":

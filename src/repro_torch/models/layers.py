@@ -32,11 +32,30 @@ Weight layout notes:
   over the ranks that computed distinct slices (the gradient rule of
   ``train/train_step.py``).  Off a mesh every hook is unset and every
   helper is the identity.
+- Megatron's tensor-parallel products (:func:`tensor_parallel`: a model
+  axis of more than one rank whose ranks hold the same tokens, i.e.
+  megatron's training step and its served prefill and decode).  Each leaf
+  of a block's products has a compute split over ``model``
+  (:func:`leaf_layout`): attention's query heads in contiguous uneven
+  groups (rank r takes heads [⌈rH/m⌉, ⌈(r+1)H/m⌉)), its K/V heads those
+  its query heads read (a KV head shared by two ranks' heads is computed on
+  both), the MLPs' d_ff, the MoE's experts (E dividing m) else their d_ff,
+  the tables' vocabulary.  :func:`block_params` turns a layer's storage
+  blocks into these: gathered over the batch axes as before, then moved
+  from the storage split to the compute split by one all-to-all a leaf
+  (:func:`collectives.relayout`); no such leaf is gathered whole over
+  ``model``.  A block's replicated input enters its split products through
+  ``collectives.all_reduce_grad`` (Megatron's "f") and the row-parallel
+  partial sums leave through ``collectives.all_reduce_value`` ("g") as
+  float32, rounded once after the sum (:func:`row_parallel`).  Off a mesh
+  and at one model rank the blocks run the code they ran before, bit for
+  bit.
 - Serving over a mesh (``model.serve_hooks``) sets the same hooks with no
-  activation spec (the weights are gathered in their own dtype, the serve
-  layout's bf16, never rounded on the wire) and a serve layout: the
-  (B, S) layout of the rank's tokens (:func:`token_spec`) and the decode
-  cache's specs (:func:`cache_spec`).
+  activation spec and a serve layout: the (B, S) layout of the rank's
+  tokens (:func:`token_spec`) and the decode cache's specs
+  (:func:`cache_spec`).  Its weights are bf16 and re-laid into the compute
+  split once (``model.serve_params``); a zero_seq or zero_batch prefill,
+  whose products are whole, gathers them whole at use.
 """
 
 from __future__ import annotations
@@ -225,13 +244,15 @@ def sequence_whole(fn):
     return run
 
 
-def gather_param(x: torch.Tensor, spec, wire=None) -> torch.Tensor:
+def gather_param(x: torch.Tensor, spec, wire=None,
+                 what: str = "weights") -> torch.Tensor:
     """A parameter's full value from the ranks' blocks under its storage
     ``spec`` (see :func:`gather_params`)."""
-    return gather_params({"x": x}, {"x": spec}, wire)["x"]
+    return gather_params({"x": x}, {"x": spec}, wire, what)["x"]
 
 
-def gather_params(tree: Params, specs, wire=None) -> Params:
+def gather_params(tree: Params, specs, wire=None,
+                  what: str = "weights") -> Params:
     """A tree's full values from the ranks' blocks under its storage
     specs, one bucketed all-gather per mesh axis
     (``collectives.gather_leaves``).  Backward: along an axis whose ranks
@@ -278,7 +299,7 @@ def gather_params(tree: Params, specs, wire=None) -> Params:
         stages = [(g, r, {remap[i]: d for i, d in dims.items()
                           if i in remap}) for g, r, dims in stages]
         got = collectives.gather_leaves([xs[i] for i in take], stages, wire,
-                                        "weights")
+                                        what)
         for i, y in zip(take, got):
             xs[i] = y
     out: Params = {}
@@ -288,6 +309,230 @@ def gather_params(tree: Params, specs, wire=None) -> Params:
             node = node.setdefault(k, {})
         node[path[-1]] = x
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel products (megatron)
+# ---------------------------------------------------------------------------
+
+def tensor_parallel() -> bool:
+    """Megatron's products split over ``model``: a mesh whose model axis
+    has more than one rank, and those ranks hold the same tokens."""
+    return _MESH is not None and model_size() > 1 \
+        and "model" not in token_axes()
+
+
+def model_group():
+    return _MESH.get_group("model")
+
+
+def split_ranges(n: int, m: int) -> list:
+    """[⌈rn/m⌉, ⌈(r+1)n/m⌉) for each of ``m`` ranks: contiguous, as even
+    as they go, some empty where n < m."""
+    return [(-(-r * n // m), -(-(r + 1) * n // m)) for r in range(m)]
+
+
+def kv_ranges(h: int, kv: int, m: int) -> list:
+    """The K/V heads each rank's query heads (:func:`split_ranges` of
+    ``h``) read: query head j reads KV head j // (h / kv)."""
+    rep = h // kv
+    return [(lo // rep, -(-hi // rep)) if hi > lo else (lo // rep, lo // rep)
+            for lo, hi in split_ranges(h, m)]
+
+
+def leaf_layout(cfg: ModelConfig, path: tuple, m: int):
+    """(dim counted from the end, each rank's range) of the compute split
+    over ``m`` model ranks of the leaf at ``path`` (its keys; a layer's
+    tree, or a whole parameter tree, stacked leaves included), or None
+    where the leaf's products are not split (norms, the router, the SSM
+    mixers, the projector)."""
+    name = path[-1]
+    parent = path[-2] if len(path) > 1 else None
+    if parent in ("attn", "xattn"):
+        heads = split_ranges(cfg.n_heads, m)
+        kvs = kv_ranges(cfg.n_heads, cfg.n_kv_heads, m)
+        return {"wq": (-2, heads), "bq": (-2, heads), "wk": (-2, kvs),
+                "wv": (-2, kvs), "bk": (-2, kvs), "bv": (-2, kvs),
+                "wo": (-3, heads)}.get(name)
+    if parent == "mlp" or (parent == "moe" and cfg.n_experts % m):
+        f = split_ranges(cfg.d_ff, m)
+        return {"w_gate": (-1, f), "w_up": (-1, f),
+                "w_down": (-2, f)}.get(name)
+    if parent == "moe":
+        e = split_ranges(cfg.n_experts, m)
+        return {"w_gate": (-3, e), "w_up": (-3, e),
+                "w_down": (-3, e)}.get(name)
+    if parent is None and name in ("embed", "lm_head"):
+        return (-2, split_ranges(cfg.padded_vocab, m))
+    return None
+
+
+def _leaves_with_paths(tree, specs, pre=()):
+    for k in tree:
+        if isinstance(tree[k], dict):
+            yield from _leaves_with_paths(tree[k], specs[k], pre + (k,))
+        else:
+            yield pre + (k,), tree[k], tuple(specs[k])
+
+
+def _set(tree: Params, path: tuple, x) -> None:
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = x
+
+
+def _model_dim(spec):
+    dims = [d for d, e in enumerate(spec) if "model" in
+            sharding.entry_axes(e)]
+    return dims[0] if dims else None
+
+
+def _strip_model(spec) -> tuple:
+    return tuple(None if "model" in sharding.entry_axes(e) else e
+                 for e in spec)
+
+
+def to_compute(x: torch.Tensor, spec, layout, group,
+               what: str) -> torch.Tensor:
+    """The rank's compute slice ``layout`` = (dim from the end, ranges) of
+    a leaf whose block ``x`` is split over the model ``group`` as ``spec``
+    says and whole over every other axis: nothing moves where the storage
+    split is the compute one; one all-to-all (:func:`collectives.
+    relayout`) where it is another dim; a slice of a leaf the model ranks
+    all hold whole, its gradient summed over them."""
+    m = collectives.group_size(group)
+    dim, ranges = x.ndim + layout[0], layout[1]
+    src = _model_dim(spec)
+    if src == dim:
+        if list(ranges) != split_ranges(x.shape[dim] * m, m):
+            raise NotImplementedError(f"{what}: storage and compute split "
+                                      f"dim {dim} differently")
+        return x
+    if src is None:
+        lo, hi = ranges[torch.distributed.get_rank(group)]
+        return collectives.all_reduce_grad(x, group, what).narrow(
+            dim, lo, hi - lo)
+    n = x.shape[src] * m
+    return collectives.relayout(x, group, (src, split_ranges(n, m)),
+                                (dim, ranges), "relayout " + what)
+
+
+def block_params(cfg: ModelConfig, tree: Params, specs, wire=None, *,
+                 keep_experts: bool = False) -> Params:
+    """A layer's (or any subtree's) weights for its products, from the
+    rank's blocks under their storage ``specs`` (in serving, the hooks'
+    serve layout, from the serve weights already in their compute split,
+    ``model.serve_params``).
+
+    Off the tensor-parallel layout: the whole weights, gathered at use
+    (:func:`gather_params`; a relaid leaf gathered whole from its compute
+    slices, except the experts under the MoE's all-to-all when
+    ``keep_experts``).  Under it: each leaf gathered over the batch axes
+    (its FSDP blocks, backward the reduce-scatter); each leaf with a
+    compute split (:func:`leaf_layout`) then moved to it
+    (:func:`to_compute`), the q/k norms' scales made to sum their
+    gradients over ``model`` (each rank's heads use them); the leaves
+    with none that ``model`` splits (the SSM mixers) gathered whole over
+    it, as ``"mixer weights"``."""
+    if specs is None or _MESH is None:
+        return tree
+    relaid = _SERVE is not None
+    m = model_size()
+    group = model_group() if m > 1 else None
+    paths = list(_leaves_with_paths(tree, specs))
+    lays = {p: leaf_layout(cfg, p, m) for p, _, _ in paths} if m > 1 \
+        else {}
+    if not tensor_parallel():
+        if not relaid or m == 1:
+            return gather_params(tree, specs, wire)
+        relaid_leaves = {p for p in lays if lays[p] is not None}
+        split = sorted(p for p in relaid_leaves if not (
+            keep_experts and len(p) > 1 and p[-2] == "moe"))
+        out = gather_params(tree, _spec_tree(
+            specs, lambda p, sp: _strip_model(sp) if p in relaid_leaves
+            else sp), wire)
+        got = collectives.gather_ranges(
+            [(_get(out, p), _get(out, p).ndim + lays[p][0], lays[p][1])
+             for p in split], group, "weights")
+        for p, x in zip(split, got):
+            _set(out, p, x)
+        return out
+    tp = {p for p in lays if lays[p] is not None}
+    out = gather_params(tree, _spec_tree(specs, lambda p, sp:
+                                         _strip_model(sp)), wire)
+    mixers = _spec_tree(specs, lambda p, sp: tuple(
+        e if "model" in sharding.entry_axes(e) and p not in tp else None
+        for e in sp))
+    out = gather_params(out, mixers, what="mixer weights")
+    for p, _, sp in paths:
+        x = _get(out, p)
+        if p in tp and not relaid:
+            _set(out, p, to_compute(x, sp, lays[p], group,
+                                    "/".join(p[-2:])))
+        elif p[-1] in ("q_norm", "k_norm"):
+            _set(out, p, collectives.all_reduce_grad(x, group, p[-1]))
+    return out
+
+
+def _get(tree: Params, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _spec_tree(specs, fn, pre=()):
+    return {k: _spec_tree(v, fn, pre + (k,)) if isinstance(v, dict)
+            else fn(pre + (k,), tuple(v)) for k, v in specs.items()}
+
+
+def heads_of(cfg: ModelConfig) -> tuple:
+    """(first query head, end, first KV head, end) of this model rank."""
+    m, r = model_size(), _MESH.get_local_rank("model")
+    h0, h1 = split_ranges(cfg.n_heads, m)[r]
+    g0, g1 = kv_ranges(cfg.n_heads, cfg.n_kv_heads, m)[r]
+    return h0, h1, g0, g1
+
+
+def expand_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """The rank's K/V heads (B, S, its KV heads, hd) laid one per its
+    query head, for :func:`sdpa` (its query heads need not fill whole
+    groups)."""
+    h0, h1, g0, _ = heads_of(cfg)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.tensor([j // rep - g0 for j in range(h0, h1)],
+                       dtype=torch.long, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def row_parallel(spec: str, a: torch.Tensor, w: torch.Tensor, dtype,
+                 what: str) -> torch.Tensor:
+    """A product whose contracted dim is split over ``model``: the rank's
+    float32 partial sum (``COMPUTE_DTYPE`` operands widened, their
+    products exact), summed over the model group and rounded once to
+    ``dtype``, as the reference's partitioned ``einsum(...,
+    preferred_element_type=f32).astype``."""
+    part = einsum_f32(spec, a, cast(w))
+    return collectives.all_reduce_value(part, model_group(),
+                                        what).to(dtype)
+
+
+def replicated_in(x: torch.Tensor, what: str) -> torch.Tensor:
+    """A replicated tensor entering the rank's slice of split products:
+    the identity, its gradient summed over ``model``."""
+    return collectives.all_reduce_grad(x, model_group(), what)
+
+
+def vocab_table(cfg: ModelConfig, params: Params, name: str) -> tuple:
+    """(the table for the rank's products, the first vocabulary id it
+    holds): under the tensor-parallel layout the rank's vocabulary range
+    (gathered over the batch axes only; in serving already the rank's),
+    else the whole table and None."""
+    tree = block_params(cfg, {name: params[name]}, {name: param_spec(name)}
+                        if _BLOCK_SPECS is not None else None)
+    if not tensor_parallel():
+        return tree[name], None
+    r = _MESH.get_local_rank("model")
+    return tree[name], split_ranges(cfg.padded_vocab, model_size())[r][0]
 
 
 def block_dtype():
@@ -463,7 +708,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     """
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    rep = h // kv
+    rep = h // kv if kv else 1      # kv 0: a model rank that holds no head
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(b, sq, kv, rep, hd)
     kpos = torch.arange(sk, device=q.device)
@@ -502,9 +747,18 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """``positions`` are the global positions of ``x``'s rows.  Under
     zero_seq (``seq_sharded``, by default the hooks' layout) the rank's
     queries stay local and its keys and values are gathered over the
-    model group; the causal mask and window use global positions."""
-    q, k, v = qkv_project(cfg, p, x, positions, rope=rope)
+    model group; the causal mask and window use global positions.  Under
+    the tensor-parallel layout ``p`` holds the rank's heads
+    (:func:`block_params`) and the output is summed over ``model``."""
     w = cfg.sliding_window if window is None else window
+    if tensor_parallel():
+        q, k, v = qkv_project(cfg, p, replicated_in(x, "attn in"), positions,
+                              rope=rope)
+        k, v = expand_kv(cfg, k, v)
+        out = sdpa(q, k, v, causal=causal, window=w)
+        return row_parallel("bshk,hkd->bsd", out, p["wo"], x.dtype,
+                            "attn out")
+    q, k, v = qkv_project(cfg, p, x, positions, rope=rope)
     if sequence_sharded() if seq_sharded is None else seq_sharded:
         offset = seq_offset(x.shape[1])
         k, v = gather_seq(k, "attn k"), gather_seq(v, "attn v")
@@ -517,7 +771,16 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def cross_attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                           mem_k: torch.Tensor, mem_v: torch.Tensor
                           ) -> torch.Tensor:
-    """Decoder cross-attention over precomputed encoder K/V (no rope)."""
+    """Decoder cross-attention over precomputed encoder K/V (no rope);
+    under the tensor-parallel layout ``p`` and ``mem_k``, ``mem_v`` hold
+    the rank's heads."""
+    if tensor_parallel():
+        xin = replicated_in(x, "xattn in")
+        q = einsum("bsd,dhk->bshk", xin, cast(p["wq"])).to(x.dtype)
+        k, v = expand_kv(cfg, mem_k, mem_v)
+        out = sdpa(q, k, v, causal=False)
+        return row_parallel("bshk,hkd->bsd", out, p["wo"], x.dtype,
+                            "xattn out")
     q = einsum("bsd,dhk->bshk", x, cast(p["wq"])).to(x.dtype)
     out = sdpa(q, mem_k, mem_v, causal=False)
     return einsum("bshk,hkd->bsd", out, cast(p["wo"])).to(x.dtype)
@@ -545,6 +808,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Under the tensor-parallel layout ``p`` holds the rank's d_ff slice
+    and the output is summed over ``model``."""
+    tp = tensor_parallel()
+    out_dtype = x.dtype
+    if tp:
+        x = replicated_in(x, "mlp in")
     if "w_gate" in p:
         gate = einsum("bsd,df->bsf", x, cast(p["w_gate"])).float()
         up = einsum("bsd,df->bsf", x, cast(p["w_up"])).float()
@@ -552,6 +821,9 @@ def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         up = einsum("bsd,df->bsf", x, cast(p["w_up"])).float()
         h = gelu(up).to(x.dtype)
+    if tp:
+        return row_parallel("bsf,fd->bsd", h, p["w_down"], out_dtype,
+                            "mlp out")
     return einsum("bsf,fd->bsd", h, cast(p["w_down"])).to(x.dtype)
 
 
@@ -564,8 +836,19 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator, device) -> torch.Tensor:
                   1.0 / math.sqrt(cfg.d_model), device)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), cast(table))
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          vocab_lo: int | None = None) -> torch.Tensor:
+    """The tokens' rows of ``table``.  With ``vocab_lo`` (the
+    tensor-parallel layout, :func:`vocab_table`) ``table`` holds the
+    vocabulary from ``vocab_lo``: the rank looks up the tokens it holds,
+    zero for the others, and the rows are summed over ``model``."""
+    if vocab_lo is None:
+        return F.embedding(tokens.long(), cast(table))
+    local = tokens.long() - vocab_lo
+    hit = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(hit, local, 0), cast(table))
+    rows = torch.where(hit[..., None], rows, 0.0)
+    return collectives.all_reduce_value(rows, model_group(), "embed")
 
 
 def unembed(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -17,11 +17,17 @@ functions below take the tree itself, as the reference's do.
   sequence chunks (:mod:`repro_torch.train.loss`).
 - Over a (data, model) mesh (``train/train_step.py``'s mesh step, the
   hooks of ``models/layers.py``) the tree holds a rank's local blocks:
-  each layer's weights are gathered at use inside the layer loop (so a
-  rank holds one block's full weights at a time, again in remat's
-  recomputation), in bf16 under the zero modes (:func:`_maybe_cast_blocks`);
-  the positions are global; under zero_seq the recurrent blocks run on
-  the gathered sequence and attention gathers its keys and values.
+  each layer's weights are gathered at use inside the layer loop
+  (``layers.block_params``; so a rank holds one block's weights at a
+  time, again in remat's recomputation).  Under the zero modes they are
+  gathered whole, in bf16 (:func:`_maybe_cast_blocks`); under megatron
+  they are gathered over the batch axes and moved to their compute split
+  over ``model``, each model rank computing its slice of every block
+  product (attention by heads, the MLPs by d_ff, the MoE by experts, the
+  tables by vocabulary; the SSM mixers' weights are still gathered whole
+  over ``model``).  The positions are global; under zero_seq the
+  recurrent blocks run on the gathered sequence and attention gathers its
+  keys and values.
 - Decode caches are ring buffers when the config has a sliding window
   shorter than the cache (mixtral).  :func:`prefill` and
   :func:`decode_step` run without autograd; ``decode_step`` writes the
@@ -46,14 +52,14 @@ from repro_torch.core import collectives
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (attention_block, cast,
+from repro_torch.models.layers import (attention_block, block_params, cast,
                                        cross_attention_block, einsum, embed,
                                        gather_param, gather_params, gelu,
                                        get_activation_spec, init_attention,
                                        init_embed, init_mlp, init_rms_norm,
                                        layer_specs, mlp_block, normal,
                                        param_spec, qkv_project, rms_norm,
-                                       sdpa, unembed)
+                                       sdpa, unembed, vocab_table)
 from repro_torch.train import sharding
 
 Params = dict[str, Any]
@@ -265,7 +271,8 @@ def _vlm_prefix(cfg: ModelConfig, params: Params, batch,
     """The projected patch embeddings written over the first P global
     positions (under zero_seq those of them that lie in the rank's
     slice)."""
-    proj = gather_params(params["projector"], param_spec("projector"))
+    proj = gather_params(params["projector"], param_spec("projector"),
+                         what="projector weights")
     patches = batch["patch_embeds"]
     if patches.shape[1] < cfg.n_patches:        # sequence-sharded patches
         patches = layers_mod.gather_seq(patches, "patch embeds")
@@ -312,16 +319,17 @@ def _mamba_block_fn(x, cfg, bp):
 
 
 def _run_blocks(body, stacked: Params, x: torch.Tensor, remat: bool,
-                specs=None):
+                specs=None, cfg: ModelConfig | None = None):
     """``body(layer i's params, x) -> (x', aux)`` over the stacked layers,
     each checkpointed when ``remat``; returns (x, Σ aux).  ``specs`` (the
     stacked tree's storage specs, on a mesh) gathers each layer's weights
-    inside the checkpointed body."""
+    for its products (``layers.block_params``) inside the checkpointed
+    body."""
     aux = _zero(x)
     lspecs = layer_specs(specs)
     wire = layers_mod.block_dtype()
     run = body if lspecs is None else \
-        (lambda bp, h: body(gather_params(bp, lspecs, wire), h))
+        (lambda bp, h: body(block_params(cfg, bp, lspecs, wire), h))
     for bp in layers(stacked):
         if remat:
             x, a = checkpoint(run, bp, x, use_reentrant=False)
@@ -329,6 +337,14 @@ def _run_blocks(body, stacked: Params, x: torch.Tensor, remat: bool,
             x, a = run(bp, x)
         aux = aux + a
     return x, aux
+
+
+def _embed(cfg: ModelConfig, params: Params,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings (under the tensor-parallel layout from the
+    rank's vocabulary range, summed over ``model``)."""
+    table, lo = vocab_table(cfg, params, "embed")
+    return embed(table, tokens, lo)
 
 
 def _positions(s: int, device) -> torch.Tensor:
@@ -343,7 +359,7 @@ def forward(cfg: ModelConfig, params: Params, batch: dict, *,
     "patch_embeds" (vlm) or "frames" (audio)."""
     tokens = batch["tokens"]
     positions = _positions(tokens.shape[1], tokens.device)
-    x = embed(gather_param(params["embed"], param_spec("embed")), tokens)
+    x = _embed(cfg, params, tokens)
 
     fam = cfg.family
     if fam == "vlm":
@@ -355,10 +371,10 @@ def forward(cfg: ModelConfig, params: Params, batch: dict, *,
             specs = moe_mod.block_gather_specs(cfg, specs, tokens.numel())
         x, aux = _run_blocks(
             lambda bp, h: _dense_block_fn(cfg, bp, h, positions),
-            blocks, x, remat, specs)
+            blocks, x, remat, specs, cfg)
     elif fam == "ssm":
         x, aux = _run_blocks(lambda bp, h: _rwkv_block_fn(h, cfg, bp),
-                             blocks, x, remat, specs)
+                             blocks, x, remat, specs, cfg)
     elif fam == "hybrid":
         x, aux = _hybrid_forward(cfg, dict(params, blocks=blocks), x,
                                  positions, remat)
@@ -381,7 +397,7 @@ def _grouped(cfg: ModelConfig, tree: Params) -> Params:
 def _hybrid_forward(cfg, params, x, positions, remat):
     """Zamba2: groups of ``attn_every`` mamba layers, each followed by the
     SHARED attention block (same weights every application, gathered at
-    each)."""
+    each; under megatron moved to its compute split at each)."""
     shared = _maybe_cast_blocks(params["shared_attn"])
     shared_specs = param_spec("shared_attn")
     specs = param_spec("blocks")
@@ -391,16 +407,18 @@ def _hybrid_forward(cfg, params, x, positions, remat):
     def group_body(bp_group, h):
         for bp in layers(bp_group):
             h = _mamba_block_fn(h, cfg, bp)
-        full = gather_params(shared, shared_specs, layers_mod.block_dtype())
+        full = block_params(cfg, shared, shared_specs,
+                            layers_mod.block_dtype())
         return _dense_block_fn(cfg, full, h, positions)[0], _zero(h)
 
     return _run_blocks(group_body, _grouped(cfg, params["blocks"]), x, remat,
-                       specs)
+                       specs, cfg)
 
 
 def _encode(cfg, enc: Params, frames: torch.Tensor, remat: bool):
     """Whisper's encoder over the stub frame embeddings: the memory.  On a
-    mesh its weights are gathered at use; sequence-sharded frames
+    mesh its blocks' weights are taken at use (``layers.block_params``),
+    its input projection gathered whole; sequence-sharded frames
     (zero_seq) are gathered, the encoder runs on all of them, and the rank
     keeps its slice of the memory."""
     specs = param_spec("encoder") or {}
@@ -409,7 +427,8 @@ def _encode(cfg, enc: Params, frames: torch.Tensor, remat: bool):
         frames = layers_mod.gather_seq(frames, "frames")
     fpos = torch.arange(frames.shape[1], device=frames.device)
     wire = layers_mod.block_dtype()
-    in_proj = gather_param(enc["in_proj"], specs.get("in_proj"), wire)
+    in_proj = gather_param(enc["in_proj"], specs.get("in_proj"), wire,
+                           "in_proj weights")
     mem = einsum("bfd,de->bfe", cast(frames), cast(in_proj))
     mem = mem + _sinusoidal(fpos, cfg.d_model)[None].to(mem.dtype)
 
@@ -422,13 +441,17 @@ def _encode(cfg, enc: Params, frames: torch.Tensor, remat: bool):
         return h + m, _zero(h)
 
     mem, _ = _run_blocks(enc_body, enc["blocks"], mem, remat,
-                         specs.get("blocks"))
+                         specs.get("blocks"), cfg)
     mem = rms_norm(mem, gather_param(enc["norm"], specs.get("norm"), wire),
                    cfg.norm_eps)
     return layers_mod.local_seq(mem) if sharded else mem
 
 
 def _cross_kv(bp: Params, mem: torch.Tensor):
+    """The cross-attention's keys and values of the memory (under the
+    tensor-parallel layout the rank's heads')."""
+    if layers_mod.tensor_parallel():
+        mem = layers_mod.replicated_in(mem, "cross in")
     return (einsum("bfd,dhk->bfhk", mem, cast(bp["xattn"]["wk"])),
             einsum("bfd,dhk->bfhk", mem, cast(bp["xattn"]["wv"])))
 
@@ -459,15 +482,23 @@ def _audio_forward(cfg, params, x, frames, positions, remat):
         return h + m, _zero(h)
 
     return _run_blocks(dec_body, params["blocks"], x, remat,
-                       param_spec("blocks"))
+                       param_spec("blocks"), cfg)
 
 
 def logits_fn(cfg: ModelConfig, params: Params,
               hidden: torch.Tensor) -> torch.Tensor:
     """Logits of ``hidden`` against the (tied or separate) table, gathered
-    at use on a mesh."""
+    at use on a mesh; under the tensor-parallel layout the rank's
+    vocabulary range's logits, put together whole by one all-gather over
+    ``model``."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    return unembed(gather_param(params[name], param_spec(name)), hidden)
+    table, lo = vocab_table(cfg, params, name)
+    if lo is None:
+        return unembed(table, hidden)
+    logits = unembed(table, layers_mod.replicated_in(hidden, "logits in"))
+    rng = layers_mod.split_ranges(cfg.padded_vocab, layers_mod.model_size())
+    return collectives.gather_ranges([(logits, logits.ndim - 1, rng)],
+                                     layers_mod.model_group(), "logits")[0]
 
 
 # ===========================================================================
@@ -576,6 +607,32 @@ def cache_layout(cfg: ModelConfig, mesh, batch: int,
     return sharding.cache_specs(cache_shapes(cfg, batch, max_len), mesh)
 
 
+def serve_params(cfg: ModelConfig, params: Params, mesh) -> Params:
+    """The serving state's weights over ``mesh``: the rank's blocks under
+    :func:`serve_param_specs` (bf16) with each leaf of the block products
+    and the tables moved once to its compute split over ``model``
+    (``layers.leaf_layout``, one all-to-all a stacked leaf), which
+    :func:`prefill` and :func:`decode_step` take under :func:`serve_hooks`:
+    a decode step then moves no weight of those.  A rank holds the bytes
+    it held, save the K/V heads its query heads share with another rank's
+    (GQA).  At one model rank ``params`` itself."""
+    m = sharding.axis_sizes(mesh).get("model", 1)
+    if m == 1:
+        return params
+    specs = serve_param_specs(cfg, mesh)
+    group = mesh.get_group("model")
+
+    def move(path, x):
+        lay = layers_mod.leaf_layout(cfg, path, m)
+        if lay is None:
+            return x
+        return layers_mod.to_compute(x, tuple(specs_at(specs, path)), lay,
+                                     group, "/".join(path[-2:]))
+
+    with torch.no_grad():
+        return sharding.map_with_path(move, params)
+
+
 def serve_layout(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
                  seq: int = 1, mode: str = "megatron") -> tuple:
     """(parameter specs, serve layout) of :func:`serve_hooks`: the
@@ -624,6 +681,51 @@ def _cache_block(x: torch.Tensor, path: tuple) -> torch.Tensor:
     send = x.unflatten(d, (m, x.shape[d] // m)).movedim(d, 0)
     recv = collectives.all_to_all_dim0(send, group, "cache relayout")
     return recv.flatten(0, 1)
+
+
+def _kv_cache_block(cfg: ModelConfig, x: torch.Tensor,
+                    path: tuple) -> torch.Tensor:
+    """The cache block, under the serve layout's spec of the K/V leaf at
+    ``path``, of one layer's keys or values that the tensor-parallel
+    layout computed (the rank's rows, whole sequence, its K/V heads): the
+    heads that two ranks computed kept once, then one all-to-all to the
+    rank's slice of the sequence over ``model`` (all heads), or, the
+    sequence not split there, one gather of every head."""
+    m = layers_mod.model_size()
+    group = layers_mod.model_group()
+    kvs = layers_mod.kv_ranges(cfg.n_heads, cfg.n_kv_heads, m)
+    own = collectives.owned(kvs)
+    r = layers_mod.get_mesh().get_local_rank("model")
+    x = x.narrow(2, own[r][0] - kvs[r][0], own[r][1] - own[r][0])
+    if 1 in layers_mod.model_split(layers_mod.cache_spec(*path)):
+        return collectives.relayout(
+            x, group, (2, own), (1, layers_mod.split_ranges(x.shape[1], m)),
+            "cache " + path[-1])
+    return collectives.gather_ranges([(x, 2, own)], group,
+                                     "cache " + path[-1])[0]
+
+
+def _gather_heads(cfg: ModelConfig, q, k, v) -> list:
+    """A decode step's new q, k, v of every head from the ranks' heads
+    (tensor-parallel layout): one all-gather over ``model``."""
+    m = layers_mod.model_size()
+    heads = layers_mod.split_ranges(cfg.n_heads, m)
+    kvs = layers_mod.kv_ranges(cfg.n_heads, cfg.n_kv_heads, m)
+    return collectives.gather_ranges([(q, 2, heads), (k, 2, kvs),
+                                      (v, 2, kvs)],
+                                     layers_mod.model_group(), "decode qkv")
+
+
+def _heads_out(cfg: ModelConfig, p: Params, out: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """The output projection of every head's attention output ``out``;
+    under the tensor-parallel layout the rank's heads' share, summed over
+    ``model``."""
+    if not layers_mod.tensor_parallel():
+        return einsum("bshk,hkd->bsd", out, cast(p["wo"])).to(dtype)
+    h0, h1, _, _ = layers_mod.heads_of(cfg)
+    return layers_mod.row_parallel("bshk,hkd->bsd", out[:, :, h0:h1],
+                                   p["wo"], dtype, "attn out")
 
 
 def _split_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -682,13 +784,15 @@ def _mamba_prefill_block(x, cfg, bp):
 
 def _layer_params(cfg: ModelConfig, stacked: Params, specs,
                   n_tokens: int = 0):
-    """Each layer's weights of a stacked tree, gathered at use on a mesh
-    (the MoE's expert dim kept local under its all-to-all)."""
-    if cfg.family == "moe":
-        specs = moe_mod.block_gather_specs(cfg, specs, n_tokens)
+    """Each layer's serve weights (:func:`serve_params`) for its products
+    (``layers.block_params``): under the tensor-parallel layout where they
+    are, else gathered whole at use (the MoE's expert dim kept local under
+    its all-to-all)."""
+    keep = cfg.family == "moe" and specs is not None and moe_mod.a2a_applies(
+        cfg, n_tokens * layers_mod.token_ranks())
     lspecs = layer_specs(specs)
     for bp in layers(stacked):
-        yield gather_params(bp, lspecs)
+        yield block_params(cfg, bp, lspecs, keep_experts=keep)
 
 
 @torch.no_grad()
@@ -699,17 +803,21 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
     sliding-window configs only the last ``window`` keys are retained
     (ring-buffer layout, aligned so subsequent decode writes continue it).
 
-    Over a mesh (:func:`serve_hooks`) ``params`` are the rank's blocks of
-    the serve layout, ``batch`` its token rows (and under zero_seq its
-    positions), and the result its rows' logits and its blocks of the
-    cache.  Each layer's weights are gathered at use; a rank's products
-    are those of its whole rows, not split over ``model`` (ROADMAP B.11).
-    Under zero_seq attention gathers its keys and values over the model
-    group, the recurrences run on the gathered sequence, and a rank keeps
-    its own keys and values as its cache block where the cache is the
-    sequence (else its slice of the whole sequence's); under zero_batch an
-    all-to-all over ``model`` moves each leaf from the rank's rows to the
-    cache's rows over (pod, data).
+    Over a mesh (:func:`serve_hooks`) ``params`` are the rank's serve
+    weights (:func:`serve_params`), ``batch`` its token rows (and under
+    zero_seq its positions), and the result its rows' logits and its
+    blocks of the cache.  Under megatron each model rank computes its
+    slice of every block product (its heads, its d_ff, its experts, its
+    vocabulary), the partial sums combined over ``model``; each layer's
+    keys and values, computed for the rank's heads, move to the cache's
+    layout (the sequence over ``model``) by one all-to-all.  Under zero_seq
+    and zero_batch the weights are gathered whole at use; zero_seq's
+    attention gathers its keys and values over the model group, the
+    recurrences run on the gathered sequence, and a rank keeps its own keys
+    and values as its cache block where the cache is the sequence (else
+    its slice of the whole sequence's); under zero_batch an all-to-all over
+    ``model`` moves each leaf from the rank's rows to the cache's rows over
+    (pod, data).
     """
     tokens = batch["tokens"]
     b, s_local = tokens.shape
@@ -717,7 +825,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
     positions = _positions(s_local, dev)
     seq_sharded = layers_mod.sequence_sharded()
     s = s_local * (layers_mod.model_size() if seq_sharded else 1)
-    x = embed(gather_param(params["embed"], param_spec("embed")), tokens)
+    tp = layers_mod.tensor_parallel()
+    x = _embed(cfg, params, tokens)
     fam = cfg.family
     s_cache = cache_len(cfg, max_len)
     own_kv = seq_sharded and s == s_cache
@@ -741,6 +850,14 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
         """Self-attention of one block: (h + out, k block, v block)."""
         xn = rms_norm(h, bp["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(cfg, bp["attn"], xn, positions, rope=rope)
+        if tp:
+            o = sdpa(q, *layers_mod.expand_kv(cfg, k, v), causal=True,
+                     window=window)
+            h = h + layers_mod.row_parallel("bshk,hkd->bsd", o,
+                                            bp["attn"]["wo"], h.dtype,
+                                            "attn out")
+            return (h, _kv_cache_block(cfg, clip_kv(k), path + ("k",)),
+                    _kv_cache_block(cfg, clip_kv(v), path + ("v",)))
         if seq_sharded:
             kl, vl = k, v
             k = layers_mod.gather_seq(k, "prefill k")
@@ -788,8 +905,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
                            "shift2": torch.stack(s2).float()}
 
     elif fam == "hybrid":
-        shared = gather_params(params["shared_attn"],
-                               param_spec("shared_attn"))
+        shared = block_params(cfg, params["shared_attn"],
+                              param_spec("shared_attn"))
         conv, st, kvs = [], [], []
         for i, bp in enumerate(blocks):
             x, c, state = _mamba_prefill_block(x, cfg, bp)
@@ -822,8 +939,10 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
                 mk.to(x.dtype), mv.to(x.dtype))
             x = x + mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps))
             kvs.append((k, v))
-            xkvs.append((_cache_block(mk, ("cross", "k")),
-                         _cache_block(mv, ("cross", "v"))))
+            cache_of = (lambda t, p: _kv_cache_block(cfg, t, p)) if tp \
+                else _cache_block
+            xkvs.append((cache_of(mk, ("cross", "k")),
+                         cache_of(mv, ("cross", "v"))))
         cache["layers"] = stack(kvs)
         cache["cross"] = stack(xkvs)
     else:
@@ -845,13 +964,17 @@ def _attn_step(cfg, bp, x, k_cache, v_cache, pos, key_pos, rope=True,
     over ``model``, the rank holds a contiguous block of the slots: only
     the rank whose block holds the write slot writes it (the others write
     back what they hold), and the softmax spans the model group
-    (:func:`_split_attend`)."""
+    (:func:`_split_attend`).  Under the tensor-parallel layout the rank
+    computes its heads' q, k and v, gathers every head's over ``model``
+    (a few KiB) and projects its heads' share of the output."""
     split = 1 in layers_mod.model_split(spec)
     s_cache = k_cache.shape[1]
     total = s_cache * layers_mod.model_size() if split else s_cache
     windowed = key_pos is not None
     write_at = torch.remainder(pos, total) if windowed else pos
     q, k, v = qkv_project(cfg, bp, x, pos.view(1, 1), rope=rope)
+    if layers_mod.tensor_parallel():
+        q, k, v = _gather_heads(cfg, q, k, v)
     if not split:
         at = write_at.view(1).long()
         k_cache.index_copy_(1, at, k.to(k_cache.dtype))
@@ -862,7 +985,7 @@ def _attn_step(cfg, bp, x, k_cache, v_cache, pos, key_pos, rope=True,
             out = _ring_sdpa(q, k_cache, v_cache, key_pos, write_at)
         else:
             out = sdpa(q, k_cache, v_cache, causal=False, kv_len=pos + 1)
-        return einsum("bshk,hkd->bsd", out, cast(bp["wo"])).to(x.dtype)
+        return _heads_out(cfg, bp, out, x.dtype)
     first = layers_mod.get_mesh().get_local_rank("model") * s_cache
     local = write_at - first
     mine = (local >= 0) & (local < s_cache)
@@ -877,7 +1000,7 @@ def _attn_step(cfg, bp, x, k_cache, v_cache, pos, key_pos, rope=True,
         valid = slots < pos + 1
     out = _split_attend(q, k_cache, v_cache, valid,
                         1.0 / math.sqrt(q.shape[-1]))
-    return einsum("bshk,hkd->bsd", out, cast(bp["wo"])).to(x.dtype)
+    return _heads_out(cfg, bp, out, x.dtype)
 
 
 def _ring_sdpa(q, k_cache, v_cache, key_pos, write_at):
@@ -915,15 +1038,18 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     the cache's tensors updated in place, ``pos`` advanced.
 
     Over a mesh (:func:`serve_hooks`, megatron's layout) ``params`` are the
-    rank's serve blocks, ``tokens`` and the logits its rows, ``cache`` its
-    blocks: each layer's weights gathered at use (products not split over
-    ``model``, ROADMAP B.11); an attention cache's sequence split over
-    ``model`` stays put, its softmax combined over the model group
-    (:func:`_split_attend`); an SSM or conv state or a token shift split
-    over ``model`` is gathered for its layer's step (at most (B, H, K, P)
-    a layer) and the rank keeps its slice of the new one."""
+    rank's serve weights (:func:`serve_params`), ``tokens`` and the logits
+    its rows, ``cache`` its blocks: each model rank computes its slice of
+    every block product with the weights it holds (no weight of those
+    moves), the partial sums combined over ``model``; an attention cache's
+    sequence split over ``model`` stays put, its softmax combined over the
+    model group (:func:`_split_attend`); the SSM mixers' weights are
+    gathered at use, and an SSM or conv state or a token shift split over
+    ``model`` is gathered for its layer's step (at most (B, H, K, P) a
+    layer) and the rank keeps its slice of the new one."""
     pos = cache["pos"]
-    x = embed(gather_param(params["embed"], param_spec("embed")), tokens)
+    tp = layers_mod.tensor_parallel()
+    x = _embed(cfg, params, tokens)
     fam = cfg.family
     key_pos = cache.get("key_pos")
     lay = cache["layers"]
@@ -965,8 +1091,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
             x = x + _state_step(cmix, lay, ("layers",), i, "shift2")
 
     elif fam == "hybrid":
-        shared = gather_params(params["shared_attn"],
-                               param_spec("shared_attn"))
+        shared = block_params(cfg, params["shared_attn"],
+                              param_spec("shared_attn"))
         shared_spec = layers_mod.cache_spec("shared_attn", "k")
         for i, bp in enumerate(blocks):
             def mamba(conv, state):
@@ -997,13 +1123,18 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                                rope=False, spec=kv_spec)
             xn = rms_norm(x, bp["ln_x"], cfg.norm_eps)
             mk, mv = cache["cross"]["k"][i], cache["cross"]["v"][i]
-            if cross_split:
+            if cross_split or tp:
                 q = einsum("bsd,dhk->bshk", xn,
                            cast(bp["xattn"]["wq"])).to(xn.dtype)
+                if tp:
+                    q = collectives.gather_ranges(
+                        [(q, 2, layers_mod.split_ranges(
+                            cfg.n_heads, layers_mod.model_size()))],
+                        layers_mod.model_group(), "decode q")[0]
                 out = _split_attend(q, mk, mv, None,
-                                    1.0 / math.sqrt(q.shape[-1]))
-                x = x + einsum("bshk,hkd->bsd", out,
-                               cast(bp["xattn"]["wo"])).to(x.dtype)
+                                    1.0 / math.sqrt(q.shape[-1])) \
+                    if cross_split else sdpa(q, mk, mv, causal=False)
+                x = x + _heads_out(cfg, bp["xattn"], out, x.dtype)
             else:
                 x = x + cross_attention_block(cfg, bp["xattn"], xn, mk, mv)
             x = x + mlp_block(bp["mlp"], rms_norm(x, bp["ln2"], cfg.norm_eps))

@@ -33,6 +33,14 @@ over all tokens).  The dispatch then takes one of three forms:
   with a group a row): the token group is gathered before the stable
   sort, since capacity drops depend on the whole group, every rank
   dispatches all groups, and keeps its own tokens' outputs.
+
+Under megatron's tensor-parallel layout (``layers.tensor_parallel``) the
+model ranks hold the same tokens and compute the same route and dispatch;
+each runs its own E/m experts on the slots routed to them (E dividing m,
+expert parallel), else its d_ff slice of every expert, and the combine's
+float32 partial sums are summed over ``model`` and rounded once.  The
+tokens and the gates enter through ``collectives.all_reduce_grad``, so
+their gradients, and the router's, are the whole ones on every rank.
 """
 
 from __future__ import annotations
@@ -125,12 +133,37 @@ def _combine(out_buf: torch.Tensor, slot, keep, meta, t: int, dtype):
                          contrib.reshape(-1, d).to(dtype)).reshape(g, t, d)
 
 
-def _experts(p: Params, buf: torch.Tensor, dtype) -> torch.Tensor:
-    """The expert MLPs of a (G, E, C, D) buffer."""
+def _experts(p: Params, buf: torch.Tensor, dtype,
+             partial: bool = False) -> torch.Tensor:
+    """The expert MLPs of a (G, E, C, D) buffer; ``partial``: ``p`` holds
+    a d_ff slice, and the output is its float32 partial sum."""
     gate_h = einsum("gecd,edf->gecf", buf, cast(p["w_gate"])).float()
     up_h = einsum("gecd,edf->gecf", buf, cast(p["w_up"])).float()
     h = (F.silu(gate_h) * up_h).to(dtype)
+    if partial:
+        return einsum_f32("gecf,efd->gecd", h, cast(p["w_down"]))
     return einsum("gecf,efd->gecd", h, cast(p["w_down"])).to(dtype)
+
+
+def _experts_tp(cfg: ModelConfig, p: Params, buf: torch.Tensor, slot,
+                keep, meta, t: int, dtype) -> torch.Tensor:
+    """The tensor-parallel experts and combine of a dispatched (G, E, C,
+    D) buffer: the rank's E/m experts whole (their slots only), else its
+    d_ff slice of every expert; the combine of the rank's float32
+    contributions summed over ``model``, rounded once to ``dtype``."""
+    e, m = cfg.n_experts, layers.model_size()
+    if e % m == 0:
+        lo, hi = layers.split_ranges(e, m)[
+            layers.get_mesh().get_local_rank("model")]
+        mine = _experts(p, buf[:, lo:hi], dtype).float()
+        g, _, c, d = buf.shape
+        out_buf = torch.cat([mine.new_zeros((g, lo, c, d)), mine,
+                             mine.new_zeros((g, e - hi, c, d))], dim=1)
+    else:
+        out_buf = _experts(p, buf, dtype, partial=True)
+    out = _combine(out_buf, slot, keep, meta, t, torch.float32)
+    return collectives.all_reduce_value(out, layers.model_group(),
+                                        "moe out").to(dtype)
 
 
 def _groups(cfg: ModelConfig, t_all: int) -> int:
@@ -238,6 +271,11 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
         out = _moe_a2a(cfg, p, xt, gate_vals, expert_ids, c, x.dtype)
         return out.reshape(b, s, d), aux
 
+    tp = layers.tensor_parallel()
+    if tp:
+        x = layers.replicated_in(x, "moe in")
+        xt = x.reshape(t, d)
+        gate_vals = layers.replicated_in(gate_vals, "moe gates in")
     contiguous = not layers.sequence_sharded() or layers.model_size() == 1
     spans = ranks > 1 and not (contiguous and t % tg == 0)
     if spans:
@@ -253,8 +291,12 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     buf, slot, keep, meta = _dispatch(cfg, xt.reshape(n, tg, d),
                                       gate_vals.reshape(n, tg, k),
                                       expert_ids.reshape(n, tg, k), c)
-    out_buf = _experts(p, _constrain_dispatch(buf), x.dtype)
-    out = _combine(out_buf, slot, keep, meta, tg, x.dtype)
+    if tp:
+        out = _experts_tp(cfg, p, _constrain_dispatch(buf), slot, keep, meta,
+                          tg, x.dtype)
+    else:
+        out_buf = _experts(p, _constrain_dispatch(buf), x.dtype)
+        out = _combine(out_buf, slot, keep, meta, tg, x.dtype)
     if spans:
         out = layers.local_tokens(out.reshape(shape))
     return out.reshape(b, s, d), aux

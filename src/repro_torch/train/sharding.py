@@ -30,9 +30,10 @@ are computed without allocating it.
 The reference hands its specs to XLA's SPMD partitioner.  The port keeps
 plain local tensors beside their specs: :func:`shard_tree` cuts a full
 tree into a rank's shards, :func:`gather_tree` puts the full tree back
-together (checkpoints, checks), and the model gathers each leaf at use
+together (checkpoints, checks), and the model takes each leaf at use
 with the explicit collectives of ``core.collectives``
-(``models/layers.py``).  DTensor is not used: the MoE's sort and scatter
+(``models/layers.py``: gathered whole, or under megatron gathered over
+``data`` and moved to its tensor-parallel compute split over ``model``).  DTensor is not used: the MoE's sort and scatter
 and the chunked recurrences lie outside its propagation rules, and the
 explicit form keeps every collective, and its gradient, in view.
 """

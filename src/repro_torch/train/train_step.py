@@ -27,25 +27,33 @@ computes on it:
   reference's partitioner lays such a microbatch over part of the ranks
   instead; the mean loss is the same, the MoE's load-balance statistics
   and token groups span the merged rows;
-* the forward gathers each weight at use (``models/model.py``); the loss
-  is the global mean, the MoE's load-balance statistics global;
+* the forward takes each layer's weights at use (``models/model.py``,
+  ``layers.block_params``): the zero modes gather them whole; megatron
+  gathers them over ``data`` and moves each block product's leaf to its
+  compute split over ``model`` (tensor parallelism, as GSPMD splits the
+  reference's products by the weights' specs: attention by heads, the
+  MLPs by d_ff, the MoE by experts, the tables and the loss's logits by
+  vocabulary).  The loss is the global mean, the MoE's load-balance
+  statistics global;
 * the gradient rule: a leaf's gradient is the sum of the per-rank
   gradients over the ranks that computed distinct activation slices
   (megatron: over ``data``; the zero modes: over every rank), each rank
   keeping its block of that sum.  A gather's backward is the
   reduce-scatter over those axes; a leaf not sharded over one of them is
-  all-reduced over it after the backward;
+  all-reduced over it after the backward.  Under megatron a leaf split
+  over ``model`` for its products gets the gradient of the rank's own
+  slice, brought back to its storage block by the adjoint of its
+  re-layout, with no sum over ``model``; a replicated leaf used on
+  replicated activations gets the same gradient on every model rank, the
+  split products' replicated inputs summing their gradients over
+  ``model`` (``collectives.all_reduce_grad``);
 * AdamW on the local blocks, the clipping norm global; the metrics are
   the global ones on every rank.
-
-Departure from the reference: under ``megatron`` the model axis shards
-the storage but not the products (the model ranks of a data group compute
-the same rows with gathered weights); GSPMD's tensor-parallel split of
-each product is later work (ROADMAP B).
 """
 
 from __future__ import annotations
 
+import gc
 import math
 from dataclasses import dataclass
 
@@ -59,6 +67,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
 from repro_torch.train import sharding
 from repro_torch.train.loss import chunked_ce_loss
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 @dataclass(frozen=True)
@@ -144,7 +153,8 @@ def mesh_microbatches(microbatches: int, global_batch: int, mesh,
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, *,
-                    mesh=None, mode: str = "megatron"):
+                    mesh=None, mode: str = "megatron",
+                    repeat_second: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params', opt',
     metrics), on ``device`` (``cuda`` unless the CPU is asked for); the
     batch may hold numpy arrays, which are moved there.
@@ -157,11 +167,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, *,
     rank's blocks in ``mode`` (``megatron``, ``zero_seq`` or
     ``zero_batch``; see the module docstring): ``params`` and the state
     are the rank's blocks under :func:`param_layout`, ``batch`` the
-    global batch.
+    global batch.  ``repeat_second`` (the pod dry run's fake step, whose
+    numbers are not read): the mesh step runs its first two microbatches
+    only and counts each later one in ``collectives.tally`` as a repeat of
+    the second, whose shapes and live set every later one has.
     """
     dev = device_mod.resolve(device)
     if mesh is not None:
-        return _mesh_step(cfg, tcfg, dev, mesh, mode)
+        return _mesh_step(cfg, tcfg, dev, mesh, mode, repeat_second)
 
     def train_step(params, opt_state: adamw.AdamWState, batch):
         batch = model_lib.to_batch(batch, dev)
@@ -195,7 +208,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, *,
     return train_step
 
 
-def _mesh_step(cfg: ModelConfig, tcfg: TrainConfig, dev, mesh, mode: str):
+def _mesh_step(cfg: ModelConfig, tcfg: TrainConfig, dev, mesh, mode: str,
+               repeat_second: bool = False):
     pspecs = param_layout(cfg, mesh, mode)
     act = sharding.activation_spec(mesh, mode)
     names = mesh.mesh_dim_names
@@ -250,16 +264,25 @@ def _mesh_step(cfg: ModelConfig, tcfg: TrainConfig, dev, mesh, mode: str):
             full = dict(batch, tokens=inputs, targets=targets, mask=mask)
             _track(params)
             grads, loss, per_mb = None, torch.zeros((), device=dev), []
-            for i in range(n_mb):
+            fake = isinstance(inputs, FakeTensor)
+            for i in range(min(n_mb, 2) if repeat_second else n_mb):
+                if fake:
+                    # the dry run: the last microbatch's cyclic garbage
+                    # freed, so that the peak is the live tensors' and
+                    # every microbatch after the first starts alike
+                    gc.collect()
                 mb = local_batch({k: v.reshape(
                     (n_mb, v.shape[0] // n_mb) + v.shape[1:])[i]
                     for k, v in full.items()})
                 targets_mb, mask_mb = mb.pop("targets"), mb.pop("mask")
-                _, m, g = _grads(params, *_loss(cfg, tcfg, params, mb,
-                                                targets_mb, mask_mb))
-                m = {"ce": global_sum(m["ce"]), "aux": m["aux"]}
+                with collectives.repeated(n_mb - 1 if repeat_second
+                                          and i == 1 else 1):
+                    _, m, g = _grads(params, *_loss(cfg, tcfg, params, mb,
+                                                    targets_mb, mask_mb))
+                    m = {"ce": global_sum(m["ce"]), "aux": m["aux"]}
                 grads = g if grads is None else model_lib.map2(
                     torch.add, grads, g)
+                del g       # not alive through the next microbatch
                 loss = loss + (m["ce"] + m["aux"])
                 per_mb.append(m)
             if n_mb == 1:

@@ -116,3 +116,28 @@ def check_record(rec: dict, arch: str, shape: str, mode: str,
                          ids=["-".join(c) for c in CASES])
 def test_dry_run_workload_runs(arch, shape, mode, mesh, records):
     check_record(records[(arch, shape, mode, mesh)], arch, shape, mode, mesh)
+
+
+@pytest.mark.parametrize("arch,mode", [("smollm-360m", "megatron"),
+                                       ("mixtral-8x7b", "zero_seq")])
+def test_repeated_microbatches_count_as_the_full_run(arch, mode):
+    """A train step of 4 microbatches on the fake group: running the first
+    two and counting the others as repeats of the second gives the full
+    run's collectives, call for call and byte for byte, and its peak but
+    for the later microbatches' metrics (two float32 scalars each, kept
+    to the step's end).  A first run warms the group's caches, which add
+    to the first peak taken in it."""
+    runs = []
+    with dryrun.fake_group(8):
+        for rep in (True, False, True):
+            runs.append(dryrun.run_one(
+                arch, TRAIN, cfg=config(arch), sharding_mode=mode,
+                mesh_shape=MESH, verbose=False, microbatches=4,
+                repeat_second=rep))
+    _, full, fast = runs
+    for rec in runs:
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["microbatches_run"] == 4
+    assert fast["collectives"] == full["collectives"]
+    assert fast["coll_bytes"] == full["coll_bytes"]
+    assert 0 <= full["peak_bytes"] - fast["peak_bytes"] <= 8 * (4 - 2)

@@ -26,8 +26,13 @@ one-process run's (measured at most 9.8e-6, mixtral, and 9.1e-6, zamba2;
 1.9e-6 smollm, 4.8e-7 rwkv6: the partial softmaxes' log-sum-exp combine
 reorders float32 sums, ~1e-6, and a key or value that lands one bf16
 step apart in the cache moves the next steps' logits by ~1e-5); no
-decode step gathers a K/V cache (the tally of its collectives by name
-holds the weights', the softmax partials' and the states' gathers only).
+decode step gathers a K/V cache or a block weight or a table (the tally
+of its collectives by name holds the new token's q/k/v, the softmax
+partials', the logits' vocabulary slices', the states' and the MoE's token
+gathers, and for the SSMs their mixers' weights, only), and every
+attention step sums its embedding and its heads' output projection over
+``model`` (megatron's tensor-parallel products; the serve weights re-laid
+into their compute split once, ``model.serve_params``).
 smollm's decode steps on the mesh also match the reference's decode as
 its dry run lowers it (``make_lowering_spec``'s decode kind jitted on a
 forced 4-device ``make_host_mesh(2, 2)``, from its own prefill), within
@@ -61,10 +66,16 @@ LOGITS_TOL = 5e-5      # of the one-process logits' range
 REF_TOL = 1e-4         # against the reference's served decode
 KV_TOL = 2.0 ** -8     # bf16 K/V blocks, of a value
 STATE_TOL = 1e-5       # float32 states, of the leaf's largest value
-# what a decode step may gather: weights, softmax partials, states
-DECODE_GATHERS = {"all_gather weights", "all_gather decode softmax",
-                  "all_gather decode state", "all_gather moe tokens",
-                  "all_gather moe gates", "all_gather moe ids"}
+# what a decode step may gather: the new token's q/k/v of every head, the
+# softmax partials, the logits' vocabulary slices, the states, the MoE's
+# token group over ``data``, and the SSM mixers' weights (their products
+# are not split over ``model``); never a block weight or a table
+DECODE_GATHERS = {"all_gather decode qkv", "all_gather decode softmax",
+                  "all_gather logits", "all_gather decode state",
+                  "all_gather moe tokens", "all_gather moe gates",
+                  "all_gather moe ids", "all_gather mixer weights"}
+# the activations' sums over ``model`` every attention decode step makes
+DECODE_SUMS = {"all_reduce embed", "all_reduce attn out"}
 
 
 def config(arch: str):
@@ -123,8 +134,9 @@ def serve_rank(mesh, dev, jobs: dict) -> dict:
                       for a in mesh.mesh_dim_names}}
     for name, (arch, modes, s, max_len, np_tree, tokens) in jobs.items():
         cfg = config(arch)
-        params = sharding.shard_tree(
-            tree_of(np_tree), model.serve_param_specs(cfg, mesh), mesh)
+        params = model.serve_params(cfg, sharding.shard_tree(
+            tree_of(np_tree), model.serve_param_specs(cfg, mesh), mesh),
+            mesh)
         layout = model.cache_layout(cfg, mesh, BATCH, max_len)
         full = model.cache_shapes(cfg, BATCH, max_len)
         for mode in modes:
@@ -253,7 +265,12 @@ def test_served_mesh_matches_one_process(name, mode, runs):
         gathers = {k for k in rec["decode_collectives"]
                    if k.startswith("all_gather")}
         assert gathers <= DECODE_GATHERS, (name, mode, gathers)
-        assert "all_gather decode softmax" in gathers or cfg.family == "ssm"
+        assert "all_gather logits" in gathers, (name, mode, gathers)
+        if cfg.family != "ssm":
+            assert {"all_gather decode softmax",
+                    "all_gather decode qkv"} <= gathers, (name, mode)
+            assert DECODE_SUMS <= set(rec["decode_collectives"]), (name,
+                                                                   mode)
 
 
 def _paths(tree, pre=()):

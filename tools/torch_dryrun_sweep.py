@@ -2,12 +2,13 @@
 tabulate it.
 
     PYTHONPATH=src python3 tools/torch_dryrun_sweep.py OUT_DIR [--jobs N]
-        [--only ARCH,...] [--timeout-each SECONDS]
+        [--only ARCH,...] [--modes MODE,...] [--shapes SHAPE,...]
+        [--timeout-each SECONDS]
 
 The sweep: megatron on both production meshes (ten architectures × the
 four input shapes × 16×16 and 2×16×16, the full-attention architectures'
 long_500k documented skips), then zero_seq and zero_batch at train_4k on
-16×16.  Each workload is one ``python -m repro_torch.launch.dryrun``
+16×16 (``--modes`` and ``--shapes`` keep a part of it).  Each workload is one ``python -m repro_torch.launch.dryrun``
 process writing its record to ``OUT_DIR/<arch>-<shape>-<mesh>-<mode>.json``
 (its log beside it), the slowest first (the SSMs' chunked scans and the
 largest models' microbatched train steps run as many fake operations as
@@ -45,7 +46,8 @@ SSMS = ("zamba2-2.7b", "rwkv6-3b")
 BIG = ("internvl2-76b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen3-14b")
 
 
-def jobs(only: set | None) -> list[tuple]:
+def jobs(only: set | None, modes: set | None = None,
+         shapes: set | None = None) -> list[tuple]:
     """(arch, mesh flag, mode, shape) of the sweep, the slow ones first."""
     out = []
     for arch in ARCHS:
@@ -55,6 +57,8 @@ def jobs(only: set | None) -> list[tuple]:
             out += [(arch, mesh, "megatron", s) for s in SHAPES]
         for mode in ("zero_seq", "zero_batch"):
             out.append((arch, "--single-pod", mode, "train_4k"))
+    out = [j for j in out if (not modes or j[2] in modes)
+           and (not shapes or j[3] in shapes)]
 
     def order(job):     # an SSM's prefill, its train steps, then BIG's
         arch, _, mode, shape = job
@@ -121,16 +125,23 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=max(1, (os.cpu_count()
                                                         or 2) - 1))
     ap.add_argument("--only", default="", help="comma-separated archs")
+    ap.add_argument("--modes", default="",
+                    help="comma-separated sharding modes")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated input shapes")
     ap.add_argument("--timeout-each", type=float, default=None,
                     help="stop a workload after this many seconds")
     args = ap.parse_args(argv)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     only = set(args.only.split(",")) if args.only else None
+    modes = set(args.modes.split(",")) if args.modes else None
+    shapes = set(args.shapes.split(",")) if args.shapes else None
     t = time.time()
     with ThreadPoolExecutor(args.jobs) as pool:
         results = list(pool.map(
-            lambda j: run(j, out_dir, args.timeout_each), jobs(only)))
+            lambda j: run(j, out_dir, args.timeout_each),
+            jobs(only, modes, shapes)))
     records = [r for rs in results for r in rs]
     (out_dir / "sweep.json").write_text(json.dumps(records, indent=1))
     counts = {s: sum(r["status"] == s for r in records)
