@@ -124,10 +124,11 @@ phase's final trainer; ``serve_path``):
    two worker processes on the card, 1 round, their checksums equal to
    each other's and to (a)'s first, each worker's own launches counted;
    (f) ``launch_failover`` at a reduced size (``FAILOVER``: its restarts'
-   time and disk), under build/: a dropped push connection, a delayed pull, the
-   shard process killed at round 3 and restored from its snapshot, worker
-   1 killed after round 2 and restored, bit-equal to an undisturbed
-   in-process run.  WIRE lines carry the numbers.  Every trainer of
+   time and disk), in a thread beside (e), under build/: a dropped push
+   connection, a delayed pull, the shard process killed at round 3 and
+   restored from its snapshot, worker 1 killed after round 2 and
+   restored, bit-equal to an undisturbed in-process run.  WIRE lines carry
+   the numbers; (e)'s and (f)'s say what ran beside them (``beside``).  Every trainer of
    phases 3-13 passes ``layout="sorted"`` (the workers ``--layout
    sorted``), so their numbers stay comparable across PRs.
 14. The position-scan layout, on phase 4's corpus at full width (two
@@ -208,11 +209,17 @@ phase's final trainer; ``serve_path``):
    mode's activation spec, which holds the block weights in bf16 as the
    reference's zero modes do; the largest difference to the plain step is
    printed).  (b) A 2×2 gloo mesh of four processes with their tensors on
-   the card (``mesh_lm_rank``): smollm-360m at full width, depth cut to 8
-   layers, 8 × 512 ``lm_batches`` tokens, two steps a mode from the
-   seed's weights against the same steps on one card: each step's loss
-   and grad_norm and the gathered parameters after the last (Frobenius of
-   the difference over that of the update) within MESH_LM_MARGIN times
+   the card (``mesh_lm_rank``; started before phase 16 for the time
+   limit, they run (b), 18b and 18d beside (b)'s one-card side and phase
+   16, (d) beside (a) and the one-card sides of (c) and (d), and (c)
+   alone; BESIDE, printed with the figures, says what ran beside each):
+   smollm-360m at full width, depth cut to 8
+   layers, 8 × 512 ``lm_batches`` tokens, two steps under megatron and
+   one under each zero mode (MESH_LM_STEPS) from the seed's weights
+   against the same steps on one card: each step's loss
+   and grad_norm and the parameters after the last (Frobenius of the
+   difference over that of the update, summed over the ranks' blocks,
+   ``leaf_sums``) within MESH_LM_MARGIN times
    the one-card run's own spread against two and four microbatches, and
    at least MESH_LM_FLOOR; every rank's metrics equal, every rank's
    parameter, m and v blocks of their specs' shapes; the resident bytes
@@ -227,9 +234,29 @@ phase's final trainer; ``serve_path``):
    6400), one layer, zero_batch with ``moe_groups`` 4 (one group a rank):
    ``_moe_a2a``'s block against the one-process grouped dispatch on the
    same tokens (within MESH_MOE_TOL; the one-process side runs first and
-   is freed), its all_to_all spans present, then one train step.  MESH-LM
-   lines carry step ms and tokens/s, each collective's calls, bytes and
-   ms from a profiled step's spans, the peak GiB a rank and the card.
+   is freed), its all_to_all spans present, then one train step.  (d) The
+   SSM mixers' tensor-parallel products in the same four processes before
+   (c): rwkv6-3b at published widths, one layer, and zamba2-2.7b at 6
+   layers (one group of Mamba-2 layers and its shared block), 2 × 512
+   tokens, one megatron step each from the seed's weights (each model
+   rank its heads' projections, recurrence and norm share; RWKV-6's decay
+   LoRA by its columns; Mamba-2's B and C on both) against the same step
+   on one card (in this process, freed; the ranks wait for its file to
+   compare, not to step), by (b)'s bounds against its own
+   spread with one and two microbatches, and the first gradients (AdamW's
+   m after the step) leaf by leaf within MESH_LM_MARGIN times one card's
+   own spread of that leaf and at least SSM_GRAD_FLOOR, for every leaf
+   whose bound is below SSM_GRAD_HELD (a leaf left at zero or reversed
+   exceeds it; the others are printed as not held); zamba2 again at
+   float32 compute and 2 × 256 (MESH_SSM_F32: in bf16 one card's own
+   Mamba-2 gradients part too far between one and two microbatches to
+   hold by), where every leaf must be held; every rank's blocks
+   of their specs' shapes, the collectives by name and group (none
+   gathers a weight over ``model``), resident and peak GiB a rank beside
+   one card's.  MESH-LM lines carry step ms and tokens/s, each collective's
+   calls, bytes and ms from megatron's profiled step's spans (the zero
+   modes' calls and bytes from the tally alone: the time limit), the peak
+   GiB a rank and the card.
 
 18. Serving the LM over a mesh (``model.serve_hooks``: bf16 weights over
    ``model``, rows over (pod, data), caches under ``cache_specs``; no
@@ -238,7 +265,7 @@ phase's final trainer; ``serve_path``):
    weights in bf16, prefill of 8 × 512 tokens and 16 decode steps, the
    logits of every call and every cache leaf bit-equal to the same calls
    on one card.  (b) A 2×2 gloo mesh of four processes on the card
-   (``serve_mesh_rank``, run by phase 17's four processes after 17c,
+   (``serve_mesh_rank``, run by phase 17's four processes after 17b,
    checked here): the same widths at 17b's depth (8 layers), the
    seed's weights in bf16, prefill of 8 × 512 and 4 decode steps under
    megatron (the serve weights re-laid once into their compute split,
@@ -253,7 +280,14 @@ phase's final trainer; ``serve_path``):
    (``collectives.tally``; no weight gathered, and fewer bytes than
    DECODE_BYTES_BEFORE, the step's bytes when each layer's weights were
    gathered whole), the re-layout's bytes once, resident GiB a rank
-   beside one card's.  (c)
+   beside one card's.  (d) (d)'s two models served in the same processes
+   after (b): prefill of 2 × 512 and 3 decode steps under megatron (a
+   cache of 516) from ``serve_params``, each SSM state kept in its block
+   (every head, its value dim split over ``model``): logits against one
+   card's by 16a's decode rule, every cache leaf of ``local_shape``'s
+   shape, decode ms and the collectives a step by name: no weight and no
+   SSM state among them, the bytes those ``tools/torch_mesh_tally.py``
+   predicts.  (c)
    ``python -m repro_torch.launch.dryrun --arch smollm-360m --shape
    decode_32k --multi-pod`` in a subprocess started before phase 17 and
    read after (b) (it needs no card; its fake process group of 512 never
@@ -2589,6 +2623,33 @@ def pull_breakdown(out: dict, dev) -> dict:
     return times
 
 
+def start_failover(root: Path, dev) -> dict:
+    """``launch_failover`` (phase 13's (f)) in a thread of this process:
+    ``{"thread", "res", "seconds"}`` or ``"error"`` once it is joined."""
+    import threading
+
+    from repro_torch.launch import loopback
+
+    box: dict = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            box["res"] = loopback.launch_failover(
+                client_sets=((0,), (1,)), n_rounds=6, kill_server_round=3,
+                kill_client=1, kill_client_round=2, layout="sorted",
+                chaos_plan=loopback.failover_plan(),
+                timeout=LOOPBACK_TIMEOUT_S, workdir=str(root / "failover"),
+                device=dev.type, **FAILOVER)
+        except BaseException as e:      # re-raised by the caller
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t
+
+    box["thread"] = threading.Thread(target=run)
+    box["thread"].start()
+    return box
+
+
 def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     """Phase 13 (see the module docstring); returns the launch counts of
     each path, each zeroed just before it."""
@@ -2746,6 +2807,9 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     for sub in ("loopback", "failover"):
         (root / sub).mkdir(parents=True)
+    # (f) runs beside (e): their processes, ports and directories are
+    # their own.
+    failover = start_failover(root, dev)
     t = time.perf_counter()
     res = loopback.launch_loopback(
         family="lda", vocab_size=cfg.vocab_size, n_topics=cfg.n_topics,
@@ -2764,6 +2828,8 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     sums = [p.result["checksums"] for p in res.clients]
     summary = {"seconds": secs, "checksums_agree": sums[0] == sums[1],
                "equal_to_tcp_bsp": sums[0] == WIRE["tcp-bsp"]["checksums"],
+               "beside": "(f)'s failover launcher and its processes: the "
+                         "seconds and rounds_per_s are not the card's alone",
                "workers": [{k: p.result[k] for k in (
                    "clients", "rounds_per_s", "launches", "device",
                    "perplexity")} for p in res.clients]}
@@ -2779,13 +2845,10 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
 
     # (f) failover at a reduced size (K=64, V=8192): the time and disk of
     # the restarts; bit-equal to an undisturbed in-process run.
-    t = time.perf_counter()
-    res = loopback.launch_failover(
-        client_sets=((0,), (1,)), n_rounds=6, kill_server_round=3,
-        kill_client=1, kill_client_round=2, layout="sorted",
-        chaos_plan=loopback.failover_plan(), timeout=LOOPBACK_TIMEOUT_S,
-        workdir=str(root / "failover"), device=dev.type, **FAILOVER)
-    secs = time.perf_counter() - t
+    failover["thread"].join()
+    if "error" in failover:
+        raise failover["error"]
+    res, secs = failover["res"], failover["seconds"]
     if not res.ok:
         for p in res.failures():
             print(f"  failover| {p.name} exit {p.returncode}: "
@@ -2799,7 +2862,8 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     summary = {"reduced": f"K={FAILOVER['n_topics']}, "
                f"V={FAILOVER['vocab_size']}, {FAILOVER['n_docs']} documents "
                f"of {FAILOVER['doc_len']} (the restarts' time and disk)",
-               "seconds": secs, "restarts": res.restarts, "drops": drops,
+               "seconds": secs, "beside": "(e)'s loopback launcher",
+               "restarts": res.restarts, "drops": drops,
                "bit_equal": all(r["checksums"] == want["checksums"]
                                 for r in finals),
                "workers": [{k: r[k] for k in ("clients", "restored",
@@ -4076,11 +4140,13 @@ def lm_smollm(dev, root: Path, card: str, keep: dict | None = None) -> dict:
                     batch=nxt, tcfg=tcfg)
     del params, opt, batch
     torch.cuda.empty_cache()
+    summary["beside"] = BESIDE["16"]
     print(f"LM 16a {cfg.name} {a['batch']}x{a['seq']}: "
           f"{summary['tokens_per_s']:.0f} tokens/s, step {step_ms:.1f} ms "
           f"(median after 2), peak {peak:.2f} GiB, model FLOPs/s "
           f"{flops / 1e12:.1f}T = {summary['bf16_peak_share']:.3f} of the "
-          f"bf16 dense peak (989T) on {card}", flush=True)
+          f"bf16 dense peak (989T) on {card}, beside {BESIDE['16']}",
+          flush=True)
     print(f"LM 16a {json.dumps(summary)}", flush=True)
     return summary
 
@@ -4145,7 +4211,9 @@ def lm_full_width(arch: str, seed: int, dev, card: str) -> dict:
           " ms a step, train "
           + (f"{train['step_ms']:.1f} ms ({train['bf16_peak_share']:.3f}"
              " of the bf16 peak)" if train else "not at full width")
-          + f", peak {entry['peak_gib']:.2f} GiB on {card}", flush=True)
+          + f", peak {entry['peak_gib']:.2f} GiB on {card}, beside "
+          f"{BESIDE['16']}", flush=True)
+    entry["beside"] = BESIDE["16"]
     return entry
 
 
@@ -4188,9 +4256,11 @@ def lm_phase(dev, root: Path, card: str, keep: dict | None = None) -> dict:
 
 MESH_LM_MODES = ("megatron", "zero_seq", "zero_batch")
 # 17b: smollm-360m at full width, depth cut to 8 layers, 8 x 512 tokens,
-# two steps a mode on a 2x2 gloo mesh of four processes on the card.
+# two steps under megatron and one under each zero mode (the time limit)
+# on a 2x2 gloo mesh of four processes on the card.
 MESH_LM = {"arch": "smollm-360m", "n_layers": 8, "batch": 8, "seq": 512,
            "steps": 2, "peak_lr": 1e-3}
+MESH_LM_STEPS = {"megatron": 2, "zero_seq": 1, "zero_batch": 1}
 # The mesh against the one-card steps: each bound is MESH_LM_MARGIN times
 # the one-card run's own spread (two and four microbatches against one:
 # the same sums in the row splits of the mesh's ranks), and at least the
@@ -4205,6 +4275,44 @@ MESH_LM_FLOOR = {"loss": 2.0 ** -8, "grad_norm": 2.0 ** -8, "params": 0.05}
 MESH_MOE = {"arch": "phi3.5-moe-42b-a6.6b", "n_layers": 1, "moe_groups": 4,
             "batch": 4, "seq": 512}
 MESH_MOE_TOL = 2.0 ** -7   # a2a block against one process, max |d| / max
+# Phase 17's four ranks start before phase 16 (the time limit): they run
+# 17b, 18b and 18d beside 17b's one-card side and phase 16, 17d once the
+# smoke's process writes PHASE16_DONE (beside 17a and the one-card sides of
+# 17c and 17d) and 17c once it writes MAIN_IDLE (alone).  What ran beside
+# each measured part, printed with its figures:
+PHASE16_DONE, MAIN_IDLE = "phase16-done", "main-idle"
+BESIDE = {"16": "phase 17's four ranks (their start, 17b, 18b, 18d)",
+          "17b": "the ranks' steps beside phase 16, one card's beside the "
+                 "ranks' start and 17b",
+          "17d": "the ranks' steps beside 17a and the one-card sides of 17c "
+                 "and 17d, which ran beside them",
+          "18": "the ranks' prefill and decode beside phase 16"}
+# 17d: the SSM mixers split by heads over ``model``: rwkv6-3b at published
+# widths, 1 layer, and zamba2-2.7b at 6 layers (one group and its shared
+# block), 2 x 512 tokens, one megatron step each (8 x 512 of zamba2 peaks at
+# 40.9 GB a rank before the split: too much for four ranks on one card).
+MESH_SSM = ({"arch": "rwkv6-3b", "n_layers": 1, "batch": 2, "seq": 512,
+             "steps": 1, "peak_lr": 1e-3},
+            {"arch": "zamba2-2.7b", "n_layers": 6, "batch": 2, "seq": 512,
+             "steps": 1, "peak_lr": 1e-3})
+# In bf16 one card's own first gradients of zamba2's Mamba-2 leaves part by
+# 27-49% between one and two microbatches (relative Frobenius, H100), too
+# wide to hold the split by: zamba2's step again at float32 compute, at
+# 2 x 128, where every leaf must be held (``hold_all``) and the floor is
+# 2^-7 (its worst leaf read 1.1e-3 at 2 x 256, H100).
+MESH_SSM_F32 = {"arch": "zamba2-2.7b", "n_layers": 6, "batch": 2, "seq": 128,
+                "steps": 1, "peak_lr": 1e-3, "float32": True,
+                "hold_all": True, "grad_floor": 2.0 ** -7}
+SSM_CHECKS = MESH_SSM + (MESH_SSM_F32,)
+# 17d's first gradients against one card's, leaf by leaf (AdamW's m after
+# the step): each leaf within MESH_LM_MARGIN times one card's own spread
+# between one and two microbatches, and at least 2^-4 (relative Frobenius;
+# a plan's "grad_floor" where it gives one).
+# A leaf is held where that bound is below SSM_GRAD_HELD, so that a
+# gradient left at zero (1.0) or reversed (2.0) exceeds it; a leaf whose own
+# spread is wider is printed as not held.
+SSM_GRAD_FLOOR = 2.0 ** -4
+SSM_GRAD_HELD = 0.5
 
 
 def lm_tcfg(cfg_kw: dict, microbatches: int = 1):
@@ -4292,8 +4400,7 @@ def tally_lines(label: str, counts: dict, model_group: tuple,
            "relayout": total(lambda k: " relayout " in k),
            "model_weight_gathers": sorted(
                k for k in counts if k.startswith("all_gather")
-               and k.endswith(tag) and " weights" in k
-               and "mixer weights" not in k)}
+               and k.endswith(tag) and " weights" in k)}
     for part in ("all", "weights", "weights_grad", "relayout"):
         c = out[part]
         print(f"{label} collectives {part}: {c['calls']} calls, "
@@ -4404,6 +4511,7 @@ def one_card_runs(dev, plan: dict, root: Path) -> dict:
     out = {}
     for mode in MESH_LM_MODES:
         act = sharding.activation_spec({"data": 2, "model": 2}, mode)
+        steps = data[:MESH_LM_STEPS[mode]]
         runs = {}
         for mb in (1, 2, 4):
             params = model.init_params(cfg, seed=0, device=dev)
@@ -4411,7 +4519,7 @@ def one_card_runs(dev, plan: dict, root: Path) -> dict:
             step = make_train_step(cfg, lm_tcfg(plan, mb), device=dev)
             mets, ms = [], []
             with layers.mesh_hooks(act):
-                for b in data:
+                for b in steps:
                     (params, opt, m), t_ = synced_ms(
                         lambda: step(params, opt, b))
                     mets.append({k: float(m[k]) for k in ("loss",
@@ -4425,7 +4533,7 @@ def one_card_runs(dev, plan: dict, root: Path) -> dict:
         mets1, final1, ms1 = runs[1]
         spread = {k: max(abs(runs[mb][0][s][k] - mets1[s][k])
                          / abs(mets1[s][k]) for mb in (2, 4)
-                         for s in range(len(data)))
+                         for s in range(len(steps)))
                   for k in ("loss", "grad_norm")}
         spread["params"] = max(update_err(runs[mb][1], final1, init)
                                for mb in (2, 4))
@@ -4442,10 +4550,15 @@ def one_card_runs(dev, plan: dict, root: Path) -> dict:
 def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
     """17b on one rank of the 2x2 gloo mesh (tensors on the card): per
     mode, the steps of ``plan`` from the seed's weights cut to the rank's
-    blocks, the last profiled on rank 0; the blocks' shapes against their
-    specs, the resident bytes, the peak memory, the gathered parameters
-    against the one-card run's (rank 0); then ``make_sync_fns``' top-k
-    push of this client's residual."""
+    blocks, megatron's last profiled on rank 0; the blocks' shapes against
+    their specs, the resident bytes, the peak memory, the parameters
+    against the one-card run's (:func:`leaf_sums`; the smoke's process
+    writes them under ``root``); then ``make_sync_fns``' top-k
+    push of this client's residual, 18b and 18d; then, once the smoke's
+    process has written ``PHASE16_DONE``, 17d; then, once it has written
+    ``MAIN_IDLE``, 17c (the seconds of each part, waits included).  A
+    block compared with one card's waits for the file the one-card side
+    writes."""
     import torch.distributed as dist
 
     from repro_torch.core import collectives
@@ -4459,23 +4572,26 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
     cfg = lm_mesh_config(plan)
     data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
                            plan["steps"], seed=1, kind="affine"))
-    out = {"rank": me, "modes": {}}
+    out = {"rank": me, "modes": {}, "seconds": {}}
+    t = time.perf_counter()
     for mode in MESH_LM_MODES:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         specs = param_layout(cfg, mesh, mode)
-        full = model.init_params(cfg, seed=0, device=dev)
-        params = sharding.shard_tree(full, specs, mesh)
-        init = model.leaves(full) if me == 0 else None
-        del full
+        params = sharding.shard_tree(model.init_params(cfg, seed=0,
+                                                       device=dev),
+                                     specs, mesh)
+        init = [x.to("cpu", copy=True) for x in model.leaves(params)]
         opt = adamw.init(params)
         step = make_train_step(cfg, lm_tcfg(plan), device=dev, mesh=mesh,
                                mode=mode)
         mets, ms, profile = [], [], None
+        steps = data[:MESH_LM_STEPS[mode]]
         with collectives.tally(by="group") as counts:
-            for i, b in enumerate(data):
+            for i, b in enumerate(steps):
                 dist.barrier()
-                if me == 0 and i == len(data) - 1:
+                if me == 0 and i == len(steps) - 1 \
+                        and mode == "megatron":
                     (params, opt, m), profile = mesh_profile(
                         lambda: step(params, opt, b))
                     ms.append(profile["wall_ms"])
@@ -4495,23 +4611,17 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
                     wrong.append(name)
         rec = {"metrics": mets, "step_ms": ms, "profile": profile,
                "wrong_shapes": wrong, "tally": step_tally(counts,
-                                                          len(data)),
+                                                          len(steps)),
                "model_group": tuple(dist.get_process_group_ranks(
                    mesh.get_group("model"))),
                "resident_bytes": tree_bytes(params, opt.m, opt.v),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        full = model.leaves(sharding.gather_tree(params, specs, mesh))
-        if me == 0:
-            path = Path(root) / f"{mode}.pt"
-            waited = time.perf_counter()
-            while not path.exists():        # the one-card side writes it
-                if time.perf_counter() - waited > MESH_TIMEOUT_S:
-                    raise TimeoutError(f"17b: no {path}")
-                time.sleep(0.1)
-            want = torch.load(path, map_location=dev)
-            rec["params_err"] = update_err(full, want, init)
-            del want
-        del params, opt, full, init
+        path = Path(root) / f"{mode}.pt"
+        wait_for(path, "17b")           # the one-card side writes it
+        want = torch.load(path, map_location=dev)
+        rec["params_err"] = sums_update_err(leaf_sums(
+            model.leaves(params), want, init, specs, mesh))
+        del params, opt, want, init
         torch.cuda.empty_cache()
         out["modes"][mode] = rec
     c = mesh.get_local_rank("data")
@@ -4520,10 +4630,35 @@ def mesh_lm_rank(mesh, dev, plan: dict, root: str, sync_spec) -> dict:
     out["sync"] = {n: sha(x) for n, x in synced.items()}
     del synced
     torch.cuda.empty_cache()
-    out["moe"] = mesh_moe_rank(mesh, dev)
-    torch.cuda.empty_cache()
-    out["serve"] = serve_mesh_rank(mesh, dev, SERVE_GLOO)
+    out["seconds"]["17b"] = time.perf_counter() - t
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.empty_cache()
+        out["seconds"][name] = time.perf_counter() - t0
+        return got
+
+    out["serve"] = timed("18b", lambda: serve_mesh_rank(mesh, dev,
+                                                        SERVE_GLOO))
+    out["serve_ssm"] = timed("18d", lambda: [serve_ssm_rank(mesh, dev, p)
+                                             for p in SERVE_SSM])
+    wait_for(Path(root) / PHASE16_DONE, "17d")
+    out["ssm"] = timed("17d", lambda: [mesh_ssm_rank(mesh, dev, p, root)
+                                       for p in SSM_CHECKS])
+    wait_for(Path(root) / MAIN_IDLE, "17c")
+    out["moe"] = timed("17c", lambda: mesh_moe_rank(mesh, dev))
     return out
+
+
+def wait_for(path: Path, what: str) -> None:
+    """Wait for the smoke's process to write ``path`` (at most
+    MESH_TIMEOUT_S)."""
+    waited = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - waited > MESH_TIMEOUT_S:
+            raise TimeoutError(f"{what}: no {path}")
+        time.sleep(0.1)
 
 
 def sync_residual(cfg, c: int, dev) -> dict:
@@ -4537,62 +4672,77 @@ def sync_residual(cfg, c: int, dev) -> dict:
                                       device=dev)}
 
 
-def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
-    """17b (see the module docstring)."""
-    import shutil
+def mesh_lm_start(dev, root: Path) -> dict:
+    """Start phase 17's four ranks (``mesh_lm_rank``) in a thread of this
+    process, before phase 16 (see PHASE16_DONE)."""
+    import threading
 
     from repro_torch.core import ps
     from repro_torch.launch.mesh import run_on_mesh
-    from repro_torch.train import sync
-
-    import threading
 
     root.mkdir(parents=True, exist_ok=True)
+    for name in (PHASE16_DONE, MAIN_IDLE):
+        (root / name).unlink(missing_ok=True)
+    box: dict = {"spec": ps.FilterSpec("topk", **TOPK),
+                 "t0": time.perf_counter()}
+
+    def ranks_run():
+        try:
+            box["ranks"] = run_on_mesh(
+                mesh_lm_rank, 2, 2, device=dev, backend="gloo",
+                args=(MESH_LM, str(root), box["spec"]),
+                timeout=MESH_TIMEOUT_S + 300)
+        except BaseException as e:      # re-raised by mesh_lm_gloo
+            box["error"] = e
+
+    # 17c's four ranks of ~13 GiB each share the card after 17b's: their
+    # allocators grow segments rather than cache fixed ones (set before
+    # they start).
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        box["thread"] = threading.Thread(target=ranks_run)
+        box["thread"].start()
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    return box
+
+
+def mesh_lm_gloo(dev, root: Path, card: str, box: dict,
+                 one: dict) -> dict:
+    """17b, 17c and 17d (see the module docstring): the one-process side
+    of 17c, the one-card side of 17d and the sync push's want, then
+    ``MAIN_IDLE`` for the ranks that :func:`mesh_lm_start` started
+    (``box``), their results against the one-card runs (``one``: 17b's)."""
+    import shutil
+
+    from repro_torch.train import sync
+
     t = time.perf_counter()
     moe_one = moe_one_process(dev)
-    phase("mesh-lm 17c one process", t)
+    phase("mesh-lm 17c one process (beside the ranks)", t)
+    t = time.perf_counter()
+    ssm_one = [ssm_one_card(dev, p, root) for p in SSM_CHECKS]
+    phase("mesh-lm 17d one card (beside the ranks)", t)
     cfg = lm_mesh_config(MESH_LM)
-    spec = ps.FilterSpec("topk", **TOPK)
+    spec = box["spec"]
     sent = [sync.filter_tree(sync_residual(cfg, c, dev), spec,
                              (MESH_SYNC_KEY, 17, c)) for c in range(2)]
     want_sync = {n: sha(sent[0][n] + sent[1][n]) for n in sent[0]}
     kept = int(sent[0]["embed"].ne(0).any(1).sum())
     del sent
     torch.cuda.empty_cache()
-    # The ranks start while this process runs the one-card side (rank 0
-    # waits for each mode's file); 17c's four ranks of ~13 GiB each share
-    # the card after 17b's: their allocators grow segments rather than
-    # cache fixed ones (set before they start).
+    (root / MAIN_IDLE).write_text("")
     t = time.perf_counter()
-    box: dict = {}
-
-    def ranks_run():
-        try:
-            box["ranks"] = run_on_mesh(
-                mesh_lm_rank, 2, 2, device=dev, backend="gloo",
-                args=(MESH_LM, str(root), spec), timeout=MESH_TIMEOUT_S)
-        except BaseException as e:      # re-raised below, in this thread
-            box["error"] = e
-
-    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        ranker = threading.Thread(target=ranks_run)
-        ranker.start()
-    finally:
-        if saved is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
-    try:
-        one = one_card_runs(dev, MESH_LM, root)
-        phase("mesh-lm 17b one card (beside the ranks)", t)
-    finally:
-        ranker.join()
+    box["thread"].join()
+    phase("mesh-lm the ranks' rest (17d's, 17c)", t)
     if "error" in box:
         raise box["error"]
     ranks = box["ranks"]
-    launched_s = time.perf_counter() - t
+    launched_s = time.perf_counter() - box["t0"]
     shutil.rmtree(root, ignore_errors=True)
     tokens = MESH_LM["batch"] * MESH_LM["seq"]
     summary = {}
@@ -4613,20 +4763,27 @@ def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
                 raise AssertionError(f"17b {mode}: rank {r}'s blocks "
                                      f"{rec['wrong_shapes']} off their specs")
         bad = {k: (err[k], bounds[k]) for k in err if err[k] > bounds[k]}
-        step_ms = statistics.median(recs[0]["step_ms"][1:])
+        step_ms = statistics.median(recs[0]["step_ms"][1:]
+                                    or recs[0]["step_ms"])
         summary[mode] = {
             "losses": [m["loss"] for m in recs[0]["metrics"]],
             "one_card_losses": [m["loss"] for m in want["metrics"]],
             "err": err, "spread": want["spread"], "bounds": bounds,
             "step_ms_rank0": recs[0]["step_ms"], "step_ms": step_ms,
-            "one_card_step_ms": statistics.median(want["step_ms"][1:]),
+            "one_card_step_ms": statistics.median(want["step_ms"][1:]
+                                                  or want["step_ms"]),
             "tokens_per_s": tokens / (step_ms / 1e3),
             "resident_bytes_by_rank": [r["resident_bytes"] for r in recs],
             "one_card_bytes": want["one_card_bytes"],
             "peak_gib_by_rank": [r["peak_gib"] for r in recs],
-            "profiled_step_ms": recs[0]["profile"]["wall_ms"], "card": card}
-        print(f"MESH-LM 17b {mode}: step {step_ms:.1f} ms (rank 0, median "
-              f"of steps 2-{MESH_LM['steps']}, the last profiled; one card "
+            "profiled_step_ms": recs[0]["profile"]["wall_ms"]
+            if recs[0]["profile"] else None, "card": card,
+            "beside": BESIDE["17b"]}
+        n = MESH_LM_STEPS[mode]
+        which = f"median of steps 2-{n}" if n > 1 else "its one step"
+        print(f"MESH-LM 17b {mode}: step {step_ms:.1f} ms (rank 0, {which}"
+              + (", the last profiled" if recs[0]["profile"] else "")
+              + "; one card "
               f"{summary[mode]['one_card_step_ms']:.1f} ms), "
               f"{summary[mode]['tokens_per_s']:.0f} tokens/s; loss "
               f"{err['loss']:.2e} (bound {bounds['loss']:.2e}), grad_norm "
@@ -4637,9 +4794,10 @@ def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
               f" GiB a rank against {want['one_card_bytes'] / 2**30:.3f} "
               f"on one card; peak "
               f"{max(summary[mode]['peak_gib_by_rank']):.2f} GiB a rank "
-              f"on {card}", flush=True)
-        summary[mode]["collectives"] = collective_totals(
-            f"17b {mode}", recs[0]["profile"], 4)
+              f"on {card}; {BESIDE['17b']}", flush=True)
+        if recs[0]["profile"]:          # megatron's last step
+            summary[mode]["collectives"] = collective_totals(
+                f"17b {mode}", recs[0]["profile"], 4)
         summary[mode]["tally"] = tally_lines(
             f"MESH-LM 17b {mode}", recs[0]["tally"], recs[0]["model_group"],
             "step")
@@ -4659,10 +4817,16 @@ def mesh_lm_gloo(dev, root: Path, card: str) -> dict:
     print(f"MESH-LM 17b make_sync_fns top-k push ({TOPK['k_rows']} + "
           f"{TOPK['random_rows']} rows; client 0 kept {kept} of "
           f"{cfg.padded_vocab}) equal to the one-process sum on all four "
-          f"ranks; run_on_mesh (17b, 17c and 18b) {launched_s:.1f} s",
+          f"ranks; run_on_mesh (17b, 17c, 17d, 18b and 18d) "
+          f"{launched_s:.1f} s; rank 0's parts "
+          f"{json.dumps(ranks[0]['seconds'])} s",
           flush=True)
     summary["17c"] = moe_check(moe_one, [r["moe"] for r in ranks], card)
-    return summary, [r["serve"] for r in ranks]
+    summary["17d"] = [ssm_check(p, one_, [r["ssm"][i] for r in ranks], card)
+                      for i, (p, one_) in enumerate(zip(SSM_CHECKS,
+                                                        ssm_one))]
+    return summary, {"18b": [r["serve"] for r in ranks],
+                     "18d": [r["serve_ssm"] for r in ranks]}
 
 
 def moe_block_inputs(cfg, dev):
@@ -4780,16 +4944,293 @@ def moe_check(one: dict, ranks: list, card: str) -> dict:
     return summary
 
 
-def mesh_lm_phase(dev, state16: dict, root: Path, card: str) -> dict:
-    """Phase 17: 17a, then 17b and 17c in one spawn of four ranks, which
-    also runs 18b's ranks (``serve_mesh_rank``, their results under
-    ``"18b ranks"``); each prints MESH-LM lines."""
+def leaf_sums(mine: list, want: list, base: list | None, specs,
+              mesh) -> torch.Tensor:
+    """(leaves, 2) float64: per leaf ||mine - want||^2 and ||want - base||^2
+    (``base`` None: ||want||^2), each rank its blocks (``mine``, ``base``)
+    against its blocks of the whole leaves ``want``, summed over the ranks.
+    Each element of a leaf is held by as many ranks as every other, so
+    ratios of these sums are the whole leaves' (nothing is gathered)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import model
+    from repro_torch.train import sharding
+
+    want = model.leaves(sharding.shard_tree(model.unflatten(specs, want),
+                                            specs, mesh))
+    sq = lambda a, b: float((a.double() - b.to(a.device).double())
+                            .square().sum())
+    sums = torch.tensor(
+        [[sq(x, w), sq(w, b) if b is not None
+          else float(w.double().square().sum())]
+         for x, w, b in zip(mine, want, base or [None] * len(mine))],
+        dtype=torch.float64)
+    dist.all_reduce(sums)
+    return sums
+
+
+def sums_update_err(sums: torch.Tensor) -> float:
+    """:func:`update_err` from :func:`leaf_sums`' rows."""
+    return max((float((a / b).sqrt()) for a, b in sums if b > 0),
+               default=0.0)
+
+
+def ssm_name(plan: dict) -> str:
+    """17d's name of a plan: its arch, and its compute dtype if not bf16."""
+    return plan["arch"] + (" float32" if plan.get("float32") else "")
+
+
+@contextlib.contextmanager
+def plan_dtype(plan: dict):
+    """The LM's compute dtype float32 inside, where ``plan`` asks for it."""
+    from repro_torch.models import layers
+    saved = layers.COMPUTE_DTYPE
+    if plan.get("float32"):
+        layers.COMPUTE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        layers.COMPUTE_DTYPE = saved
+
+
+def leaf_names(tree: dict, pre: str = "") -> list:
+    """The paths of ``tree``'s leaves in ``model.leaves``' order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(leaf_names(v, f"{pre}{k}/") if isinstance(v, dict)
+                   else [pre + k])
+    return out
+
+
+def leaf_errs(got: list, want: list) -> list:
+    """||got - want|| / ||want|| leaf by leaf (0 where both are 0)."""
+    return [float((g.float() - w.float()).norm()
+                  / w.float().norm().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def ssm_one_card(dev, plan: dict, root: Path) -> dict:
+    """17d's one-card side, run alone before the ranks start and freed:
+    the step(s) of ``plan`` from the seed's weights with one and two
+    microbatches (the one-card run's own spread: the loss, grad_norm and
+    parameters as 17b's, and AdamW's m after the step leaf by leaf), their
+    metrics, step ms, resident bytes and peak; the one-microbatch run's
+    final parameters and m saved under ``root`` for rank 0."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = lm_mesh_config(plan)
+    data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
+                           plan["steps"], seed=1, kind="affine"))
+    runs = {}
+    for mb in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(cfg, seed=0, device=dev)
+        opt = adamw.init(params)
+        mets, ms = [], []
+        with plan_dtype(plan):
+            step = make_train_step(cfg, lm_tcfg(plan, mb), device=dev)
+            for b in data:
+                (params, opt, m), t_ = synced_ms(lambda: step(params, opt,
+                                                              b))
+                mets.append({k: float(m[k]) for k in ("loss",
+                                                      "grad_norm")})
+                ms.append(t_)
+        runs[mb] = (mets, model.leaves(params), ms,
+                    torch.cuda.max_memory_allocated() / 2**30,
+                    tree_bytes(params, opt.m, opt.v), model.leaves(opt.m))
+        del params, opt
+        torch.cuda.empty_cache()
+    init = model.leaves(model.init_params(cfg, seed=0, device=dev))
+    mets1, final1, ms1, peak1, bytes1, m1 = runs[1]
+    spread = {k: max(abs(runs[2][0][s_][k] - mets1[s_][k])
+                     / abs(mets1[s_][k]) for s_ in range(len(data)))
+              for k in ("loss", "grad_norm")}
+    spread["params"] = update_err(runs[2][1], final1, init)
+    names = leaf_names(model.param_shapes(cfg))
+    by_leaf = {"grads": leaf_errs(runs[2][5], m1),
+               "params": [update_err([a], [b], [c]) for a, b, c in
+                          zip(runs[2][1], final1, init)]}
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / f"17d-{ssm_name(plan).replace(' ', '-')}.pt"
+    tmp = path.with_suffix(".pt.tmp")
+    torch.save({"params": [x.cpu() for x in final1],
+                "m": [x.cpu() for x in m1]}, tmp)
+    tmp.rename(path)
+    del runs, final1, init, m1
+    torch.cuda.empty_cache()
+    return {"metrics": mets1, "spread": spread, "step_ms": ms1,
+            "peak_gib": peak1, "one_card_bytes": bytes1, "names": names,
+            "spread_by_leaf": by_leaf}
+
+
+def mesh_ssm_rank(mesh, dev, plan: dict, root: str) -> dict:
+    """17d on one rank of the 2x2 gloo mesh: the megatron step(s) of
+    ``plan`` from the seed's weights cut to the rank's blocks; its
+    metrics, step ms, blocks' shapes against their specs, resident bytes,
+    peak memory and collectives by name and group; the parameters and
+    AdamW's m against the one-card run's, each rank its blocks against
+    theirs and the leaves' sums of squares summed over the ranks (the
+    leaves are not gathered: a leaf's elements are each held by as many
+    ranks, so the ratios are the whole leaves')."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import make_train_step, param_layout
+
+    cfg = lm_mesh_config(plan)
+    data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
+                           plan["steps"], seed=1, kind="affine"))
+    specs = param_layout(cfg, mesh, "megatron")
+    params = sharding.shard_tree(model.init_params(cfg, seed=0, device=dev),
+                                 specs, mesh)
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mets, ms = [], []
+    with plan_dtype(plan), collectives.tally(by="group") as counts:
+        step = make_train_step(cfg, lm_tcfg(plan), device=dev, mesh=mesh,
+                               mode="megatron")
+        for b in data:
+            dist.barrier()
+            (params, opt, m), t_ = synced_ms(lambda: step(params, opt, b))
+            mets.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            ms.append(t_)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wrong = [name for name, tree in (("params", params), ("m", opt.m),
+                                     ("v", opt.v))
+             for x, f, sp in zip(model.leaves(tree),
+                                 model.leaves(model.param_shapes(cfg)),
+                                 model.leaves(specs))
+             if tuple(x.shape) != sharding.local_shape(f.shape, sp, mesh)]
+    rec = {"metrics": mets, "step_ms": ms, "wrong_shapes": wrong,
+           "tally": step_tally(counts, len(data)), "peak_gib": peak,
+           "resident_bytes": tree_bytes(params, opt.m, opt.v),
+           "model_group": tuple(dist.get_process_group_ranks(
+               mesh.get_group("model")))}
+    path = Path(root) / f"17d-{ssm_name(plan).replace(' ', '-')}.pt"
+    wait_for(path, "17d")               # the one-card side writes it
+    want = torch.load(path, map_location=dev)
+    init = model.leaves(sharding.shard_tree(
+        model.init_params(cfg, seed=0, device=dev), specs, mesh))
+    rec["params_err"] = sums_update_err(leaf_sums(
+        model.leaves(params), want["params"], init, specs, mesh))
+    rec["grads_err"] = [float((a / b.clamp_min(1e-60)).sqrt()) for a, b in
+                        leaf_sums(model.leaves(opt.m), want["m"], None,
+                                  specs, mesh)]
+    del want, init, params, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_check(plan: dict, one: dict, recs: list, card: str) -> dict:
+    """17d (see the module docstring): the ranks' step against one card's,
+    by 17b's bounds, and its first gradients leaf by leaf (SSM_GRAD_FLOOR,
+    SSM_GRAD_HELD; every leaf where ``plan`` says ``hold_all``); MESH-LM
+    lines."""
+    cfg, name = lm_mesh_config(plan), ssm_name(plan)
+    bounds = {k: max(MESH_LM_MARGIN * one["spread"][k], MESH_LM_FLOOR[k])
+              for k in MESH_LM_FLOOR}
+    names, spreads = one["names"], one["spread_by_leaf"]
+    grads = {n: {"err": e, "spread": sp,
+                 "bound": max(MESH_LM_MARGIN * sp,
+                              plan.get("grad_floor", SSM_GRAD_FLOOR))}
+             for n, e, sp in zip(names, recs[0]["grads_err"],
+                                 spreads["grads"])}
+    held = {n: g for n, g in grads.items() if g["bound"] < SSM_GRAD_HELD}
+    loose = sorted(set(grads) - set(held))
+    widest = sorted(zip(spreads["params"], names), reverse=True)[:3]
+    err = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                  zip(recs[0]["metrics"], one["metrics"]))
+           for k in ("loss", "grad_norm")}
+    err["params"] = recs[0]["params_err"]
+    for r, rec in enumerate(recs):
+        if rec["metrics"] != recs[0]["metrics"]:
+            raise AssertionError(f"17d {name}: rank {r}'s metrics "
+                                 "differ from rank 0's")
+        if rec["wrong_shapes"]:
+            raise AssertionError(f"17d {name}: rank {r}'s blocks "
+                                 f"{rec['wrong_shapes']} off their specs")
+    label = f"MESH-LM 17d {name}"
+    summary = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "compute": "float32" if plan.get("float32") else "bfloat16",
+               "batch": plan["batch"], "seq": plan["seq"],
+               "losses": [m["loss"] for m in recs[0]["metrics"]],
+               "one_card_losses": [m["loss"] for m in one["metrics"]],
+               "err": err, "spread": one["spread"], "bounds": bounds,
+               "step_ms_by_rank": [r["step_ms"] for r in recs],
+               "one_card_step_ms": one["step_ms"],
+               "resident_bytes_by_rank": [r["resident_bytes"] for r in recs],
+               "one_card_bytes": one["one_card_bytes"],
+               "peak_gib_by_rank": [r["peak_gib"] for r in recs],
+               "one_card_peak_gib": one["peak_gib"], "card": card,
+               "grads_by_leaf": grads, "grads_not_held": loose,
+               "beside": BESIDE["17d"],
+               "params_spread_widest": [[n, x] for x, n in widest]}
+    worst = max(held, key=lambda n: held[n]["err"] / held[n]["bound"],
+                default=None)
+    print(f"{label} first gradients (AdamW's m) against one card's: "
+          f"{len(held)} of {len(grads)} leaves held, worst "
+          + (f"{worst} {held[worst]['err']:.2e} (bound "
+             f"{held[worst]['bound']:.2e})" if worst else "none")
+          + f"; not held (one card's own spread x {MESH_LM_MARGIN:g} "
+          f">= {SSM_GRAD_HELD}): "
+          + (", ".join(f"{n} {grads[n]['err']:.2e} (spread "
+                       f"{grads[n]['spread']:.2e})" for n in loose)
+             or "none")
+          + "; the widest spread of the update between 1 and 2 "
+          "microbatches: " + ", ".join(f"{n} {x:.2e}" for x, n in widest),
+          flush=True)
+    print(f"{label} ({cfg.n_layers} layers, {plan['batch']}x{plan['seq']}, "
+          f"megatron, 2x2 gloo): step {recs[0]['step_ms'][-1]:.1f} ms "
+          f"(rank 0; one card {one['step_ms'][-1]:.1f}); loss "
+          f"{err['loss']:.2e} (bound {bounds['loss']:.2e}), grad_norm "
+          f"{err['grad_norm']:.2e} (bound {bounds['grad_norm']:.2e}), "
+          f"params {err['params']:.2e} (bound {bounds['params']:.2e}) "
+          f"against one card; resident "
+          f"{max(summary['resident_bytes_by_rank']) / 2**30:.3f} GiB a rank "
+          f"against {one['one_card_bytes'] / 2**30:.3f} on one card; peak "
+          f"{max(summary['peak_gib_by_rank']):.2f} GiB a rank against "
+          f"{one['peak_gib']:.2f} on one card on {card}; "
+          f"{BESIDE['17d']}", flush=True)
+    summary["tally"] = tally_lines(label, recs[0]["tally"],
+                                   recs[0]["model_group"], "step")
+    print(f"{label} {json.dumps(summary)}", flush=True)
+    if summary["tally"]["model_weight_gathers"]:
+        raise AssertionError(f"17d {name}: weights gathered over the "
+                             f"model group: {summary['tally']}")
+    bad = {k: (err[k], bounds[k]) for k in err if err[k] > bounds[k]}
+    bad.update({f"grad {n}": (g["err"], g["bound"]) for n, g in held.items()
+                if not g["err"] <= g["bound"]})
+    if plan.get("hold_all") and loose:
+        bad["grads not held"] = loose
+    if bad:
+        raise AssertionError(f"17d {name}: {bad} beyond the bounds")
+    return summary
+
+
+def mesh_lm_phase(dev, state16: dict, root: Path, card: str, box: dict,
+                  one: dict) -> dict:
+    """Phase 17: 17a, then 17b, 17c and 17d from the four ranks that
+    :func:`mesh_lm_start` started before phase 16 (``box``; ``one``: 17b's
+    one-card side), which also run 18b's and 18d's ranks
+    (``serve_mesh_rank``, ``serve_ssm_rank``; their results under ``"18
+    ranks"``); each prints MESH-LM lines."""
     t = time.perf_counter()
     out = {"17a": mesh_lm_world1(dev, state16, card)}
     state16.clear()
     torch.cuda.empty_cache()
-    phase("mesh-lm 17a", t)
-    out["17b"], out["18b ranks"] = mesh_lm_gloo(dev, root, card)
+    phase("mesh-lm 17a (beside the ranks)", t)
+    out["17b"], out["18 ranks"] = mesh_lm_gloo(dev, root, card, box, one)
     return out
 
 
@@ -4809,23 +5250,37 @@ SERVE_GLOO = {"arch": "smollm-360m", "n_layers": 8, "batch": 8, "seq": 512,
 # whole at use (H100, 700 W, before the tensor-parallel products): the
 # megatron decode step must now move fewer.
 DECODE_BYTES_BEFORE = 346_283_520
+# 18d: 17d's two models served: prefill 2 x 512 and 3 decode steps under
+# megatron, a cache of 516 (zamba2's shared K/V sequence split over
+# ``model``).
+SERVE_SSM = tuple({"arch": p["arch"], "n_layers": p["n_layers"],
+                   "batch": 2, "seq": 512, "decode": 3, "max_len": 516}
+                  for p in MESH_SSM)
+# 18d's decode bytes in a step a rank: before the split (the mixers'
+# weights and the SSM states gathered at use) and as
+# ``tools/torch_mesh_tally.py --kind decode --batch 2 --seq 516`` counts
+# them on a fake 2x2 group.
+SERVE_SSM_BEFORE = {"rwkv6-3b": 79_939_072, "zamba2-2.7b": 242_857_216}
+SERVE_SSM_PREDICTED = {"rwkv6-3b": 193_236, "zamba2-2.7b": 323_320}
 # 18c: one workload of the pod dry run, in a process of its own.
 SERVE_DRY = ("smollm-360m", "decode_32k")
 DRYRUN_TIMEOUT_S = 300
 
 
 def serve_run(cfg, params, tokens, s: int, n: int, mesh=None,
-              mode: str = "megatron", b: int | None = None) -> dict:
+              mode: str = "megatron", b: int | None = None,
+              max_len: int | None = None) -> dict:
     """Prefill of ``tokens[:, :s]`` then ``n`` decode steps fed the next
     tokens (on ``mesh``: the rank's rows of the global batch of ``b``
-    rows, in the serve layout, the prefill under ``mode``): each call's
-    logits on the host, the final cache, each step's ms closed by a sync,
-    and the decode steps' collectives by kind (``collectives.tally``)."""
+    rows, in the serve layout, the prefill under ``mode``) into a cache of
+    ``max_len`` (by default s + n): each call's logits on the host, the
+    final cache, each step's ms closed by a sync, and the decode steps'
+    collectives by kind (``collectives.tally``)."""
     from repro_torch.core import collectives
     from repro_torch.models import model
     from repro_torch.train import sharding
 
-    max_len = s + n
+    max_len = max_len or s + n
     prompt = tokens[:, :s]
 
     def rows(t, m):
@@ -4994,7 +5449,8 @@ def serve_gloo(dev, card: str, ranks: list) -> dict:
     torch.cuda.empty_cache()
     per = b // 2
     summary = {"arch": cfg.name, "n_layers": plan["n_layers"], "batch": b,
-               "prefill": s, "decode_steps": n, "card": card}
+               "prefill": s, "decode_steps": n, "card": card,
+               "beside": BESIDE["18"]}
     for mode in ("megatron", "zero_seq"):
         calls = len(ranks[0][mode]["logits"])
         full = []
@@ -5040,7 +5496,7 @@ def serve_gloo(dev, card: str, ranks: list) -> dict:
               f"every rank's K/V cache of local_shape's shapes; resident "
               f"{max(summary[mode]['resident_bytes_by_rank']) / 2**30:.3f} "
               f"GiB a rank against {one_bytes / 2**30:.3f} on one card on "
-              f"{card}", flush=True)
+              f"{card}; {BESIDE['18']}", flush=True)
         if rec["decode_ms"]:
             totals = tally_lines(f"SERVE-MESH 18b {mode} decode", coll,
                                  ranks[0]["model_group"], "step")
@@ -5056,6 +5512,128 @@ def serve_gloo(dev, card: str, ranks: list) -> dict:
         "SERVE-MESH 18b serve_params (once)", ranks[0]["relayout"],
         ranks[0]["model_group"], "call")["relayout"]
     print(f"SERVE-MESH 18b {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def serve_ssm_rank(mesh, dev, plan: dict) -> dict:
+    """18d on one rank of the 2x2 gloo mesh: the seed's weights in bf16
+    cut to the rank's serve blocks and re-laid (``serve_params``); a
+    megatron prefill and ``plan``'s decode steps; each call's logits (the
+    rank's rows), every cache leaf's shape against ``local_shape``, decode
+    ms and collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.models import model
+    from repro_torch.train import sharding
+
+    cfg = serve_gloo_config(plan)
+    b, s, n, max_len = (plan[k] for k in ("batch", "seq", "decode",
+                                          "max_len"))
+    full = model.map_tree(lambda t_: t_.to(torch.bfloat16),
+                          model.init_params(cfg, seed=0, device=dev))
+    params = model.serve_params(cfg, sharding.shard_tree(
+        full, model.serve_param_specs(cfg, mesh), mesh), mesh)
+    del full
+    tokens = lm_inputs(cfg, b, s + 64, 3, dev)["tokens"]
+    dist.barrier()
+    run = serve_run(cfg, params, tokens, s, n, mesh, "megatron", b, max_len)
+    layout = model.cache_layout(cfg, mesh, b, max_len)
+    shapes = model.cache_shapes(cfg, b, max_len)
+    wrong = []
+    sharding.map_with_path(
+        lambda p, x: None if tuple(x.shape) == sharding.local_shape(
+            model.specs_at(shapes, p).shape, model.specs_at(layout, p), mesh)
+        else wrong.append("/".join(p)), run["cache"])
+    out = {"rank": dist.get_rank(), "data": mesh.get_local_rank("data"),
+           "model_group": tuple(dist.get_process_group_ranks(
+               mesh.get_group("model"))),
+           "logits": run["logits"], "wrong_shapes": wrong,
+           "prefill_ms": run["prefill_ms"], "decode_ms": run["decode_ms"],
+           "collectives": run["collectives"],
+           "resident_bytes": tree_bytes(params, run["cache"])}
+    del params, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_ssm_check(dev, card: str, plan: dict, ranks: list) -> dict:
+    """18d (see the module docstring): the ranks' results against the same
+    calls on one card; SERVE-MESH lines."""
+    from repro_torch.models import model
+
+    cfg = serve_gloo_config(plan)
+    b, s, n, max_len = (plan[k] for k in ("batch", "seq", "decode",
+                                          "max_len"))
+    params = model.map_tree(lambda t_: t_.to(torch.bfloat16),
+                            model.init_params(cfg, seed=0, device=dev))
+    tokens = lm_inputs(cfg, b, s + 64, 3, dev)["tokens"]
+    one = serve_run(cfg, params, tokens, s, n, max_len=max_len)
+    one_bytes = tree_bytes(params, one["cache"])
+    del params
+    torch.cuda.empty_cache()
+    per = b // 2
+    full = []
+    for i in range(1 + n):
+        rows = [None, None]
+        for r in ranks:
+            got = r["logits"][i]
+            d = r["data"]
+            if rows[d] is not None and not torch.equal(rows[d], got):
+                raise AssertionError(f"18d {cfg.name}: the model ranks of "
+                                     f"data {d} differ at call {i}")
+            rows[d] = got
+        full.append(torch.cat(rows))
+    for r in ranks:
+        if r["wrong_shapes"]:
+            raise AssertionError(f"18d {cfg.name}: rank {r['rank']}'s "
+                                 f"cache {r['wrong_shapes']} off local_shape")
+    check = serve_rows_check(f"18d {cfg.name}", torch.stack(full),
+                             torch.stack(one["logits"]))
+    rec = ranks[0]
+    coll = step_tally(rec["collectives"], n)
+    label = f"SERVE-MESH 18d {cfg.name}"
+    summary = dict(check, arch=cfg.name, n_layers=cfg.n_layers, batch=b,
+                   prefill=s, decode_steps=n, cache=max_len,
+                   rows_a_rank=per, prefill_ms=rec["prefill_ms"],
+                   decode_ms=rec["decode_ms"],
+                   one_card_prefill_ms=one["prefill_ms"],
+                   one_card_decode_ms=one["decode_ms"],
+                   collectives_a_step=coll,
+                   resident_bytes_by_rank=[r["resident_bytes"]
+                                           for r in ranks],
+                   one_card_bytes=one_bytes, card=card,
+                   beside=BESIDE["18"])
+    print(f"{label} {cfg.n_layers} layers, 2x2 gloo, megatron: prefill "
+          f"{b}x{s} {rec['prefill_ms']:.1f} ms (one card "
+          f"{one['prefill_ms']:.1f}), decode "
+          f"{statistics.median(rec['decode_ms'][1:]):.1f} ms a step (rank "
+          f"0, median after 1 of {n}; one card "
+          f"{statistics.median(one['decode_ms'][1:]):.1f}); logits against "
+          f"one card: largest gap {check['max_rel_gap']:.2e} of a row's "
+          f"range (bound {DECODE_GAP}), min corr {check['min_corr']:.6f}, "
+          f"{check['argmax_flips']} argmax flips of {b * (1 + n)} rows; "
+          f"every rank's cache leaves of local_shape's shapes; resident "
+          f"{max(summary['resident_bytes_by_rank']) / 2**30:.3f} GiB a rank "
+          f"against {one_bytes / 2**30:.3f} on one card on {card}; "
+          f"{BESIDE['18']}", flush=True)
+    totals = tally_lines(f"{label} decode", coll, rec["model_group"], "step")
+    summary["decode_totals"] = totals
+    summary["predicted_bytes"] = SERVE_SSM_PREDICTED[cfg.name]
+    summary["bytes_before"] = SERVE_SSM_BEFORE[cfg.name]
+    print(f"{label} decode bytes in a step a rank {totals['all']['bytes']}"
+          f" (predicted by tools/torch_mesh_tally.py "
+          f"{SERVE_SSM_PREDICTED[cfg.name]}; before the split "
+          f"{SERVE_SSM_BEFORE[cfg.name]})", flush=True)
+    print(f"{label} {json.dumps(summary)}", flush=True)
+    moved = [k for k in coll if " weights" in k or " relayout " in k
+             or "decode state" in k]
+    if moved:
+        raise AssertionError(f"18d {cfg.name}: a decode step moved weights "
+                             f"or an SSM state: {moved}")
+    if totals["all"]["bytes"] != SERVE_SSM_PREDICTED[cfg.name]:
+        raise AssertionError(f"18d {cfg.name}: {totals['all']['bytes']} B "
+                             "a decode step a rank, not the "
+                             f"{SERVE_SSM_PREDICTED[cfg.name]} predicted")
     return summary
 
 
@@ -5107,17 +5685,22 @@ def serve_dry_run_check(started, card: str) -> dict:
     return rec
 
 
-def serve_mesh_phase(dev, params_host: dict, ranks18: list, dry,
+def serve_mesh_phase(dev, params_host: dict, ranks18: dict, dry,
                      card: str) -> dict:
-    """Phase 18: 18a, 18b's check of its ranks' results (run in phase
-    17's spawn), then 18c's record (``dry``: its process, started before
-    phase 17); SERVE-MESH lines."""
+    """Phase 18: 18a, 18b's and 18d's checks of their ranks' results (run
+    in phase 17's spawn), then 18c's record (``dry``: its process, started
+    before phase 17); SERVE-MESH lines."""
     t = time.perf_counter()
     out = {"18a": serve_world1(dev, params_host, card)}
     phase("serve-mesh 18a", t)
     t = time.perf_counter()
-    out["18b"] = serve_gloo(dev, card, ranks18)
+    out["18b"] = serve_gloo(dev, card, ranks18["18b"])
     phase("serve-mesh 18b (its one-card side and checks)", t)
+    t = time.perf_counter()
+    out["18d"] = [serve_ssm_check(dev, card, p, [r[i] for r in
+                                                 ranks18["18d"]])
+                  for i, p in enumerate(SERVE_SSM)]
+    phase("serve-mesh 18d (its one-card side and checks)", t)
     t = time.perf_counter()
     out["18c"] = serve_dry_run_check(dry, card)
     phase("serve-mesh 18c (the rest of its wait)", t)
@@ -5403,30 +5986,44 @@ def main() -> int:
     phase("mesh-gloo", t2)
     phase("mesh", t)
 
-    # --------------------------------------------------------- phase 16
-    t = time.perf_counter()
-    torch.cuda.empty_cache()
-    state16: dict = {}
-    lm_phase(dev, ROOT / "build" / "phase16", card, state16)
-    phase("lm", t)
-
-    # ------------------------------------------------------ phases 17, 18
-    # 18c's dry run needs no card: its process runs beside phase 17.
-    dry = serve_dry_run_start()
+    # ------------------------------------------------- phases 16, 17, 18
+    # Phase 17's four ranks start first (see PHASE16_DONE; the time limit):
+    # 17b's one-card side and phase 16 run beside their start, 17b, 18b and
+    # 18d, and 17a and the one-card sides of 17c and 17d beside their 17d;
+    # 17c has the card alone.  18c's dry run needs no card: its process
+    # runs beside phase 17.
+    root17 = ROOT / "build" / "phase17"
+    box = mesh_lm_start(dev, root17)
+    dry = None
     try:
         t = time.perf_counter()
         torch.cuda.empty_cache()
+        one17 = one_card_runs(dev, MESH_LM, root17)
+        phase("mesh-lm 17b one card (beside the ranks)", t)
+        t = time.perf_counter()
+        state16: dict = {}
+        lm_phase(dev, ROOT / "build" / "phase16", card, state16)
+        torch.cuda.empty_cache()
+        (root17 / PHASE16_DONE).write_text("")
+        phase("lm (beside the ranks)", t)
+        dry = serve_dry_run_start()
+        t = time.perf_counter()
         params16 = state16["params"]          # 16a's final state, for 18a
-        lm17 = mesh_lm_phase(dev, state16, ROOT / "build" / "phase17", card)
+        lm17 = mesh_lm_phase(dev, state16, root17, card, box, one17)
         del state16
         phase("mesh-lm", t)
         t = time.perf_counter()
         torch.cuda.empty_cache()
-        serve_mesh_phase(dev, params16, lm17["18b ranks"], dry, card)
+        serve_mesh_phase(dev, params16, lm17["18 ranks"], dry, card)
         del params16, lm17
         phase("serve-mesh", t)
     finally:
-        if dry[0].poll() is None:
+        if box["thread"].is_alive():     # never leave the ranks waiting
+            root17.mkdir(parents=True, exist_ok=True)
+            for name in (PHASE16_DONE, MAIN_IDLE):
+                (root17 / name).write_text("")
+            box["thread"].join()
+        if dry is not None and dry[0].poll() is None:
             dry[0].kill()
             dry[0].communicate()
 

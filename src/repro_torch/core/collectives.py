@@ -357,55 +357,125 @@ def _partition(ranges: list, n: int) -> bool:
     return at == n
 
 
-def _exchange(x: torch.Tensor, send_dim: int, send: list, recv_dim: int,
-              recv: list, full: int, group, what: str) -> torch.Tensor:
-    """One ``all_to_all_single``: rank j gets ``x`` narrowed to ``send[j]``
-    along ``send_dim``; the pieces this rank gets, rank i's holding
-    ``recv[i]`` along ``recv_dim``, are put together along it (whose whole
-    is ``full``): concatenated where the ranges cut it in order, else
-    summed into zeros (a slice several ranks held)."""
-    me = dist.get_rank(group)
-    pieces = [x.narrow(send_dim, lo, hi - lo).reshape(-1) for lo, hi in send]
-    buf = torch.cat(pieces)
+def one_each(ranges) -> list:
+    """Parts of one range a rank, as :func:`relayout` and
+    :func:`gather_ranges` take them."""
+    return [((lo, hi),) for lo, hi in ranges]
+
+
+def span_len(sp) -> int:
+    """The positions a part (a tuple of ranges) holds."""
+    return sum(hi - lo for lo, hi in sp)
+
+
+def _meet(have: tuple, want: tuple) -> list:
+    """The global ranges of ``want`` that ``have`` holds, in ``want``'s
+    order (then ``have``'s)."""
+    out = []
+    for wlo, whi in want:
+        for hlo, hhi in have:
+            lo, hi = max(wlo, hlo), min(whi, hhi)
+            if hi > lo:
+                out.append((lo, hi))
+    return out
+
+
+def _local(ranges: list, sp: tuple) -> list:
+    """Global ``ranges``, each inside one range of ``sp``, as positions in
+    the concatenation of ``sp``'s ranges."""
+    out = []
+    for lo, hi in ranges:
+        at = 0
+        for slo, shi in sp:
+            if slo <= lo and hi <= shi:
+                out.append((at + lo - slo, at + hi - slo))
+                break
+            at += shi - slo
+    return out
+
+
+def _take(x: torch.Tensor, dim: int, ranges: list) -> torch.Tensor:
+    """``x``'s positions ``ranges`` along ``dim``, concatenated."""
+    parts = [x.narrow(dim, lo, hi - lo) for lo, hi in ranges]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts, dim) if parts else x.narrow(dim, 0, 0)
+
+
+def _place(parts: list, dim: int, where: list, full: int) -> torch.Tensor:
+    """The tensor of ``full`` positions along ``dim`` whose positions
+    ``where[i]`` (ranges) hold ``parts[i]``'s, concatenated: the parts
+    concatenated where their ranges cut [0, full) in order, else summed
+    into zeros part by part (a position several parts hold)."""
+    if _partition([r for w in where for r in w], full):
+        return torch.cat(parts, dim)
+    shape = list(parts[0].shape)
+    shape[dim] = full
+    acc = parts[0].new_zeros(shape)
+    for p, w in zip(parts, where):
+        at = 0
+        for lo, hi in w:
+            acc.narrow(dim, lo, hi - lo).add_(p.narrow(dim, at, hi - lo))
+            at += hi - lo
+    return acc
+
+
+def _exchange(x: torch.Tensor, have: tuple, want: tuple, full: int, group,
+              what: str) -> torch.Tensor:
+    """One ``all_to_all_single``.  ``have`` = (dim, each rank's spans):
+    the global positions along dim that each rank's ``x`` holds, in order;
+    ``want`` = (dim', each rank's spans): the positions along dim' each
+    rank is to get, in order.  Where dim' is another dim (``x`` whole
+    along it), rank j gets every rank's block narrowed to its spans along
+    dim', put together along dim (``full`` positions); where it is the
+    same dim, rank j gets the positions of its spans that each rank
+    holds.  A position several ranks send is summed."""
+    n, me = group_size(group), dist.get_rank(group)
+    (hd, hs), (wd, ws) = have, want
+    if hd != wd:
+        pieces = [_take(x, wd, list(ws[j])) for j in range(n)]
+        lens = [span_len(hs[i]) for i in range(n)]
+        where, at, size = [hs[i] for i in range(n)], hd, full
+    else:
+        pieces = [_take(x, hd, _local(_meet(hs[me], ws[j]), hs[me]))
+                  for j in range(n)]
+        meets = [_meet(hs[i], ws[me]) for i in range(n)]
+        lens = [span_len(m) for m in meets]
+        where, at, size = [_local(m, ws[me]) for m in meets], hd, \
+            span_len(ws[me])
     shapes = []
-    for lo, hi in recv:
+    for i in range(n):
         s = list(x.shape)
-        s[send_dim] = send[me][1] - send[me][0]
-        s[recv_dim] = hi - lo
+        s[wd] = span_len(ws[me])
+        s[hd] = lens[i]
         shapes.append(s)
+    buf = torch.cat([p.reshape(-1) for p in pieces])
+    splits_in = [p.numel() for p in pieces]
+    del pieces
     splits_out = [math.prod(s) for s in shapes]
     out = buf.new_empty((sum(splits_out),))
     with record_function(_span("all_to_all", what, buf, group,
                                out.numel() * out.element_size())):
-        dist.all_to_all_single(out, buf, splits_out,
-                               [p.numel() for p in pieces], group=group)
-    del buf, pieces
+        dist.all_to_all_single(out, buf, splits_out, splits_in, group=group)
+    del buf
     parts = [t.reshape(s) for t, s in zip(out.split(splits_out), shapes)]
-    if _partition(recv, full):
-        return torch.cat(parts, dim=recv_dim)
-    s = list(shapes[0])
-    s[recv_dim] = full
-    acc = out.new_zeros(s)
-    for (lo, hi), p in zip(recv, parts):
-        acc.narrow(recv_dim, lo, hi - lo).add_(p)
-    return acc
+    return _place(parts, at, where, size)
 
 
 class _Relayout(torch.autograd.Function):
     """:func:`relayout`; backward the same exchange the other way, the
-    gradients of a slice several ranks held summed."""
+    gradients of a position several ranks held summed."""
 
     @staticmethod
     def forward(ctx, x, group, what, src, dst):
         ctx.group, ctx.what, ctx.src, ctx.dst = group, what, src, dst
         ctx.full = x.shape[dst[0]]
-        (sd, sr), (dd, dr) = src, dst
-        return _exchange(x, dd, dr, sd, sr, sr[-1][1], group, what)
+        full = max((hi for sp in src[1] for _, hi in sp), default=0)
+        return _exchange(x, src, dst, full, group, what)
 
     @staticmethod
     def backward(ctx, g):
-        (sd, sr), (dd, dr) = ctx.src, ctx.dst
-        return (_exchange(g.contiguous(), sd, sr, dd, dr, ctx.full,
+        return (_exchange(g.contiguous(), ctx.dst, ctx.src, ctx.full,
                           ctx.group, ctx.what + " grad"),
                 None, None, None, None)
 
@@ -413,17 +483,22 @@ class _Relayout(torch.autograd.Function):
 def relayout(x: torch.Tensor, group, src: tuple, dst: tuple,
              what: str = "") -> torch.Tensor:
     """``x`` moved from one split over ``group`` to another: ``src`` =
-    (dim, ranges) says which slice of ``dim`` each rank holds (ranges in
-    rank order that cut the dim in order; ``x`` whole along the other
-    dims), ``dst`` = (dim', ranges') which slice of ``dim'`` each rank is
-    to hold (the ranges may overlap or be empty; the result whole along
-    ``dim``).  One ``all_to_all`` with uneven splits: a rank sends each
-    peer that peer's slice of its block and receives its own slice of
-    every peer's.  Differentiable."""
+    (dim, parts) says which positions of ``dim`` each rank's ``x`` holds
+    (a part a rank, in rank order: a tuple of ranges (lo, hi), concatenated,
+    :func:`one_each` where a rank holds one; the parts cutting the dim;
+    ``x`` whole along the other dims), ``dst``
+    = (dim', parts') which positions of ``dim'`` each rank is to hold, in
+    the order of its ranges (they may overlap other ranks' or be empty;
+    the result whole along ``dim`` where dim' is another dim).  One
+    ``all_to_all`` with uneven splits: a rank sends each peer the
+    positions of its block that peer is to hold and receives its own from
+    every peer.  Differentiable: backward the exchange the other way, the
+    gradients of a position several ranks held summed."""
     if group_size(group) == 1:
         return x
-    return _Relayout.apply(x, group, what, (src[0], tuple(src[1])),
-                           (dst[0], tuple(dst[1])))
+    return _Relayout.apply(x, group, what,
+                           (src[0], tuple(tuple(p) for p in src[1])),
+                           (dst[0], tuple(tuple(p) for p in dst[1])))
 
 
 def owned(ranges: list) -> list:
@@ -441,28 +516,35 @@ def owned(ranges: list) -> list:
 @torch.no_grad()
 def gather_ranges(xs: list, group, what: str = "") -> list:
     """The wholes of tensors split over ``group`` as ``relayout``'s result
-    is: ``xs`` = [(x, dim, ranges)], rank r holding ``ranges[r]`` of
-    ``dim`` (sorted, covering the dim, possibly overlapping); one
-    ``all_gather`` of every tensor's block, padded to the longest range;
-    an index several ranks held is taken from the first."""
+    is: ``xs`` = [(x, dim, parts)], rank r holding ``parts[r]`` of ``dim``
+    (a tuple of ranges, concatenated, as :func:`relayout` takes it;
+    together covering the dim, possibly overlapping); one ``all_gather``
+    of every tensor's block, padded to the longest part; a position
+    several ranks held is taken from the first."""
     if not xs or group_size(group) == 1:
         return [x for x, _, _ in xs]
     flat, shapes = [], []
-    for x, dim, ranges in xs:
-        longest = max(hi - lo for lo, hi in ranges)
+    for x, dim, parts in xs:
+        longest = max(span_len(sp) for sp in parts)
         pad = list(x.shape)
         pad[dim] = longest - x.shape[dim]
         shapes.append(x.shape[:dim] + (longest,) + x.shape[dim + 1:])
         flat.append(torch.cat([x, x.new_zeros(pad)], dim).reshape(-1))
-    parts = all_gather(torch.cat(flat), group, what)
+    got = all_gather(torch.cat(flat), group, what)
     out = []
     at = 0
-    for (x, dim, ranges), shape in zip(xs, shapes):
+    for (x, dim, parts), shape in zip(xs, shapes):
         size = math.prod(shape)
-        whole = []
-        for p, (lo, hi), (lo2, hi2) in zip(parts, ranges, owned(ranges)):
+        whole = list(shape)
+        whole[dim] = max(hi for sp in parts for _, hi in sp)
+        acc = x.new_zeros(whole)
+        for p, sp in reversed(list(zip(got, parts))):  # the first one wins
             blk = p[at:at + size].reshape(shape)
-            whole.append(blk.narrow(dim, lo2 - lo, hi2 - lo2))
-        out.append(torch.cat(whole, dim))
+            pos = 0
+            for lo, hi in sp:
+                acc.narrow(dim, lo, hi - lo).copy_(blk.narrow(dim, pos,
+                                                              hi - lo))
+                pos += hi - lo
+        out.append(acc)
         at += size
     return out

@@ -24,8 +24,8 @@ program: torch has no HLO.  So the reference's HLO-only fields
 Under megatron the port splits the block products over ``model`` as
 XLA splits the reference's (``layers.tensor_parallel``), with collectives
 of its own choosing (a re-layout of each weight to its compute split, the
-activations' sums), so the bytes are the port's; the SSM mixers' weights
-are still gathered whole over ``model``.
+activations' sums), so the bytes are the port's; the SSM mixers too are
+split by heads, their served states kept in place.
 """
 
 from __future__ import annotations

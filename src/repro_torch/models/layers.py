@@ -40,14 +40,19 @@ Weight layout notes:
   groups (rank r takes heads [⌈rH/m⌉, ⌈(r+1)H/m⌉)), its K/V heads those
   its query heads read (a KV head shared by two ranks' heads is computed on
   both), the MLPs' d_ff, the MoE's experts (E dividing m) else their d_ff,
-  the tables' vocabulary.  :func:`block_params` turns a layer's storage
-  blocks into these: gathered over the batch axes as before, then moved
-  from the storage split to the compute split by one all-to-all a leaf
+  the tables' vocabulary, the SSM mixers' heads (RWKV-6's and Mamba-2's
+  projections by their heads' channels, Mamba-2's B and C on every rank,
+  RWKV-6's channel mix by d_ff, the decay LoRA by its columns).
+  :func:`block_params` turns a layer's storage blocks into these:
+  gathered over the batch axes as before, then moved from the storage
+  split to the compute split by one all-to-all a leaf
   (:func:`collectives.relayout`); no such leaf is gathered whole over
   ``model``.  A block's replicated input enters its split products through
   ``collectives.all_reduce_grad`` (Megatron's "f") and the row-parallel
   partial sums leave through ``collectives.all_reduce_value`` ("g") as
-  float32, rounded once after the sum (:func:`row_parallel`).  Off a mesh
+  float32, rounded once after the sum (:func:`row_parallel`); a norm
+  over channels split so completes its sum of squares over ``model``
+  (:func:`rms_norm_split`).  Off a mesh
   and at one model rank the blocks run the code they ran before, bit for
   bit.
 - Serving over a mesh (``model.serve_hooks``) sets the same hooks with no
@@ -344,27 +349,63 @@ def leaf_layout(cfg: ModelConfig, path: tuple, m: int):
     """(dim counted from the end, each rank's range) of the compute split
     over ``m`` model ranks of the leaf at ``path`` (its keys; a layer's
     tree, or a whole parameter tree, stacked leaves included), or None
-    where the leaf's products are not split (norms, the router, the SSM
-    mixers, the projector)."""
+    where the leaf's products are not split (norms, the router, the token
+    shifts' mixes, the projector).  A rank's part is a tuple of ranges, as
+    ``collectives.relayout`` takes it: one range, save Mamba-2's ``w_in``
+    (its heads' z, x and dt columns and all of B and C)."""
     name = path[-1]
     parent = path[-2] if len(path) > 1 else None
+    if parent in ("tmix", "cmix", "mamba"):
+        return _mixer_layout(cfg, parent, name, m)
     if parent in ("attn", "xattn"):
-        heads = split_ranges(cfg.n_heads, m)
-        kvs = kv_ranges(cfg.n_heads, cfg.n_kv_heads, m)
+        heads = collectives.one_each(split_ranges(cfg.n_heads, m))
+        kvs = collectives.one_each(kv_ranges(cfg.n_heads, cfg.n_kv_heads,
+                                             m))
         return {"wq": (-2, heads), "bq": (-2, heads), "wk": (-2, kvs),
                 "wv": (-2, kvs), "bk": (-2, kvs), "bv": (-2, kvs),
                 "wo": (-3, heads)}.get(name)
     if parent == "mlp" or (parent == "moe" and cfg.n_experts % m):
-        f = split_ranges(cfg.d_ff, m)
+        f = collectives.one_each(split_ranges(cfg.d_ff, m))
         return {"w_gate": (-1, f), "w_up": (-1, f),
                 "w_down": (-2, f)}.get(name)
     if parent == "moe":
-        e = split_ranges(cfg.n_experts, m)
+        e = collectives.one_each(split_ranges(cfg.n_experts, m))
         return {"w_gate": (-3, e), "w_up": (-3, e),
                 "w_down": (-3, e)}.get(name)
     if parent is None and name in ("embed", "lm_head"):
-        return (-2, split_ranges(cfg.padded_vocab, m))
+        return (-2, collectives.one_each(split_ranges(cfg.padded_vocab,
+                                                      m)))
     return None
+
+
+def _mixer_layout(cfg: ModelConfig, parent: str, name: str, m: int):
+    """:func:`leaf_layout` of an SSM mixer's leaf: split by heads (their
+    channels, ``hd`` a head), as the recurrence is independent per head."""
+    from repro_torch.models import ssm
+    one_each = collectives.one_each
+    if parent == "cmix":
+        f = one_each(split_ranges(cfg.d_ff, m))
+        return {"wk": (-1, f), "wv": (-2, f)}.get(name)
+    if parent == "tmix":
+        h, hd = ssm.rwkv_dims(cfg)
+    else:
+        d_inner, h, hd = ssm.mamba2_dims(cfg)
+    heads = split_ranges(h, m)
+    ch = [(lo * hd, hi * hd) for lo, hi in heads]
+    if parent == "tmix":
+        lora = one_each(split_ranges(ssm.rwkv_lora(cfg), m))
+        heads, ch = one_each(heads), one_each(ch)
+        return {"wr": (-1, ch), "wk": (-1, ch), "wv": (-1, ch),
+                "wg": (-1, ch), "wb": (-1, ch), "w0": (-1, ch),
+                "ln_out": (-1, ch), "u": (-2, heads), "wo": (-2, ch),
+                "wa": (-1, lora)}.get(name)
+    bc = 2 * d_inner + 2 * cfg.ssm_state       # [z | x | B | C | dt]
+    w_in = [((lo, hi), (d_inner + lo, d_inner + hi), (2 * d_inner, bc),
+             (bc + lo // hd, bc + hi // hd)) for lo, hi in ch]
+    heads, ch = one_each(heads), one_each(ch)
+    return {"w_in": (-1, w_in), "conv": (-1, ch), "conv_b": (-1, ch),
+            "norm": (-1, ch), "a_log": (-1, heads), "dt_bias": (-1, heads),
+            "d_skip": (-1, heads), "w_out": (-2, ch)}.get(name)
 
 
 def _leaves_with_paths(tree, specs, pre=()):
@@ -398,23 +439,23 @@ def to_compute(x: torch.Tensor, spec, layout, group,
     a leaf whose block ``x`` is split over the model ``group`` as ``spec``
     says and whole over every other axis: nothing moves where the storage
     split is the compute one; one all-to-all (:func:`collectives.
-    relayout`) where it is another dim; a slice of a leaf the model ranks
-    all hold whole, its gradient summed over them."""
+    relayout`) where it is another dim or other ranges; a slice of a leaf
+    the model ranks all hold whole, its gradient summed over them."""
     m = collectives.group_size(group)
     dim, ranges = x.ndim + layout[0], layout[1]
     src = _model_dim(spec)
-    if src == dim:
-        if list(ranges) != split_ranges(x.shape[dim] * m, m):
-            raise NotImplementedError(f"{what}: storage and compute split "
-                                      f"dim {dim} differently")
+    if src == dim and list(ranges) == collectives.one_each(
+            split_ranges(x.shape[dim] * m, m)):
         return x
     if src is None:
-        lo, hi = ranges[torch.distributed.get_rank(group)]
-        return collectives.all_reduce_grad(x, group, what).narrow(
-            dim, lo, hi - lo)
+        mine = ranges[torch.distributed.get_rank(group)]
+        x = collectives.all_reduce_grad(x, group, what)
+        parts = [x.narrow(dim, lo, hi - lo) for lo, hi in mine]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
     n = x.shape[src] * m
-    return collectives.relayout(x, group, (src, split_ranges(n, m)),
-                                (dim, ranges), "relayout " + what)
+    return collectives.relayout(
+        x, group, (src, collectives.one_each(split_ranges(n, m))),
+        (dim, ranges), "relayout " + what)
 
 
 def block_params(cfg: ModelConfig, tree: Params, specs, wire=None, *,
@@ -431,9 +472,8 @@ def block_params(cfg: ModelConfig, tree: Params, specs, wire=None, *,
     (its FSDP blocks, backward the reduce-scatter); each leaf with a
     compute split (:func:`leaf_layout`) then moved to it
     (:func:`to_compute`), the q/k norms' scales made to sum their
-    gradients over ``model`` (each rank's heads use them); the leaves
-    with none that ``model`` splits (the SSM mixers) gathered whole over
-    it, as ``"mixer weights"``."""
+    gradients over ``model`` (each rank's heads use them).  No leaf is
+    gathered whole over ``model``."""
     if specs is None or _MESH is None:
         return tree
     relaid = _SERVE is not None
@@ -460,10 +500,6 @@ def block_params(cfg: ModelConfig, tree: Params, specs, wire=None, *,
     tp = {p for p in lays if lays[p] is not None}
     out = gather_params(tree, _spec_tree(specs, lambda p, sp:
                                          _strip_model(sp)), wire)
-    mixers = _spec_tree(specs, lambda p, sp: tuple(
-        e if "model" in sharding.entry_axes(e) and p not in tp else None
-        for e in sp))
-    out = gather_params(out, mixers, what="mixer weights")
     for p, _, sp in paths:
         x = _get(out, p)
         if p in tp and not relaid:
@@ -471,6 +507,9 @@ def block_params(cfg: ModelConfig, tree: Params, specs, wire=None, *,
                                     "/".join(p[-2:])))
         elif p[-1] in ("q_norm", "k_norm"):
             _set(out, p, collectives.all_reduce_grad(x, group, p[-1]))
+        elif p not in tp and _model_dim(sp) is not None:
+            raise NotImplementedError(f"{p}: split over model with no "
+                                      "compute split")
     return out
 
 
@@ -483,6 +522,18 @@ def _get(tree: Params, path: tuple):
 def _spec_tree(specs, fn, pre=()):
     return {k: _spec_tree(v, fn, pre + (k,)) if isinstance(v, dict)
             else fn(pre + (k,), tuple(v)) for k, v in specs.items()}
+
+
+def model_rank() -> int:
+    return _MESH.get_local_rank("model")
+
+
+def tp_range(n: int) -> tuple:
+    """This model rank's [lo, hi) of ``n`` heads (:func:`split_ranges`)
+    under the tensor-parallel layout, else all of them."""
+    if not tensor_parallel():
+        return 0, n
+    return split_ranges(n, model_size())[model_rank()]
 
 
 def heads_of(cfg: ModelConfig) -> tuple:
@@ -520,6 +571,34 @@ def replicated_in(x: torch.Tensor, what: str) -> torch.Tensor:
     """A replicated tensor entering the rank's slice of split products:
     the identity, its gradient summed over ``model``."""
     return collectives.all_reduce_grad(x, model_group(), what)
+
+
+def out_product(spec: str, a: torch.Tensor, w: torch.Tensor, dtype,
+                what: str) -> torch.Tensor:
+    """``einsum(spec, a, w)`` rounded to ``dtype``; under the
+    tensor-parallel layout ``a`` and ``w`` hold the rank's slice of the
+    contracted dim (:func:`row_parallel`)."""
+    if tensor_parallel():
+        return row_parallel(spec, a, w, dtype, what)
+    return einsum(spec, a, cast(w)).to(dtype)
+
+
+def model_sum(x: torch.Tensor, what: str) -> torch.Tensor:
+    """A partial sum (of the rank's channels) summed over ``model``, for
+    each rank's own slice to use: its gradient summed over ``model`` too
+    (each rank's share of it)."""
+    group = model_group()
+    return collectives.all_reduce_value(
+        collectives.all_reduce_grad(x, group, what), group, what)
+
+
+def gather_heads(xs: list, h: int, what: str) -> list:
+    """Every head's values of per-token tensors (B, the rank's heads, ...)
+    of the tensor-parallel layout: one all-gather over ``model``
+    (serving)."""
+    heads = collectives.one_each(split_ranges(h, model_size()))
+    return collectives.gather_ranges([(x, 1, heads) for x in xs],
+                                     model_group(), what)
 
 
 def vocab_table(cfg: ModelConfig, params: Params, name: str) -> tuple:
@@ -611,6 +690,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, n: int,
+                   eps: float, what: str) -> torch.Tensor:
+    """:func:`rms_norm` over ``n`` channels; under the tensor-parallel
+    layout ``x`` and ``scale`` hold the rank's channels, whose float32 sum
+    of squares is completed over ``model`` (:func:`model_sum`)."""
+    if not tensor_parallel():
+        return rms_norm(x, scale, eps)
+    dt = x.dtype
+    xf = x.float()
+    ss = model_sum(xf.square().sum(-1, keepdim=True), what)
+    return ((xf * torch.rsqrt(ss / n + eps)) * scale.float()).to(dt)
 
 
 def init_rms_norm(d: int, device, n: tuple[int, ...] = ()) -> torch.Tensor:

@@ -24,8 +24,8 @@ functions below take the tree itself, as the reference's do.
   they are gathered over the batch axes and moved to their compute split
   over ``model``, each model rank computing its slice of every block
   product (attention by heads, the MLPs by d_ff, the MoE by experts, the
-  tables by vocabulary; the SSM mixers' weights are still gathered whole
-  over ``model``).  The positions are global; under zero_seq the
+  tables by vocabulary, the SSM mixers by heads and RWKV-6's channel mix
+  by d_ff).  The positions are global; under zero_seq the
   recurrent blocks run on the gathered sequence and attention gathers its
   keys and values.
 - Decode caches are ring buffers when the config has a sliding window
@@ -496,7 +496,8 @@ def logits_fn(cfg: ModelConfig, params: Params,
     if lo is None:
         return unembed(table, hidden)
     logits = unembed(table, layers_mod.replicated_in(hidden, "logits in"))
-    rng = layers_mod.split_ranges(cfg.padded_vocab, layers_mod.model_size())
+    rng = collectives.one_each(layers_mod.split_ranges(
+        cfg.padded_vocab, layers_mod.model_size()))
     return collectives.gather_ranges([(logits, logits.ndim - 1, rng)],
                                      layers_mod.model_group(), "logits")[0]
 
@@ -697,20 +698,52 @@ def _kv_cache_block(cfg: ModelConfig, x: torch.Tensor,
     own = collectives.owned(kvs)
     r = layers_mod.get_mesh().get_local_rank("model")
     x = x.narrow(2, own[r][0] - kvs[r][0], own[r][1] - own[r][0])
+    own = collectives.one_each(own)
     if 1 in layers_mod.model_split(layers_mod.cache_spec(*path)):
-        return collectives.relayout(
-            x, group, (2, own), (1, layers_mod.split_ranges(x.shape[1], m)),
-            "cache " + path[-1])
+        rows = layers_mod.split_ranges(x.shape[1], m)
+        return collectives.relayout(x, group, (2, own),
+                                    (1, collectives.one_each(rows)),
+                                    "cache " + path[-1])
     return collectives.gather_ranges([(x, 2, own)], group,
                                      "cache " + path[-1])[0]
+
+
+def _ssm_cache_block(x: torch.Tensor, path: tuple, dim: int, heads: int,
+                     unit: int = 1) -> torch.Tensor:
+    """The cache block, under the serve layout's spec of the leaf at
+    ``path``, of one layer's SSM state or conv carry: off the
+    tensor-parallel layout :func:`_cache_block`; under it, computed for
+    the rank's heads (of ``heads``, ``unit`` positions of ``dim`` a head),
+    one all-to-all over ``model`` to the cache's split, or, the leaf not
+    split over ``model``, one gather of every head."""
+    if not layers_mod.tensor_parallel():
+        return _cache_block(x, path)
+    spec = layers_mod.cache_spec(*path)
+    group = layers_mod.model_group()
+    m = layers_mod.model_size()
+    parts = [((lo * unit, hi * unit),)
+             for lo, hi in layers_mod.split_ranges(heads, m)]
+    full = heads * unit
+    dims = layers_mod.model_split(spec)
+    if not dims:
+        return collectives.gather_ranges([(x, dim, parts)], group,
+                                         "cache " + path[-1])[0]
+    d = dims[0]
+    n = full if d == dim else x.shape[d]
+    split = collectives.one_each(layers_mod.split_ranges(n, m))
+    if d == dim and parts == split:
+        return x
+    return collectives.relayout(x, group, (dim, parts), (d, split),
+                                "cache " + path[-1])
 
 
 def _gather_heads(cfg: ModelConfig, q, k, v) -> list:
     """A decode step's new q, k, v of every head from the ranks' heads
     (tensor-parallel layout): one all-gather over ``model``."""
     m = layers_mod.model_size()
-    heads = layers_mod.split_ranges(cfg.n_heads, m)
-    kvs = layers_mod.kv_ranges(cfg.n_heads, cfg.n_kv_heads, m)
+    heads = collectives.one_each(layers_mod.split_ranges(cfg.n_heads, m))
+    kvs = collectives.one_each(layers_mod.kv_ranges(cfg.n_heads,
+                                                    cfg.n_kv_heads, m))
     return collectives.gather_ranges([(q, 2, heads), (k, 2, kvs),
                                       (v, 2, kvs)],
                                      layers_mod.model_group(), "decode qkv")
@@ -897,7 +930,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
         st, s1, s2 = [], [], []
         for bp in blocks:
             x, state, sh1, sh2 = _rwkv_prefill_block(x, cfg, bp)
-            st.append(_cache_block(state, ("layers", "state")))
+            st.append(_ssm_cache_block(state, ("layers", "state"), 1,
+                                       ssm_mod.rwkv_dims(cfg)[0]))
             s1.append(_cache_block(sh1, ("layers", "shift1")))
             s2.append(_cache_block(sh2, ("layers", "shift2")))
         cache["layers"] = {"state": torch.stack(st),
@@ -908,10 +942,13 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
         shared = block_params(cfg, params["shared_attn"],
                               param_spec("shared_attn"))
         conv, st, kvs = [], [], []
+        _, heads, hd = ssm_mod.mamba2_dims(cfg)
         for i, bp in enumerate(blocks):
             x, c, state = _mamba_prefill_block(x, cfg, bp)
-            conv.append(_cache_block(c, ("layers", "conv")))
-            st.append(_cache_block(state, ("layers", "state")))
+            conv.append(_ssm_cache_block(c, ("layers", "conv"), 2, heads,
+                                         hd))
+            st.append(_ssm_cache_block(state, ("layers", "state"), 1,
+                                       heads))
             if (i + 1) % cfg.attn_every == 0:
                 x, k, v = attn_kv(shared, x, ("shared_attn",),
                                   window=cfg.sliding_window)
@@ -1017,18 +1054,19 @@ def _ring_sdpa(q, k_cache, v_cache, key_pos, write_at):
     return out.reshape(b, 1, h, hd)
 
 
-def _state_step(fn, lay: Params, path: tuple, i: int, *names):
-    """``fn`` of layer ``i``'s states ``names`` of ``lay`` (each gathered
-    over ``model`` where the serve layout splits it), which returns
-    (out, new states); the new states written back in place (the rank's
-    slice of each)."""
-    specs = [layers_mod.cache_spec(*path, n) for n in names]
-    held = [layers_mod.gather_model(lay[n][i], sp, "decode state")
-            for n, sp in zip(names, specs)]
-    out, new = fn(*held)
-    for n, sp, t in zip(names, specs, new):
-        lay[n][i].copy_(layers_mod.keep_model(t, sp))
-    return out
+def _shift(lay: Params, i: int, name: str) -> torch.Tensor:
+    """Layer ``i``'s token shift ``name``, whole: gathered over ``model``
+    where the serve layout splits it (``"decode shift"``; a (B, 1, D)
+    activation)."""
+    return layers_mod.gather_model(
+        lay[name][i], layers_mod.cache_spec("layers", name), "decode shift")
+
+
+def _keep_shift(lay: Params, i: int, name: str, x: torch.Tensor) -> None:
+    """The rank's slice of the new token shift ``x`` (replicated over
+    ``model``) written into layer ``i``'s block in place."""
+    lay[name][i].copy_(layers_mod.keep_model(
+        x, layers_mod.cache_spec("layers", name)))
 
 
 @torch.no_grad()
@@ -1043,10 +1081,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     every block product with the weights it holds (no weight of those
     moves), the partial sums combined over ``model``; an attention cache's
     sequence split over ``model`` stays put, its softmax combined over the
-    model group (:func:`_split_attend`); the SSM mixers' weights are
-    gathered at use, and an SSM or conv state or a token shift split over
-    ``model`` is gathered for its layer's step (at most (B, H, K, P) a
-    layer) and the rank keeps its slice of the new one."""
+    model group (:func:`_split_attend`); an SSM state stays in its block
+    (every head, its value dim split over ``model``), each head's
+    per-token inputs gathered for it and its output moved back to the
+    rank's heads (``ssm.rwkv6_time_mix_step``, ``ssm.mamba2_step``); the
+    token shifts, and the conv carry where its block is not the rank's
+    heads' channels, are gathered at use ((B, W-1, d_inner) at most)."""
     pos = cache["pos"]
     tp = layers_mod.tensor_parallel()
     x = _embed(cfg, params, tokens)
@@ -1072,36 +1112,31 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
     elif fam == "ssm":
         for i, bp in enumerate(blocks):
-            def tmix(shift1, state):
-                h, sh1, new = ssm_mod.rwkv6_time_mix_step(
-                    cfg, bp["tmix"], rms_norm(x, bp["ln1"], cfg.norm_eps),
-                    shift1, state)
-                return h, (sh1, new)
-
-            x = x + _state_step(tmix, lay, ("layers",), i, "shift1", "state")
+            h, sh1, new = ssm_mod.rwkv6_time_mix_step(
+                cfg, bp["tmix"], rms_norm(x, bp["ln1"], cfg.norm_eps),
+                _shift(lay, i, "shift1"), lay["state"][i])
+            lay["state"][i].copy_(new)
+            _keep_shift(lay, i, "shift1", sh1)
+            x = x + h
             xn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-
-            def cmix(shift2):
-                c, _ = ssm_mod.rwkv6_channel_mix(cfg, bp["cmix"], xn,
-                                                 shift_prev=shift2)
-                # the token shift carries the *normalized* stream of both
-                # mixes
-                return c, (xn[:, -1:],)
-
-            x = x + _state_step(cmix, lay, ("layers",), i, "shift2")
+            c, _ = ssm_mod.rwkv6_channel_mix(cfg, bp["cmix"], xn,
+                                             shift_prev=_shift(lay, i,
+                                                               "shift2"))
+            # the token shift carries the *normalized* stream of both mixes
+            _keep_shift(lay, i, "shift2", xn[:, -1:])
+            x = x + c
 
     elif fam == "hybrid":
         shared = block_params(cfg, params["shared_attn"],
                               param_spec("shared_attn"))
         shared_spec = layers_mod.cache_spec("shared_attn", "k")
         for i, bp in enumerate(blocks):
-            def mamba(conv, state):
-                h, conv2, state2 = ssm_mod.mamba2_step(
-                    cfg, bp["mamba"], rms_norm(x, bp["ln"], cfg.norm_eps),
-                    conv, state)
-                return h, (conv2, state2)
-
-            x = x + _state_step(mamba, lay, ("layers",), i, "conv", "state")
+            h, conv, state = ssm_mod.mamba2_step(
+                cfg, bp["mamba"], rms_norm(x, bp["ln"], cfg.norm_eps),
+                lay["conv"][i], lay["state"][i])
+            lay["conv"][i].copy_(conv)
+            lay["state"][i].copy_(state)
+            x = x + h
             if (i + 1) % cfg.attn_every == 0:
                 g = i // cfg.attn_every
                 x = x + _attn_step(cfg, shared["attn"],
@@ -1128,8 +1163,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                            cast(bp["xattn"]["wq"])).to(xn.dtype)
                 if tp:
                     q = collectives.gather_ranges(
-                        [(q, 2, layers_mod.split_ranges(
-                            cfg.n_heads, layers_mod.model_size()))],
+                        [(q, 2, collectives.one_each(layers_mod.split_ranges(
+                            cfg.n_heads, layers_mod.model_size())))],
                         layers_mod.model_group(), "decode q")[0]
                 out = _split_attend(q, mk, mv, None,
                                     1.0 / math.sqrt(q.shape[-1])) \

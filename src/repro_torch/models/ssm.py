@@ -20,6 +20,19 @@ its shifted input: a decode step computes what the forward computes at
 that position.  The reference's step promotes the mix to f32 instead, so
 its decode and its forward part by a bf16 rounding of every mixed input
 (one cause of its intermittent round-trip failure, ROADMAP C.2).
+
+Under megatron's tensor-parallel layout (``layers.tensor_parallel``) the
+blocks take the rank's slices of their weights (``layers.leaf_layout``):
+each model rank projects, recurs and normalises its heads alone (the
+recurrence is independent per head; the norms complete their sums of
+squares over ``model``) and its share of the output product is summed
+over ``model`` (``layers.row_parallel``).  RWKV-6's decay LoRA is split by
+its columns, ``tanh(x·Wa)`` gathered over ``model`` (an activation of
+(B, S, max(32, D/16))); Mamba-2's B and C (one group) are computed on
+every rank.  A served decode step's state block is the cache's (every
+head's, its value dim P split over ``model``): every head's per-token
+inputs are gathered, the rank steps its block in place, and its output
+moves back to its heads.
 """
 
 from __future__ import annotations
@@ -33,8 +46,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models import linear_attn as la
-from repro_torch.models.layers import (cast, einsum, init_rms_norm, normal,
-                                       rms_norm)
+from repro_torch.core import collectives
+from repro_torch.models.layers import cast, einsum, init_rms_norm, normal
 
 Params = dict[str, Any]
 
@@ -48,11 +61,16 @@ def rwkv_dims(cfg: ModelConfig) -> tuple[int, int]:
     return h, cfg.d_model // h  # (heads, head_dim)
 
 
+def rwkv_lora(cfg: ModelConfig) -> int:
+    """The decay LoRA's width."""
+    return max(32, cfg.d_model // 16)
+
+
 def init_rwkv6_time_mix(cfg: ModelConfig, gen: torch.Generator, device,
                         n: tuple[int, ...] = ()) -> Params:
     d = cfg.d_model
     h, hd = rwkv_dims(cfg)
-    lora = max(32, d // 16)
+    lora = rwkv_lora(cfg)
     s = 1.0 / math.sqrt(d)
     full = lambda value: torch.full(n + (d,), value, dtype=torch.float32,
                                     device=device)
@@ -81,55 +99,112 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
 
 
 def _rwkv_projections(cfg, p, x, xp):
-    """r, k, v, g (f32) and the log decay of the mixed inputs."""
+    """r, k, v, g (f32) and the log decay of the mixed inputs (under the
+    tensor-parallel layout the rank's heads' channels: each mixed input
+    enters its split products through ``layers.replicated_in``)."""
+    tp = layers.tensor_parallel()
+
     def mixed(name):
         m = cast(p["mix_" + name])
-        return x * m + xp * (1.0 - m)
+        y = x * m + xp * (1.0 - m)
+        return layers.replicated_in(y, "tmix in") if tp else y
 
     r, k, v, g = (einsum("bsd,de->bse", mixed(n), cast(p["w" + n])).float()
                   for n in ("r", "k", "v", "g"))
     # data-dependent decay (per channel = per (head, key-dim))
-    lw = (p["w0"].float()
-          + torch.tanh(einsum("bsd,dl->bsl", mixed("w"),
-                              cast(p["wa"])).float())
-          @ p["wb"].float())
+    a = torch.tanh(einsum("bsd,dl->bsl", mixed("w"), cast(p["wa"])).float())
+    if tp:      # every LoRA column, for the rank's channels of wb
+        n, m = rwkv_lora(cfg), layers.model_size()
+        a = collectives.relayout(
+            a, layers.model_group(),
+            (2, collectives.one_each(layers.split_ranges(n, m))),
+            (2, collectives.one_each([(0, n)] * m)), "decay lora")
+    lw = p["w0"].float() + a @ p["wb"].float()
     return r, k, v, g, -torch.exp(lw)                  # log decay ≤ 0
+
+
+def _rwkv_out(cfg, p, out, g, dtype):
+    """The output norm (over d_model), the gate and the output product of
+    the heads' outputs ``out`` (B, S, their channels)."""
+    out = layers.rms_norm_split(out, p["ln_out"], cfg.d_model, cfg.norm_eps,
+                                "tmix norm") * F.silu(g)
+    return layers.out_product("bsd,de->bse", out, p["wo"], dtype,
+                              "tmix out")
+
+
+def _tp_state_step(h: int, state: torch.Tensor, v: torch.Tensor, step):
+    """A served decode step's recurrence under the tensor-parallel layout:
+    ``step(v block) -> (out, new state)`` on the rank's ``state`` block
+    (B, H, K, P / m as the serve layout splits the value dim over
+    ``model``, or whole), ``v`` every head's values (B, H, P).  Returns
+    the rank's heads' output (B, its heads, P), moved to them by one
+    all-to-all (``"decode out"``), and the new block."""
+    m, r = layers.model_size(), layers.model_rank()
+    p, ps = v.shape[-1], state.shape[-1]
+    if state.shape[1] != h or ps not in (p, p // m):
+        raise NotImplementedError(f"a state block {tuple(state.shape)} not "
+                                  "split over its value dim")
+    heads = layers.split_ranges(h, m)
+    if ps == p:
+        out, new = step(v)
+        return out[:, heads[r][0]:heads[r][1]], new
+    cols = layers.split_ranges(p, m)
+    out, new = step(v[..., cols[r][0]:cols[r][1]])
+    return collectives.relayout(out, layers.model_group(),
+                                (2, collectives.one_each(cols)),
+                                (1, collectives.one_each(heads)),
+                                "decode out"), new
 
 
 def rwkv6_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                    shift_prev: torch.Tensor | None = None,
                    state: torch.Tensor | None = None, chunk: int = 64):
-    """Returns (out, last_x (B,1,D) shift carry, final state (B,H,K,P))."""
-    b, s, d = x.shape
-    h, hd = rwkv_dims(cfg)
+    """Returns (out, last_x (B,1,D) shift carry, final state (B,H,K,P);
+    under the tensor-parallel layout the rank's heads' (B, its heads, K,
+    P))."""
+    b, s, _ = x.shape
+    _, hd = rwkv_dims(cfg)
     r, k, v, g, log_w = _rwkv_projections(cfg, p, x,
                                           _token_shift(x, shift_prev))
+    nh = r.shape[-1] // hd
     out, new_state = la.linear_attention(
-        r.reshape(b, s, h, hd), k.reshape(b, s, h, hd),
-        v.reshape(b, s, h, hd), log_w.reshape(b, s, h, hd),
+        r.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
+        v.reshape(b, s, nh, hd), log_w.reshape(b, s, nh, hd),
         chunk=min(chunk, s), inclusive=False, u=p["u"].float(),
         initial_state=state)
-    out = out.reshape(b, s, d).to(x.dtype)
-    out = rms_norm(out, p["ln_out"], cfg.norm_eps) * F.silu(g)
-    out = einsum("bsd,de->bse", out, cast(p["wo"]))
-    return out.to(x.dtype), x[:, -1:], new_state
+    out = out.reshape(b, s, nh * hd).to(x.dtype)
+    return _rwkv_out(cfg, p, out, g, x.dtype), x[:, -1:], new_state
 
 
 def rwkv6_time_mix_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                         shift_prev: torch.Tensor, state: torch.Tensor):
-    """Decode step: x_t (B,1,D).  Returns (out, new shift carry, new state)."""
-    b, _, d = x_t.shape
+    """Decode step: x_t (B,1,D).  Returns (out, new shift carry, new state).
+    Under the tensor-parallel layout ``state`` is the rank's block of the
+    served cache (:func:`_tp_state_step`): every head's r, k, v, log decay
+    and bonus r·diag(u)·k are gathered (``"decode inputs"``)."""
+    b = x_t.shape[0]
     h, hd = rwkv_dims(cfg)
     r, k, v, g, log_w = _rwkv_projections(cfg, p, x_t,
                                           shift_prev.to(x_t.dtype))
-    out, new_state = la.linear_attention_step(
-        r[:, 0].reshape(b, h, hd), k[:, 0].reshape(b, h, hd),
-        v[:, 0].reshape(b, h, hd), log_w[:, 0].reshape(b, h, hd), state,
-        inclusive=False, u=p["u"].float())
-    out = out.reshape(b, 1, d).to(x_t.dtype)
-    out = rms_norm(out, p["ln_out"], cfg.norm_eps) * F.silu(g)
-    out = einsum("bsd,de->bse", out, cast(p["wo"]))
-    return out.to(x_t.dtype), x_t, new_state
+    nh = r.shape[-1] // hd
+    r, k, v, log_w = (t[:, 0].reshape(b, nh, hd) for t in (r, k, v, log_w))
+    u = p["u"].float()
+    if layers.tensor_parallel():
+        bonus = (r * u * k).sum(-1, keepdim=True)               # (B, nh, 1)
+        r, k, v, log_w, bonus = layers.gather_heads(
+            [r, k, v, log_w, bonus], h, "decode inputs")
+
+        def step(vb):
+            out, new = la.linear_attention_step(r, k, vb, log_w, state,
+                                                inclusive=False)
+            return out + bonus * vb, new
+
+        out, new_state = _tp_state_step(h, state, v, step)
+    else:
+        out, new_state = la.linear_attention_step(
+            r, k, v, log_w, state, inclusive=False, u=u)
+    out = out.reshape(b, 1, nh * hd).to(x_t.dtype)
+    return _rwkv_out(cfg, p, out, g, x_t.dtype), x_t, new_state
 
 
 def init_rwkv6_channel_mix(cfg: ModelConfig, gen: torch.Generator, device,
@@ -145,12 +220,16 @@ def init_rwkv6_channel_mix(cfg: ModelConfig, gen: torch.Generator, device,
 
 def rwkv6_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                       shift_prev: torch.Tensor | None = None):
+    """Under the tensor-parallel layout ``p`` holds the rank's d_ff slice
+    (the MLP's pattern)."""
     xp = _token_shift(x, shift_prev)
     m = cast(p["mix_k"])
     xk = x * m + xp * (1.0 - m)
+    if layers.tensor_parallel():
+        xk = layers.replicated_in(xk, "cmix in")
     h = torch.relu(einsum("bsd,df->bsf", xk, cast(p["wk"])).float()).square()
-    return (einsum("bsf,fd->bsd", h, cast(p["wv"])).to(x.dtype),
-            x[:, -1:])
+    return (layers.out_product("bsf,fd->bsd", h, p["wv"], x.dtype,
+                               "cmix out"), x[:, -1:])
 
 
 # ---------------------------------------------------------------------------
@@ -203,19 +282,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _mamba2_core(cfg, p, x):
-    """Shared projections: returns (z, xc_preconv, B, C, dt), f32."""
-    d_inner, h, _ = mamba2_dims(cfg)
-    n = cfg.ssm_state
+    """Shared projections: returns (z, xc_preconv, B, C, dt), f32 (under
+    the tensor-parallel layout the rank's heads' z, x and dt, and all of B
+    and C)."""
+    _, h, hd = mamba2_dims(cfg)
+    lo, hi = layers.tp_range(h)
+    nh, n = hi - lo, cfg.ssm_state
+    if layers.tensor_parallel():
+        x = layers.replicated_in(x, "mamba in")
     proj = einsum("bsd,de->bse", x, cast(p["w_in"])).float()
-    return torch.split(proj, [d_inner, d_inner, n, n, h], dim=-1)
+    return torch.split(proj, [nh * hd, nh * hd, n, n, nh], dim=-1)
 
 
 def _mamba2_ssm_inputs(cfg, p, dt, bmat, cmat, xc):
     """(r, k, v, log_w) of the linear attention from the projections;
     dt (B,S,H), bmat/cmat (B,S,N), xc (B,S,d_inner)."""
     b, s = xc.shape[:2]
-    _, h, hd = mamba2_dims(cfg)
-    n = cfg.ssm_state
+    hd = mamba2_dims(cfg)[2]
+    h, n = dt.shape[-1], cfg.ssm_state
     dt = F.softplus(dt.float() + p["dt_bias"])                      # (B,S,H)
     a_log = p["a_log"]
     if layers.block_dtype() is not None:
@@ -234,9 +318,11 @@ def _mamba2_out(cfg, p, out, v, z, dtype):
     b, s = out.shape[:2]
     d_inner = mamba2_dims(cfg)[0]
     out = out + p["d_skip"][None, None, :, None] * v
-    out = out.reshape(b, s, d_inner).to(dtype)
-    out = rms_norm(out * F.silu(z), p["norm"], cfg.norm_eps)
-    return einsum("bse,ed->bsd", out, cast(p["w_out"])).to(dtype)
+    out = out.reshape(b, s, -1).to(dtype)
+    out = layers.rms_norm_split(out * F.silu(z), p["norm"], d_inner,
+                                cfg.norm_eps, "mamba norm")
+    return layers.out_product("bse,ed->bsd", out, p["w_out"], dtype,
+                              "mamba out")
 
 
 def mamba2_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
@@ -254,14 +340,56 @@ def mamba2_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     return _mamba2_out(cfg, p, out, v, z, x.dtype), conv_carry, new_state
 
 
+def _conv_step(cfg, p, xc, prev):
+    """A served decode step's conv of the rank's channels ``xc`` (B, 1,
+    its heads' channels) under the tensor-parallel layout, ``prev`` the
+    rank's block of the carry (B, W-1, d_inner / m, or whole): (out, the
+    new carry block).  Where the block is the rank's heads' channels
+    nothing moves; else the carry's blocks and the new inputs are
+    gathered over ``model`` (``"decode conv"``)."""
+    d_inner, h, hd = mamba2_dims(cfg)
+    m, r = layers.model_size(), layers.model_rank()
+    chans = [(lo * hd, hi * hd) for lo, hi in layers.split_ranges(h, m)]
+    blocks = layers.split_ranges(d_inner, m) if prev.shape[-1] < d_inner \
+        else [(0, d_inner)] * m
+    if blocks == chans:
+        return _causal_conv(xc, p["conv"], p["conv_b"], prev)
+    carry, new = collectives.gather_ranges(
+        [(prev, 2, collectives.one_each(blocks)),
+         (xc.float(), 2, collectives.one_each(chans))],
+        layers.model_group(), "decode conv")
+    out, _ = _causal_conv(xc, p["conv"], p["conv_b"],
+                          carry[..., chans[r][0]:chans[r][1]])
+    window = torch.cat([carry, new], dim=1)[:, 1:]
+    return out, window[..., blocks[r][0]:blocks[r][1]]
+
+
 def mamba2_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                 conv_prev: torch.Tensor, state: torch.Tensor):
-    """Decode step, x_t (B,1,D)."""
+    """Decode step, x_t (B,1,D).  Under the tensor-parallel layout
+    ``conv_prev`` and ``state`` are the rank's blocks of the served cache
+    (:func:`_conv_step`, :func:`_tp_state_step`): every head's k = dt·B,
+    x and log decay are gathered (``"decode inputs"``), C is every
+    rank's."""
+    tp = layers.tensor_parallel()
     z, xc, bmat, cmat, dt = _mamba2_core(cfg, p, x_t)
-    xc, conv_carry = _causal_conv(xc, p["conv"], p["conv_b"], conv_prev)
+    if tp:
+        xc, conv_carry = _conv_step(cfg, p, xc, conv_prev)
+    else:
+        xc, conv_carry = _causal_conv(xc, p["conv"], p["conv_b"], conv_prev)
     xc = F.silu(xc)
     r, k, v, log_w = _mamba2_ssm_inputs(cfg, p, dt, bmat, cmat, xc)
-    out, new_state = la.linear_attention_step(
-        r[:, 0], k[:, 0], v[:, 0], log_w[:, 0], state, inclusive=True)
+    r, k, vt, log_w = r[:, 0], k[:, 0], v[:, 0], log_w[:, 0]
+    if tp:
+        h = mamba2_dims(cfg)[1]
+        k, vt, log_w = layers.gather_heads([k, vt, log_w], h,
+                                           "decode inputs")
+        r = cmat[:, 0, None, :].float().expand(k.shape)
+        out, new_state = _tp_state_step(
+            h, state, vt, lambda vb: la.linear_attention_step(
+                r, k, vb, log_w, state, inclusive=True))
+    else:
+        out, new_state = la.linear_attention_step(r, k, vt, log_w, state,
+                                                  inclusive=True)
     return (_mamba2_out(cfg, p, out[:, None], v, z, x_t.dtype), conv_carry,
             new_state)

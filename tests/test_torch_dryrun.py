@@ -6,7 +6,8 @@ fake process group, the mirror of ``tests/test_lowering_modes.py``:
   megatron, zero_seq and zero_batch, a zero_seq prefill and a decode step
   against a 64-position cache, each run once as rank 0 under
   ``FakeTensorMode``: status ``ok``, the rank's resident bytes those of
-  its blocks' ``local_shape``s, collectives counted;
+  its blocks' ``local_shape``s (a served weight with a compute split,
+  ``layers.leaf_layout``, that of rank 0's range), collectives counted;
 
 ``tests/test_torch_dryrun_pod.py`` holds the pod axis, the mode logic
 against the reference's, ``skip_reason`` and the CLI.  One fake group a
@@ -22,8 +23,9 @@ import pytest
 
 from repro_torch.configs.base import InputShape, reduced
 from repro_torch.configs.registry import ARCHITECTURES
+from repro_torch.core import collectives
 from repro_torch.launch import dryrun
-from repro_torch.models import model
+from repro_torch.models import layers, model
 from repro_torch.train import sharding
 
 TRAIN = InputShape("tiny_train", 64, 8, "train")
@@ -68,7 +70,9 @@ def records():
 
 
 def _resident(arch: str, shape, mode: str, sizes: dict) -> dict:
-    """The bytes of a rank's blocks from ``local_shape`` of their specs."""
+    """The bytes of rank 0's blocks from ``local_shape`` of their specs
+    (the serve weights re-laid into their compute split: rank 0's range
+    of its dim)."""
     cfg = config(arch)
     act = mode if shape.kind != "decode" else "megatron"
     act = sharding.resolve_mode(sizes, act, shape.global_batch,
@@ -90,8 +94,21 @@ def _resident(arch: str, shape, mode: str, sizes: dict) -> dict:
             mode="zero_seq" if act == "zero_batch" else act)
         one = nbytes(shapes, specs_)
         return {"params": one, "opt": 2 * one + 4}
-    out = {"params": nbytes(shapes, sharding.param_specs(
-        shapes, mesh=sizes, fsdp=False), 2)}
+    m = sizes["model"]
+
+    def served(path, x, sp):
+        local = list(sharding.local_shape(x.shape, sp, sizes))
+        lay = layers.leaf_layout(cfg, path, m) if m > 1 else None
+        if lay is not None:
+            local = list(x.shape)
+            local[lay[0]] = collectives.span_len(lay[1][0])
+        return math.prod(local) * 2
+
+    specs_ = sharding.param_specs(shapes, mesh=sizes, fsdp=False)
+    got = []
+    sharding.map_with_path(lambda p, x: got.append(served(
+        p, x, model.specs_at(specs_, p))), shapes)
+    out = {"params": sum(got)}
     if shape.kind == "decode":
         cache = model.cache_shapes(cfg, shape.global_batch, shape.seq_len)
         out["cache"] = nbytes(cache, sharding.cache_specs(cache, sizes))
@@ -109,7 +126,10 @@ def check_record(rec: dict, arch: str, shape: str, mode: str,
     assert rec["t_collective_s"] > 0 and rec["t_compute_s"] > 0
     if SHAPES[shape].kind == "decode":
         assert rec["act_mode"] == "megatron"
-        assert set(rec["collectives"]) <= {"all_gather", "all_reduce"}
+        kinds = {"all_gather", "all_reduce"}
+        if config(arch).family in ("ssm", "hybrid"):
+            kinds.add("all_to_all")  # the SSM heads' outputs, back to them
+        assert set(rec["collectives"]) <= kinds
 
 
 @pytest.mark.parametrize("arch,shape,mode,mesh", CASES,

@@ -51,6 +51,10 @@ TRAIN = dict(peak_lr=1e-3, warmup=0, total_steps=10, loss_chunk=16)
 # step's, Frobenius by leaf (megatron ≤ 6.3e-6; zero modes ≤ 2.9e-3,
 # zamba2's shared block, which one process accumulates over its two uses
 # in bf16 and the mesh in float32), read as AdamW's m after that step.
+# Against the reference also the first step's gradients (megatron ≤ 8.5e-5,
+# zamba2, where the reference's own one-device step is 7.3e-5 from its
+# sharded one; zero modes ≤ 5.4e-3, zamba2) and the parameters after it
+# (megatron ≤ 1.7e-3; zero modes ≤ 2.2e-2, zamba2).
 TOL = {"loss1": 1e-5, "gnorm1": 2e-5, "loss2": 1e-4, "gnorm2": 3e-3,
        "params": {"megatron": 1e-2, "zero": 5e-2},
        "grads": {"megatron": 1e-4, "zero": 1e-2}}
@@ -111,16 +115,19 @@ def grad_err(got: list, want: list) -> float:
 
 
 def check_run(label: str, got: dict, want: dict, init: list,
-              mode: str) -> None:
-    """A run's metrics and final parameters against another's, by TOL."""
+              mode: str, keep: list | None = None) -> None:
+    """A run's metrics and final parameters against another's, by TOL;
+    ``keep`` (a flag a leaf) the leaves whose final parameters count."""
     z = zero(mode)
     (g1, g2), (w1, w2) = got["metrics"], want["metrics"]
     rel = lambda a, b: abs(a - b) / abs(b)
+    kept = lambda xs: [x for x, k in zip(xs, keep or [True] * len(xs)) if k]
     errs = {"loss1": rel(g1["loss"], w1["loss"]),
             "gnorm1": rel(g1["grad_norm"], w1["grad_norm"]),
             "loss2": rel(g2["loss"], w2["loss"]),
             "gnorm2": rel(g2["grad_norm"], w2["grad_norm"]),
-            "params": update_err(got["params"], want["params"], init)}
+            "params": update_err(kept(got["params"]), kept(want["params"]),
+                                 kept(init))}
     bounds = {k: (v[z] if isinstance(v, dict) else v)
               for k, v in TOL.items() if k in errs}
     bad = {k: (errs[k], bounds[k]) for k in errs if errs[k] > bounds[k]}
@@ -149,9 +156,10 @@ def port_run(mesh, dev, arch: str, cfg_kw: dict, modes, np_tree: dict,
              data: list) -> dict:
     """Per mode, STEPS steps from the full weights ``np_tree`` on the
     global batches ``data`` (float32 compute): the global metrics, the
-    gathered parameters after the last step and AdamW's m after the first
-    (0.1 × the first step's clipped gradient), and every local block of
-    the parameters, m and v whose shape is not the one its spec gives."""
+    gathered parameters after the first step and after the last and
+    AdamW's m after the first (0.1 × the first step's clipped gradient),
+    and every local block of the parameters, m and v whose shape is not
+    the one its spec gives."""
     _float32()
     cfg = config(arch, **cfg_kw)
     tcfg = train_step.TrainConfig(**TRAIN)
@@ -162,13 +170,15 @@ def port_run(mesh, dev, arch: str, cfg_kw: dict, modes, np_tree: dict,
         opt = adamw.init(params)
         step = train_step.make_train_step(cfg, tcfg, dev, mesh=mesh,
                                           mode=mode)
-        mets, m1 = [], None
+        mets, m1, params1 = [], None, None
         for b in data:
             params, opt, m = step(params, opt, b)
             mets.append(_metrics(m))
-            if m1 is None:
-                m1 = [x.numpy().copy() for x in model.leaves(   # step 2
-                    sharding.gather_tree(opt.m, specs, mesh))]  # writes m
+            if m1 is None:          # step 2 writes m and the parameters
+                m1 = [x.numpy().copy() for x in model.leaves(
+                    sharding.gather_tree(opt.m, specs, mesh))]
+                params1 = [x.numpy().copy() for x in model.leaves(
+                    sharding.gather_tree(params, specs, mesh))]
         wrong = []
         full = model.param_shapes(cfg)
         for name, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
@@ -178,6 +188,7 @@ def port_run(mesh, dev, arch: str, cfg_kw: dict, modes, np_tree: dict,
                 if tuple(x.shape) != want:
                     wrong.append((name, tuple(x.shape), want))
         out[mode] = {"metrics": mets, "wrong_shapes": wrong, "m1": m1,
+                     "params1": params1,
                      "params": [x.numpy() for x in model.leaves(
                          sharding.gather_tree(params, specs, mesh))]}
     return out
@@ -258,8 +269,8 @@ def start_reference(tmp: Path, jobs: dict):
 
 
 def reference_result(handle) -> dict:
-    """{name: {mode: {"metrics", "params"}}} of the reference's runs, as
-    ``port_run`` gives them."""
+    """{name: {mode: {"metrics", "m1", "params1", "params"}}} of the
+    reference's runs, as ``port_run`` gives them."""
     proc, spec = handle
     _, err = proc.communicate(timeout=900)
     assert proc.returncode == 0, err[-4000:]
@@ -274,9 +285,12 @@ def reference_result(handle) -> dict:
             mets = [{"loss": float(got[f"{mode}/metrics/{i}/loss"]),
                      "grad_norm": float(got[f"{mode}/metrics/{i}/grad_norm"])}
                     for i in range(n)]
-            params = [got[k] for k in sorted(got.files)
-                      if k.startswith(f"{mode}/params/")]
-            res[job_["name"]][mode] = {"metrics": mets, "params": params}
+            leaves = lambda what: [got[k] for k in sorted(got.files)
+                                   if k.startswith(f"{mode}/{what}/")]
+            res[job_["name"]][mode] = {"metrics": mets,
+                                       "m1": leaves("m1"),
+                                       "params1": leaves("params1"),
+                                       "params": leaves("params")}
     return res
 
 
@@ -297,11 +311,17 @@ def run_jobs(tmp: Path, jobs: dict) -> tuple[list, dict]:
     return ranks, reference_result(handle)
 
 
-def check_job(name: str, job_: tuple, ranks: list, ref: dict) -> None:
+def check_job(name: str, job_: tuple, ranks: list, ref: dict,
+              omit: tuple = ()) -> None:
     """Every rank's shapes and metrics; the mesh run against the port's
-    one-process run and the reference's sharded run, per mode."""
+    one-process run and the reference's sharded run, per mode: by
+    :func:`check_run`, and against the reference also the first step's
+    gradients and the parameters after it.  ``omit`` names the leaves
+    (paths as ``_flat`` gives them) left out of the final parameters'
+    comparison with the reference."""
     arch, cfg_kw, modes, np_tree, data = job_
     init = [np.asarray(x) for x in model.leaves(np_tree)]
+    keep = [path not in omit for path in _flat(np_tree)]
     for mode in modes:
         got = ranks[0][name][mode]
         for r, res in enumerate(ranks):
@@ -311,8 +331,13 @@ def check_job(name: str, job_: tuple, ranks: list, ref: dict) -> None:
         err = grad_err(got["m1"], one["m1"])
         assert err <= TOL["grads"][zero(mode)], (name, mode, err)
         check_run(f"{name} against one process", got, one, init, mode)
-        check_run(f"{name} against the reference", got, ref[name][mode],
-                  init, mode)
+        want = ref[name][mode]
+        check_run(f"{name} against the reference", got, want, init, mode,
+                  keep)
+        err = grad_err(got["m1"], want["m1"])
+        assert err <= TOL["grads"][zero(mode)], (name, mode, "ref", err)
+        err = update_err(got["params1"], want["params1"], init)
+        assert err <= TOL["params"][zero(mode)], (name, mode, "ref", err)
 
 
 def job(arch: str, modes, seed: int, **cfg_kw) -> tuple:

@@ -13,6 +13,21 @@ tolerances), for the blocks that reach along the sequence:
   its keys and values).
 
 All at ``reduced()``, vocabulary 512, batch 8 × 32, two steps.
+
+zamba2-2.7b under ``megatron`` (each model rank its Mamba-2 heads, B and
+C on both, the gated norm's sum of squares and the output products summed
+over ``model``) is held to the same tolerances, against the reference
+leaving ``embed`` out of the final parameters alone (``STEP2_OMIT``): after
+step 2 the port's ``embed`` lands 1.43e-2 of its update from the
+reference's sharded step (the bound is 1e-2), where the reference's own
+one-device step lands 1.49e-2 from its sharded one and the port's
+one-process step 1.44e-2, AdamW's second step amplifying the rows whose
+gradient changes sign.  Its losses, grad norms, first gradients and
+parameters after step 1, and every other leaf after step 2, are held
+against the reference as every other case is (measured: first gradients
+8.5e-5 of the bound 1e-4, the reference's one-device step 7.3e-5 from its
+sharded one; parameters after step 1 1.7e-3; the next leaf after step 2,
+``shared_attn/ln2``, 3.6e-3).
 """
 
 from __future__ import annotations
@@ -24,7 +39,11 @@ from tests.test_torch_lm_mesh_common import MODES, check_job, job, run_jobs
 
 JOBS = {"rwkv6-3b": ("rwkv6-3b", MODES, 21, {}),
         "zamba2-2.7b": ("zamba2-2.7b", ("zero_seq",), 23, {}),
+        "zamba2-2.7b-megatron": ("zamba2-2.7b", ("megatron",), 23, {}),
         "whisper-large-v3": ("whisper-large-v3", ("zero_seq",), 25, {})}
+# leaves left out of the final parameters against the reference (see the
+# module docstring)
+STEP2_OMIT = {"zamba2-2.7b-megatron": ("embed",)}
 
 
 @pytest.fixture(scope="module")
@@ -38,4 +57,4 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_mesh_step_matches_one_process_and_reference(name, runs):
     jobs, ranks, ref = runs
-    check_job(name, jobs[name], ranks, ref)
+    check_job(name, jobs[name], ranks, ref, STEP2_OMIT.get(name, ()))

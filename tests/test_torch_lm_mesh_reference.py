@@ -50,7 +50,8 @@ def reference_run(spec: dict) -> None:
     ``resolve_mode``, the activation spec, the parameter and optimizer
     shardings, ``jax.jit`` with them), compiled at XLA's lowest
     optimisation level, float32 compute; the spec's steps for each of its
-    modes, the metrics and the final parameters to the job's npz."""
+    modes, the metrics, AdamW's m and the parameters after the first step
+    and the final parameters to the job's npz."""
     layers.COMPUTE_DTYPE = jnp.float32
     cfg = reduced(ARCHITECTURES[spec["arch"]]).replace(
         vocab_size=spec["vocab"], **spec["cfg_kw"])
@@ -90,6 +91,12 @@ def reference_run(spec: dict) -> None:
                 out[f"{mode}/metrics/{i}/loss"] = np.asarray(m["loss"])
                 out[f"{mode}/metrics/{i}/grad_norm"] = np.asarray(
                     m["grad_norm"])
+                if i == 0:              # AdamW's m and the parameters
+                    for j, (g, x) in enumerate(zip(   # after step 1
+                            jax.tree.leaves(opt.m),
+                            jax.tree.leaves(params))):
+                        out[f"{mode}/m1/{j:04d}"] = np.asarray(g)
+                        out[f"{mode}/params1/{j:04d}"] = np.asarray(x)
             for j, leaf in enumerate(jax.tree.leaves(params)):
                 out[f"{mode}/params/{j:04d}"] = np.asarray(leaf)
         model.set_activation_spec(None)

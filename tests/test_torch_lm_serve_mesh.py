@@ -13,7 +13,11 @@ float32 (``COMPUTE_DTYPE`` patched), at ``reduced()`` size, vocabulary
   and 3 steps write slots 14, 15 (rank 1's block) and 0 (rank 0's);
 * rwkv6-3b under megatron and zero_batch, zamba2-2.7b under megatron and
   zero_seq: the SSM and conv states and token shifts split over
-  ``model``, gathered at use.
+  ``model``; under megatron each model rank projects its heads, every
+  head's per-token inputs are gathered and the rank steps its block of
+  the state in place (its value dim), the token shifts and, where its
+  block is not the rank's heads' channels, the conv carry gathered at
+  use.
 
 Each rank's cache leaves have the shapes ``local_shape`` gives under
 ``cache_specs``; its blocks equal the one-process cache's blocks (the K/V
@@ -26,13 +30,14 @@ one-process run's (measured at most 9.8e-6, mixtral, and 9.1e-6, zamba2;
 1.9e-6 smollm, 4.8e-7 rwkv6: the partial softmaxes' log-sum-exp combine
 reorders float32 sums, ~1e-6, and a key or value that lands one bf16
 step apart in the cache moves the next steps' logits by ~1e-5); no
-decode step gathers a K/V cache or a block weight or a table (the tally
-of its collectives by name holds the new token's q/k/v, the softmax
-partials', the logits' vocabulary slices', the states' and the MoE's token
-gathers, and for the SSMs their mixers' weights, only), and every
-attention step sums its embedding and its heads' output projection over
-``model`` (megatron's tensor-parallel products; the serve weights re-laid
-into their compute split once, ``model.serve_params``).
+decode step gathers a K/V cache, an SSM state, a block weight or a table
+(the tally of its collectives by name holds the new token's q/k/v, the
+softmax partials', the logits' vocabulary slices', the MoE's token
+gathers, the SSM heads' per-token inputs and the token shifts' and conv
+carries' gathers only), and every attention step sums its embedding and
+its heads' output projection over ``model`` (megatron's tensor-parallel
+products; the serve weights re-laid into their compute split once,
+``model.serve_params``).
 smollm's decode steps on the mesh also match the reference's decode as
 its dry run lowers it (``make_lowering_spec``'s decode kind jitted on a
 forced 4-device ``make_host_mesh(2, 2)``, from its own prefill), within
@@ -67,13 +72,15 @@ REF_TOL = 1e-4         # against the reference's served decode
 KV_TOL = 2.0 ** -8     # bf16 K/V blocks, of a value
 STATE_TOL = 1e-5       # float32 states, of the leaf's largest value
 # what a decode step may gather: the new token's q/k/v of every head, the
-# softmax partials, the logits' vocabulary slices, the states, the MoE's
-# token group over ``data``, and the SSM mixers' weights (their products
-# are not split over ``model``); never a block weight or a table
+# softmax partials, the logits' vocabulary slices, the MoE's token group
+# over ``data``, the SSM heads' per-token inputs, the token shifts and the
+# conv carries (activations of at most (B, W-1, d_inner)); never an SSM
+# state, a block weight or a table
 DECODE_GATHERS = {"all_gather decode qkv", "all_gather decode softmax",
-                  "all_gather logits", "all_gather decode state",
-                  "all_gather moe tokens", "all_gather moe gates",
-                  "all_gather moe ids", "all_gather mixer weights"}
+                  "all_gather logits", "all_gather moe tokens",
+                  "all_gather moe gates", "all_gather moe ids",
+                  "all_gather decode inputs", "all_gather decode shift",
+                  "all_gather decode conv"}
 # the activations' sums over ``model`` every attention decode step makes
 DECODE_SUMS = {"all_reduce embed", "all_reduce attn out"}
 

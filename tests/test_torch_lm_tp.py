@@ -14,10 +14,25 @@ for the file), against the same block in one process, float32 compute:
   token group spanning the data ranks (``moe_groups`` unset);
 * the vocabulary-parallel embedding and chunked loss (vocabulary 500 in a
   512-row table, chunks of 8);
+* RWKV-6's time mix with 3 heads of 8 (two heads and one; its
+  projections stored split over their output channels, so moved within
+  that dim), random mixes, ``w0``, ``u`` and output-norm scales, the
+  decay LoRA split by its 32 columns, and with one head (rank 1 none);
+  its channel mix of d_ff 47 (stored split over d_model, computed in
+  d_ff slices of 24 and 23);
+* Mamba-2 blocks: 3 heads of 16 (``w_in``'s 107 columns are odd, so it is
+  stored split over d_model, as at 16×16; each rank takes its heads' z, x
+  and dt columns and all of B and C); 4 heads, whose ``w_in`` is stored
+  split over its 108 columns with the cut inside x (at 54) (an odd head count
+  makes them odd: the two cases cannot be one); one head (rank 1 none);
 * serving: a two-layer dense model's megatron prefill of 16 tokens and 3
   decode steps (``tests/test_torch_lm_serve_mesh.serve``) from weights
   re-laid by ``model.serve_params``, with 3 heads reading one K/V head
-  (two heads and one) and with one head (rank 1 none).
+  (two heads and one) and with one head (rank 1 none); a two-layer RWKV-6
+  model and a two-layer Zamba2 model (its shared block after each Mamba-2
+  layer) with 3 SSM heads, whose SSM states stay split over their value
+  dim and whose conv carries split over d_inner (24 and 24) are not the
+  ranks' heads' channels (32 and 16).
 
 Each rank holds its blocks of the weights under megatron's
 ``param_specs`` (FSDP over ``data``) and its rows of the inputs, runs the
@@ -31,9 +46,12 @@ leaf's largest value; measured at most 4.2e-7 and 3.2e-7).  The served
 prefill's logits within FWD_TOL of the one-process run's range (measured
 3.1e-7), the decode steps' within SERVE_TOL (measured 3.2e-4: both runs
 store the K/V cache in bf16, and one value of it lands one bf16 step
-apart at these widths, 8 per head).  The tally of every collective a block called, by
-process group, holds no all-gather over the model group, and a decode
-step's none of a weight.
+apart at these widths, 8 per head); the served SSMs' state, conv and
+token-shift blocks within ``tests/test_torch_lm_serve_mesh.STATE_TOL`` of
+one process's.  The tally of every collective a block called, by
+process group, holds no all-gather over the model group (the decay
+LoRA's activation moves by an all-to-all), and a decode step's none of a
+weight; a served decode step gathers no SSM state.
 """
 
 from __future__ import annotations
@@ -65,6 +83,15 @@ def _cfg(**kw) -> ModelConfig:
     return ModelConfig(**{**base, **kw})
 
 
+def _rwkv(**kw) -> ModelConfig:
+    return _cfg(family="ssm", ssm_kind="rwkv6", ssm_state=8, **kw)
+
+
+def _mamba(**kw) -> ModelConfig:
+    return _cfg(family="hybrid", ssm_kind="mamba2", ssm_state=4,
+                ssm_conv=4, attn_every=1, **kw)
+
+
 # name: (config, kind)
 CASES = {
     "attn-uneven-gqa": (_cfg(n_heads=9, n_kv_heads=3, qk_norm=True,
@@ -78,12 +105,21 @@ CASES = {
                             "moe"),
     "moe-dff-split": (_cfg(family="moe", n_experts=3, top_k=2), "moe"),
     "vocab": (_cfg(vocab_size=500, tie_embeddings=True), "vocab"),
+    "rwkv-tmix-uneven": (_rwkv(ssm_heads=3), "tmix"),
+    "rwkv-tmix-one-head": (_rwkv(ssm_heads=1), "tmix"),
+    "rwkv-cmix-odd-dff": (_rwkv(ssm_heads=3, d_ff=47), "cmix"),
+    "mamba-uneven": (_mamba(ssm_heads=3), "mamba"),
+    "mamba-cut-in-x": (_mamba(ssm_heads=4), "mamba"),
+    "mamba-one-head": (_mamba(ssm_heads=1), "mamba"),
 }
 
 
 # name: config of a served model
 SERVE = {"serve-uneven-gqa": _cfg(n_layers=2, n_heads=3, n_kv_heads=1),
-         "serve-one-head": _cfg(n_layers=2, n_heads=1, n_kv_heads=1)}
+         "serve-one-head": _cfg(n_layers=2, n_heads=1, n_kv_heads=1),
+         "serve-rwkv": _rwkv(n_layers=2, ssm_heads=3),
+         "serve-zamba": _mamba(n_layers=2, ssm_heads=3, n_heads=3,
+                               n_kv_heads=1)}
 
 
 def serve_inputs(name: str) -> dict:
@@ -100,12 +136,14 @@ def serve_inputs(name: str) -> dict:
 def inputs(name: str) -> dict:
     """The case's weights (a one-block tree) and inputs, numpy, from a
     seed."""
-    from repro_torch.models import layers, model, moe
+    from repro_torch.models import layers, model, moe, ssm
 
     cfg, kind = CASES[name]
     seed = sorted(CASES).index(name)
     gen = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
+    rand = lambda t, lo, hi: torch.tensor(rng.uniform(lo, hi, t.shape)
+                                          .astype(np.float32))
     if kind in ("attn", "xattn"):
         tree = {kind: layers.init_attention(cfg, gen, "cpu")}
         for k in ("bq", "bk", "bv", "q_norm", "k_norm"):
@@ -117,6 +155,21 @@ def inputs(name: str) -> dict:
             "mlp": "swiglu", "gelu": "gelu"}[kind])}
     elif kind == "moe":
         tree = {"moe": moe.init_moe(cfg, gen, "cpu")}
+    elif kind == "tmix":     # mixes, w0, u, norm: not the init's constants
+        p = ssm.init_rwkv6_time_mix(cfg, gen, "cpu")
+        tree = {kind: {k: rand(v, 0.0, 1.0) if k.startswith("mix_")
+                       else rand(v, -3.0, -1.0) if k == "w0"
+                       else rand(v, -0.5, 0.5) if k == "u"
+                       else rand(v, 0.5, 1.5) if k == "ln_out" else v
+                       for k, v in p.items()}}
+    elif kind == "cmix":
+        p = ssm.init_rwkv6_channel_mix(cfg, gen, "cpu")
+        tree = {kind: dict(p, mix_k=rand(p["mix_k"], 0.0, 1.0))}
+    elif kind == "mamba":
+        p = ssm.init_mamba2(cfg, gen, "cpu")
+        tree = {kind: {k: rand(v, -0.5, 0.5) if k in ("conv_b", "dt_bias")
+                       else rand(v, 0.5, 1.5) if k in ("d_skip", "norm")
+                       else v for k, v in p.items()}}
     else:
         tree = {"embed": layers.init_embed(cfg, gen, "cpu")}
     x = {"x": rng.standard_normal((B, S, D)).astype(np.float32)}
@@ -135,7 +188,7 @@ def inputs(name: str) -> dict:
 def run_block(name: str, tree: dict, x: dict) -> tuple:
     """(output, loss) of the case's block on ``tree`` (the compute
     slices under the hooks' layout) and the inputs ``x``."""
-    from repro_torch.models import layers, model, moe
+    from repro_torch.models import layers, model, moe, ssm
     from repro_torch.train.loss import chunked_ce_loss
 
     cfg, kind = CASES[name]
@@ -150,6 +203,12 @@ def run_block(name: str, tree: dict, x: dict) -> tuple:
     elif kind == "moe":
         out, aux = moe.moe_block(cfg, tree["moe"], x["x"])
         return out, (out * x["proj"]).sum() + aux
+    elif kind == "tmix":
+        out = ssm.rwkv6_time_mix(cfg, tree["tmix"], x["x"])[0]
+    elif kind == "cmix":
+        out = ssm.rwkv6_channel_mix(cfg, tree["cmix"], x["x"])[0]
+    elif kind == "mamba":
+        out = ssm.mamba2_block(cfg, tree["mamba"], x["x"])[0]
     else:
         out = model._embed(cfg, tree, x["tokens"])
         ce = chunked_ce_loss(cfg, tree, x["x"], x["targets"], x["mask"],
@@ -222,7 +281,10 @@ def tp_rank(mesh, dev, cases: dict, served: dict) -> dict:
             model.serve_param_specs(cfg, mesh), mesh), mesh)
         run = serve(cfg, params, case["tokens"], PROMPT, MAX_LEN, mesh)
         out[name] = {"logits": [x.numpy() for x in run["logits"]],
-                     "decode": run["decode_collectives"]}
+                     "decode": run["decode_collectives"],
+                     "states": {k: v.numpy() for k, v in
+                                run["cache"]["layers"].items()
+                                if k not in ("k", "v")}}
     return out
 
 
@@ -299,19 +361,30 @@ def test_tp_block_gathers_no_weight_over_model(name, runs):
 @pytest.mark.parametrize("name", sorted(SERVE))
 def test_tp_serving_matches_one_process(name, runs):
     from repro_torch.models import layers, model
-    from tests.test_torch_lm_serve_mesh import serve
+    from tests.test_torch_lm_serve_mesh import STATE_TOL, block, serve
 
     cases, ranks = runs
     saved = layers.COMPUTE_DTYPE
     _float32()
     try:
-        want = serve(SERVE[name], model.map_tree(
+        one = serve(SERVE[name], model.map_tree(
             torch.tensor, cases[name]["tree"]), cases[name]["tokens"],
-            PROMPT, MAX_LEN)["logits"]
+            PROMPT, MAX_LEN)
     finally:
         layers.COMPUTE_DTYPE = saved
+    want = one["logits"]
+    layout = model.cache_layout(SERVE[name], {"data": 2, "model": 2}, B,
+                                MAX_LEN)["layers"]
     half = B // 2
     for r in ranks:
+        for k, got in r[name]["states"].items():      # SSM states, shifts
+            w = block(one["cache"]["layers"][k].numpy(), layout[k],
+                      r["coords"], {"data": 2, "model": 2})
+            assert got.shape == w.shape, (name, k)
+            scale = max(float(np.abs(w).max()), 1.0)
+            assert np.abs(got - w).max() <= STATE_TOL * scale, (name, k)
+        assert not any(k.startswith("all_gather decode state")
+                       for k in r[name]["decode"]), name
         rows = slice(r["coords"]["data"] * half,
                      (r["coords"]["data"] + 1) * half)
         for i, (g, w) in enumerate(zip(r[name]["logits"], want)):

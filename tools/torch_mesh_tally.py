@@ -11,10 +11,14 @@ mesh.
 It prints a line per collective name (calls, the rank's input bytes and
 its output bytes a step), the totals, the rank's resident bytes and the
 peak MemTracker saw.  A decode step's ``--seq`` is its cache's length.
-These are the code's own byte counts: the figures phases 17b and 18b of
-``chip_smoke.py`` should read from ``collectives.tally`` on the card at
-the same shapes (``--batch 8 --seq 512`` and ``--kind decode --seq
-516``).
+These are the code's own byte counts: the figures phases 17b, 17d, 18b
+and 18d of ``chip_smoke.py`` should read from ``collectives.tally`` on the
+card at the same shapes: 17b ``--arch smollm-360m --layers 8 --batch 8
+--seq 512``, 18b the same with ``--kind decode --seq 516``; 17d
+``--arch rwkv6-3b --layers 1 --batch 2 --seq 512`` and ``--arch
+zamba2-2.7b --layers 6 --batch 2 --seq 512``, 18d each with ``--kind
+decode --seq 516``.  An all-to-all's input bytes are the rank's whole
+buffer, the part it keeps included.
 """
 
 from __future__ import annotations
