@@ -108,7 +108,8 @@ phase's final trainer; ``serve_path``):
    client's z and n_dk bit-equal.  Held-out perplexity must fall under
    each policy; round ms print beside phase 4's BSP cadence, and the
    snapshot's bytes, save and restore seconds.  The snapshots are deleted.
-13. The wire, on phase 4's LDA (two clients, two shard servers, in
+13. The wire, on phase 4's LDA at full width on the first WIRE_DOCS
+   (16,384) of its documents (two clients, two shard servers, in
    threads of this process unless said): (a) tcp-bsp, a tcp Trainer with
    both clients over 1 round, after it n_wk and every client's z and
    n_dk bit-equal to an in-process BSP trainer, exact, its round ms beside
@@ -133,20 +134,22 @@ phase's final trainer; ``serve_path``):
    sorted``), so their numbers stay comparable across PRs.
 14. The position-scan layout, on phase 4's corpus at full width (two
    clients of 32,768 documents, BSP, kernels 8 and 9 in every MH step):
-   scan-lda (``LDAConfig`` defaults, MHW, 3 cadence rounds; kernels 2, 8,
+   scan-lda (``LDAConfig`` defaults, MHW, 2 cadence rounds; kernels 2, 8,
    9), scan-lda-incremental (2 rounds with phase 4's incremental
    settings; kernels 3, 8, 9), scan-lda-exact (2 rounds; kernel 2),
    scan-hdp (2 rounds, prior b1·θ0; kernels 2, 8, 9), scan-pdp (2 rounds;
    kernel 2 at width 2048, then 8 and 9 over E = 2048) and tcp-scan (one
    LDA round over two shard servers in threads, bit-equal to the same
-   round in process).  After every round: exact, no violation, HDP's
+   round in process, on phase 13's WIRE_DOCS documents).  After every
+   round: exact, no violation, HDP's
    local rules; held-out perplexity falls (32 documents, 256 for HDP),
    printed beside the sorted trainer's at the same round.  Kernels 8 and
    9 must launch 2 clients × 256 positions × mh_steps times a MHW round.
    Kernels 8 and 9 on the first position's inputs of the last round of
    scan-lda (B = 32,768) and of scan-pdp (E = 2048), against their plain
    versions on the same card tensors and timed; one scan-lda round
-   profiled; ``mh_chain_with_stats``'s acceptance rate after the first
+   profiled (its window opened by ``pad_launches``, not a round);
+   ``mh_chain_with_stats``'s acceptance rate after the first
    and the last scan-lda round; one scan sweep at K = 16 on the CPU and
    on the card with the same injected draws.  SCAN lines carry the
    numbers.
@@ -154,13 +157,14 @@ phase's final trainer; ``serve_path``):
    corpus at full width, the proposal refreshed before each round (under
    SSP when the cache is): (a) NCCL at world size 1 in this process
    (``make_host_mesh(1, 1)``, one client of 65,536 documents): mesh-lda
-   (sorted, 3 rounds), mesh-lda-ssp1 (3; kernel 2 at rounds 0 and 2),
+   (sorted, 2 rounds), mesh-lda-ssp1 (3; kernel 2 at rounds 0 and 2),
    mesh-pdp (sorted, 2) and mesh-hdp-scan (the scan layout, 2; kernels 8
    and 9 exactly 256 positions × mh_steps a round), every round bit-equal
    to the same round composed in this process without torch.distributed
    (``composed_round``: ``client_round``, the push, Algorithm 1) from the
    same key, exact, no violation, HDP's local rules; LDA's held-out
-   perplexity falls; the last round of each profiled.  Each path first
+   perplexity falls; the last round of each sorted path profiled
+   (mesh-hdp-scan's moves what mesh-lda's does).  Each path first
    holds its kernels against their plain versions at these shapes, on
    the inputs of its first composed round: kernel 1 or 4 on a slice of
    the first sorted chunk (4,194,304 positions) whose documents lie in
@@ -253,7 +257,16 @@ phase's final trainer; ``serve_path``):
    hold by), where every leaf must be held; every rank's blocks
    of their specs' shapes, the collectives by name and group (none
    gathers a weight over ``model``), resident and peak GiB a rank beside
-   one card's.  MESH-LM lines carry step ms and tokens/s, each collective's
+   one card's.  Then the same under zero_seq (MESH_SSM_SEQ): the two plans
+   and whisper-large-v3 at published widths, one decoder and one encoder
+   layer, its 1,500 frames split 750 + 750, one step each against one
+   card's step under the mode's activation spec by the same bounds; each
+   rank's recurrences (and whisper's encoder) on its own 256 positions
+   (750 frames): no ``sequence in`` or ``frames`` gather on any rank, the
+   rank-boundary state and halo exchanges on rank 0 (``seq state``,
+   ``seq halo``) equal to the byte to SEQ_PREDICTED
+   (``tools/torch_mesh_tally.py``), the peak GiB a rank beside the same
+   step's before the change (SEQ_PEAK_BEFORE).  MESH-LM lines carry step ms and tokens/s, each collective's
    calls, bytes and ms from megatron's profiled step's spans (the zero
    modes' calls and bytes from the tally alone: the time limit), the peak
    GiB a rank and the card.
@@ -287,7 +300,12 @@ phase's final trainer; ``serve_path``):
    card's by 16a's decode rule, every cache leaf of ``local_shape``'s
    shape, decode ms and the collectives a step by name: no weight and no
    SSM state among them, the bytes those ``tools/torch_mesh_tally.py``
-   predicts.  (c)
+   predicts; then a zero_seq prefill of each (each rank's recurrences on
+   its 256 positions, the carries sent from the last model rank to the
+   cache's blocks): the model ranks of a row block bit-equal, the logits
+   against one card's prefill by 16a's decode rule, every cache leaf of
+   ``local_shape``'s shape, no ``sequence in`` gather, the exchanges by
+   name.  (c)
    ``python -m repro_torch.launch.dryrun --arch smollm-360m --shape
    decode_32k --multi-pod`` in a subprocess started before phase 17 and
    read after (b) (it needs no card; its fake process group of 512 never
@@ -306,13 +324,17 @@ just before it and read just after (phase 13's: around each step, and in
 each worker process; phase 15b's in each rank, summed), and every kernel
 of the path must have launched;
 launches made only to check a path are left out.
+Phases 13-15 print each path's seconds on the host's clock (PATH lines,
+a PATHS line at each phase's end: set-up, rounds and checks).
 The last lines are the kernels JSON, the card, and the result JSON.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -411,6 +433,12 @@ SUMMARIES: dict[str, dict] = {}   # TRAIN lines by path and mode
 # frame is hundreds of MiB), the launchers' limit, the failover run's
 # reduced size (its restarts' time and disk), and the WIRE lines by path.
 WIRE_TIMEOUT_S = 600.0
+# Phase 13 and tcp-scan run on the first WIRE_DOCS of phase 4's 65,536
+# documents (the corpus draws document by document, so they are the
+# corpus of WIRE_DOCS documents the loopback's workers draw): a round's
+# frames are (V, K) whatever the documents, and the workers' own corpus
+# build took ~21 s of host time at 65,536 on an H100 machine.
+WIRE_DOCS = 16_384
 LOOPBACK_TIMEOUT_S = 300.0
 FAILOVER = {"n_topics": 64, "vocab_size": 8192, "n_docs": 2048,
             "doc_len": 64, "corpus_seed": 3}
@@ -427,6 +455,24 @@ def card_line() -> str:
 
 def phase(name: str, t0: float) -> None:
     print(f"PHASE {name} ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+# Phases 13-15 by path: {phase: {path: seconds on the host's clock}}.
+PATHS: dict = {}
+
+
+def path_seconds(ph: str, name: str, t0: float) -> float:
+    """The seconds since ``t0`` of phase ``ph``'s path ``name`` (its
+    set-up, rounds and checks), printed and kept for the phase's PATHS
+    line."""
+    secs = time.perf_counter() - t0
+    PATHS.setdefault(ph, {})[name] = round(secs, 1)
+    print(f"PATH {ph} {name} {secs:.1f} s", flush=True)
+    return secs
+
+
+def paths_line(ph: str) -> None:
+    print(f"PATHS {ph} {json.dumps(PATHS.get(ph, {}))}", flush=True)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -703,11 +749,15 @@ def profile_window(fn, opening=None):
     return result, wall_ms, by_name, bool(span), events
 
 
-def profile_round(trainer, label: str, mode: str) -> None:
+def profile_round(trainer, label: str, mode: str,
+                  opening_round: bool = True) -> None:
     """Two more rounds of the trainer's ``mode`` (cadence or incremental)
     under torch.profiler (``profile_window``), the first the window's
     opening, the second measured: device time by kernel and the device's
-    busy share of the round's wall time.
+    busy share of the round's wall time.  Without ``opening_round`` the
+    window opens with ``pad_launches`` (a scan round's trace is reduced to
+    its events in ~35 s of host time, which its alias build, at the
+    round's end, does not need).
     A profiled window may lose device records: in the fused-LDA round the
     counters showed kernel 6's launch while the trace started ~6 ms in, and
     a warm-up kernel with a 50 ms pause first did not help; one HDP round
@@ -727,8 +777,8 @@ def profile_round(trainer, label: str, mode: str) -> None:
         before.update(_build.LAUNCHES)
         trainer.step()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        _, wall_ms, by_name, ranged, events = profile_window(measured,
-                                                             trainer.step)
+        _, wall_ms, by_name, ranged, events = profile_window(
+            measured, trainer.step if opening_round else None)
         builds = sum(n - before.get(name, 0)
                      for name, n in _build.LAUNCHES.items()
                      if name.startswith("alias_build"))
@@ -2694,6 +2744,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         return exact_check(1)(tr, r, log, stats)
 
     # (a) tcp-bsp: bit-equal to an in-process BSP trainer every round.
+    t_path = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     ref = Trainer(cfg, tokens, mask, config=bsp, seed=0, device=dev)
     per_round: list[dict] = []
@@ -2703,6 +2754,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     path_counts_of("tcp-bsp", counts["tcp-bsp"], lm_kernels_)
     out["launches"] = counts["tcp-bsp"]
     out["breakdown"] = pull_breakdown(out, dev)
+    path_seconds("13", "tcp-bsp", t_path)
     counts["tcp-from-servers"] = {}
     t = time.perf_counter()
     frozen = launched_around(counts["tcp-from-servers"], lambda:
@@ -2724,6 +2776,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     out["checksums"] = per_round[0]
     close_wire(out)
     wire_line("tcp-bsp", out)
+    path_seconds("13", "from-servers", t)
 
     # (a') sparse_push without a filter, one round: bit-equal to (a)'s.
     def as_dense(tr, r, log, stats):
@@ -2732,6 +2785,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
                                  "from tcp-bsp's")
         return "checksums equal to tcp-bsp's"
 
+    t = time.perf_counter()
     counts["tcp-sparse"] = {}
     out = tcp_rounds("tcp-sparse", cfg, tokens, mask, dev, 1,
                      tcfg_kw={"sparse_push": True},
@@ -2741,6 +2795,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     wire_line("tcp-sparse", out)
     del ref
     torch.cuda.empty_cache()
+    path_seconds("13", "tcp-sparse", t)
 
     # (b) tcp-topk: the top-k filter's error feedback conserves counts;
     # sparse frames carry at most k_rows + random_rows rows.
@@ -2758,6 +2813,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
                                  f"residuals) {err}, rows a push {rows}")
         return f"counts-(n_wk+residuals)={err} rows_sent={rows}"
 
+    t = time.perf_counter()
     counts["tcp-topk"] = {}
     torch.cuda.reset_peak_memory_stats()
     out = tcp_rounds("tcp-topk", cfg, tokens, mask, dev, 1,
@@ -2767,9 +2823,11 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     close_wire(out)
     wire_line("tcp-topk", out)
     torch.cuda.empty_cache()
+    path_seconds("13", "tcp-topk", t)
 
     # (c) tcp-ssp2: exact every round; NOT_MODIFIED on the stale round;
     # kernel 2 on the refresh (round 0) only.
+    t = time.perf_counter()
     counts["tcp-ssp2"] = {}
     torch.cuda.reset_peak_memory_stats()
     out = tcp_rounds("tcp-ssp2", cfg, tokens, mask, dev, 2,
@@ -2786,9 +2844,11 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     close_wire(out)
     wire_line("tcp-ssp2", out)
     torch.cuda.empty_cache()
+    path_seconds("13", "tcp-ssp2", t)
 
     # (d) tcp-pdp: PDP over two shards (a one-shard pull of m_wk and s_wk
     # would pass MAX_PAYLOAD), bit-equal to in process.
+    t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     pref = Trainer(pcfg, tokens, mask, config=bsp, seed=0, device=dev)
     counts["tcp-pdp"] = {}
@@ -2800,6 +2860,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     wire_line("tcp-pdp", out)
     del pref
     torch.cuda.empty_cache()
+    path_seconds("13", "tcp-pdp", t)
 
     # (e) loopback: a shard process (two shards) and two worker
     # processes, all on the card; checksums equal to each other's and to
@@ -2809,6 +2870,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         (root / sub).mkdir(parents=True)
     # (f) runs beside (e): their processes, ports and directories are
     # their own.
+    t_pair = time.perf_counter()
     failover = start_failover(root, dev)
     t = time.perf_counter()
     res = loopback.launch_loopback(
@@ -2819,7 +2881,7 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         workdir=str(root / "loopback"),
         extra_client_args=("--corpus-topics", str(ccfg.n_topics),
                            "--eval-docs", "32"), device=dev.type)
-    secs = time.perf_counter() - t
+    secs = path_seconds("13", "loopback (beside failover)", t)
     if not res.ok:
         for p in res.failures():
             print(f"  loopback| {p.name} exit {p.returncode}: "
@@ -2846,9 +2908,11 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
     # (f) failover at a reduced size (K=64, V=8192): the time and disk of
     # the restarts; bit-equal to an undisturbed in-process run.
     failover["thread"].join()
+    path_seconds("13", "loopback and failover, wall", t_pair)
     if "error" in failover:
         raise failover["error"]
     res, secs = failover["res"], failover["seconds"]
+    PATHS["13"]["failover (beside loopback)"] = round(secs, 1)
     if not res.ok:
         for p in res.failures():
             print(f"  failover| {p.name} exit {p.returncode}: "
@@ -2856,8 +2920,10 @@ def wire(cfg, pcfg, ccfg, tokens, mask, dev, root: Path) -> dict:
         raise AssertionError(f"failover: {res.diagnostics}")
     finals = [p.result for p in res.clients if p.returncode == 0
               and p.result]
+    t = time.perf_counter()
     want = loopback._reference_run(6, layout="sorted", device=dev.type,
                                    **FAILOVER)
+    path_seconds("13", "failover's in-process reference", t)
     drops = sum(p["actions"]["conn_drop"] for p in res.proxies)
     summary = {"reduced": f"K={FAILOVER['n_topics']}, "
                f"V={FAILOVER['vocab_size']}, {FAILOVER['n_docs']} documents "
@@ -3203,10 +3269,12 @@ def scan_cpu_card(dev) -> dict:
     return out
 
 
-def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
-    """Phase 14 (see the module docstring); returns (the launch counts of
-    each path, each zeroed just before it; kernels 8 and 9 at the scan
-    grid, for the kernels JSON)."""
+def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev,
+         wire_corpus) -> tuple:
+    """Phase 14 (see the module docstring; tcp-scan on ``wire_corpus``,
+    phase 13's documents); returns (the launch counts of each path, each
+    zeroed just before it; kernels 8 and 9 at the scan grid, for the
+    kernels JSON)."""
     from repro_torch.engine import Trainer, TrainerConfig
     from repro_torch.kernels import _build
 
@@ -3216,16 +3284,21 @@ def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
     sorted_ppl = {f: SUMMARIES.get(f"{f}-cadence", {}).get("perplexity")
                   for f in ("lda", "pdp", "hdp")}
 
+    t = time.perf_counter()
     tap = KernelTap()
     tr, counts["scan-lda"], summaries["scan-lda"] = scan_path(
-        "scan-lda", cfg, scan_mhw, 3, tokens, mask, ho, dev, k289,
+        "scan-lda", cfg, scan_mhw, 2, tokens, mask, ho, dev, k289,
         sorted_ppl["lda"], tap=tap, accept=True)
     figures["lda"] = scan_kernel_figures("scan-lda", tap.inputs,
                                          cfg.n_topics)
-    profile_round(tr, "scan-lda", "cadence")
+    path_seconds("14", "scan-lda", t)
+    t = time.perf_counter()
+    profile_round(tr, "scan-lda", "cadence", opening_round=False)
     del tr, tap
     torch.cuda.empty_cache()
+    path_seconds("14", "scan-lda profiled round", t)
 
+    t = time.perf_counter()
     inc = TrainerConfig(layout="scan", method="mhw", n_clients=2,
                         alias_rebuild_threshold=0.0,
                         alias_rebuild_rows=GATHER_ROWS,
@@ -3236,24 +3309,30 @@ def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
         ("alias_build_gather_fused", "alias_sample", "mh_accept"))
     del tr
     torch.cuda.empty_cache()
+    path_seconds("14", "scan-lda-incremental", t)
 
+    t = time.perf_counter()
     exact_cfg = TrainerConfig(layout="scan", method="exact", n_clients=2)
     tr, counts["scan-lda-exact"], summaries["scan-lda-exact"] = scan_path(
         "scan-lda-exact", cfg, exact_cfg, 2, tokens, mask, ho, dev,
         ("alias_build",))
     del tr
     torch.cuda.empty_cache()
+    path_seconds("14", "scan-lda-exact", t)
 
     # Phase 8's cadence mode began after phase 7's round: its round r is
     # the sorted trainer's round r + 1.  Four rounds: over the first two
     # HDP's held-out perplexity rises (by 0.2% on an H100 at this size)
     # while θ0 first concentrates, and falls from the third.
+    t = time.perf_counter()
     tr, counts["scan-hdp"], summaries["scan-hdp"] = scan_path(
         "scan-hdp", hcfg, scan_mhw, 4, tokens, mask, ho_hdp, dev, k289,
         [None] + list(sorted_ppl["hdp"] or []))
     del tr
     torch.cuda.empty_cache()
+    path_seconds("14", "scan-hdp", t)
 
+    t = time.perf_counter()
     tap = KernelTap()
     tr, counts["scan-pdp"], summaries["scan-pdp"] = scan_path(
         "scan-pdp", pcfg, scan_mhw, 2, tokens, mask, ho, dev, k289,
@@ -3262,13 +3341,15 @@ def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
                                          2 * pcfg.n_topics)
     del tr, tap
     torch.cuda.empty_cache()
+    path_seconds("14", "scan-pdp", t)
 
     # tcp-scan: one LDA round over two shard servers in threads of this
     # process, bit-equal to the same round in process.
+    t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    ref = Trainer(cfg, tokens, mask, config=scan_mhw, seed=0, device=dev)
+    ref = Trainer(cfg, *wire_corpus, config=scan_mhw, seed=0, device=dev)
     counts["tcp-scan"] = {}
-    out = tcp_rounds("tcp-scan", cfg, tokens, mask, dev, 1,
+    out = tcp_rounds("tcp-scan", cfg, *wire_corpus, dev, 1,
                      tcfg_kw={"layout": "scan"}, ref=ref,
                      counts=counts["tcp-scan"],
                      check=lambda tr_, r, log, stats: exact("tcp-scan", tr_,
@@ -3284,8 +3365,11 @@ def scan(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev) -> tuple:
     wire_line("tcp-scan", out)
     del ref
     torch.cuda.empty_cache()
+    path_seconds("14", "tcp-scan", t)
 
+    t = time.perf_counter()
     figures["cpu_card"] = scan_cpu_card(dev)
+    path_seconds("14", "cpu-card", t)
     _build.reset_launches()
     return counts, figures
 
@@ -3521,14 +3605,15 @@ def mesh_kernel_checks(label: str, inputs: dict) -> dict:
 
 
 def mesh_path(label, cfg, dcfg, rounds, shards, ho, dev, mesh, kernels,
-              want: dict, falls_: bool) -> tuple[dict, dict]:
+              want: dict, falls_: bool,
+              profiled: bool = True) -> tuple[dict, dict]:
     """Phase 15a's path: ``rounds`` mesh rounds at world size 1 on NCCL, the
     proposal refreshed when due (every round; under SSP when the cache
     is), each bit-equal to :func:`composed_round` from the same key, exact
     and without violations; the first composed round's kernel inputs
     checked (``mesh_kernel_checks``); the launch counters zeroed just
     before and read just after (the composed rounds' and the checks'
-    launches left out); the last round profiled."""
+    launches left out); the last round profiled where ``profiled``."""
     from repro_torch import device as device_mod
     from repro_torch.core import distributed, family
     from repro_torch.kernels import _build
@@ -3571,7 +3656,7 @@ def mesh_path(label, cfg, dcfg, rounds, shards, ho, dev, mesh, kernels,
             return round_fn(local, state, *shards[0], (1, r), [True])
         torch.cuda.synchronize()
         t = time.perf_counter()
-        if r == rounds - 1:
+        if r == rounds - 1 and profiled:
             (local, state), profile = mesh_profile(step)
         else:
             local, state = step()
@@ -3592,7 +3677,7 @@ def mesh_path(label, cfg, dcfg, rounds, shards, ho, dev, mesh, kernels,
         ppl.append(fam.perplexity(cfg, server.assemble(state), *ho_t,
                                   (0, device_mod.EVAL, 42)))
         print(f"MESH {label} round {r} "
-              f"{ms[-1] if r < rounds - 1 else profile['wall_ms']:.2f} ms "
+              f"{ms[-1] if profile is None else profile['wall_ms']:.2f} ms "
               f"clocks={state.clocks.tolist()} cache_version="
               f"{state.cache_version} consistency_error={err} violations="
               f"{viol} local_violations={local_viol} heldout_perplexity="
@@ -3607,7 +3692,8 @@ def mesh_path(label, cfg, dcfg, rounds, shards, ho, dev, mesh, kernels,
         raise AssertionError(f"{label}: perplexity did not fall: {ppl}")
     path_counts_of(label, counts, kernels)
     launches_are(label, counts, want)
-    collective_line(label, profile["collectives"], 1)
+    if profile is not None:
+        collective_line(label, profile["collectives"], 1)
     n_tok = sum(int(m.sum()) for _, m in shards)
     summary = {"rounds": rounds, "round_ms": ms,
                "median_round_ms": statistics.median(ms),
@@ -3656,9 +3742,9 @@ def mesh_world1(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev,
         l = tokens.shape[1]
         for label, mcfg, dcfg, rounds, h, kernels, want, falls_ in (
                 ("mesh-lda", cfg, distributed.DistConfig(
-                    model="lda", layout="sorted"), 3, ho,
+                    model="lda", layout="sorted"), 2, ho,
                  ("mhw_sweep_fused", "doc_topic_lists", "alias_build"),
-                 {"mhw_sweep_fused": 3 * chunks, "alias_build": 3}, True),
+                 {"mhw_sweep_fused": 2 * chunks, "alias_build": 2}, True),
                 ("mesh-lda-ssp1", cfg, distributed.DistConfig(
                     model="lda", layout="sorted", consistency="ssp:1"), 3,
                  ho, ("mhw_sweep_fused", "doc_topic_lists", "alias_build"),
@@ -3674,12 +3760,13 @@ def mesh_world1(cfg, pcfg, hcfg, tokens, mask, ho, ho_hdp, dev,
                  {"alias_sample": 2 * l * hcfg.mh_steps,
                   "mh_accept": 2 * l * hcfg.mh_steps}, False)):
             t = time.perf_counter()
+            # mesh-hdp-scan's round moves what mesh-lda's profiled round
+            # shows; its scan round's trace costs ~15 s of host time
             counts[label], summaries[label] = mesh_path(
                 label, mcfg, dcfg, rounds, shards, h, dev, mesh, kernels,
-                want, falls_)
+                want, falls_, profiled=label != "mesh-hdp-scan")
             torch.cuda.empty_cache()
-            print(f"MESH {label} path {time.perf_counter() - t:.1f} s",
-                  flush=True)
+            path_seconds("15", label, t)
     finally:
         dist.destroy_process_group()
     return counts, summaries
@@ -3795,6 +3882,7 @@ def mesh_gloo(cfg, tokens, mask, dev, root: Path) -> tuple[dict, dict]:
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import run_on_mesh
 
+    t_path = time.perf_counter()
     root.mkdir(parents=True, exist_ok=True)
     for c, (t, m) in enumerate(shard_corpus(tokens, mask, 2)):
         np.save(root / f"tokens{c}.npy", t)
@@ -3842,12 +3930,14 @@ def mesh_gloo(cfg, tokens, mask, dev, root: Path) -> tuple[dict, dict]:
     restore_counts(saved)
     del locals_, state, layouts
     torch.cuda.empty_cache()
+    path_seconds("15", "2x2 composed rounds and sync (this process)",
+                 t_path)
 
     t = time.perf_counter()
     ranks = run_on_mesh(mesh_rank, 2, 2, device=dev, backend="gloo",
                         args=(str(root), cfg, MESH_PLAN),
                         timeout=MESH_TIMEOUT_S)
-    launched_s = time.perf_counter() - t
+    launched_s = path_seconds("15", "2x2 ranks (run_on_mesh)", t)
     counts, summaries = {}, {}
     n_tok = int(mask.sum())
     for label, _, plan_alive in MESH_PLAN:
@@ -4303,7 +4393,37 @@ MESH_SSM = ({"arch": "rwkv6-3b", "n_layers": 1, "batch": 2, "seq": 512,
 MESH_SSM_F32 = {"arch": "zamba2-2.7b", "n_layers": 6, "batch": 2, "seq": 128,
                 "steps": 1, "peak_lr": 1e-3, "float32": True,
                 "hold_all": True, "grad_floor": 2.0 ** -7}
-SSM_CHECKS = MESH_SSM + (MESH_SSM_F32,)
+# 17d under zero_seq (the sequence split over ``model``: each rank's
+# recurrences on its 256 positions, only the rank-boundary states and halos
+# exchanged): 17d's two plans, and whisper-large-v3 at published widths
+# with one decoder and one encoder layer, its 1,500 frames split 750 + 750.
+MESH_SSM_SEQ = tuple(dict(p, mode="zero_seq") for p in MESH_SSM) + (
+    {"arch": "whisper-large-v3", "n_layers": 1, "encoder_layers": 1,
+     "batch": 2, "seq": 512, "steps": 1, "peak_lr": 1e-3,
+     "mode": "zero_seq"},)
+SSM_CHECKS = MESH_SSM + (MESH_SSM_F32,) + MESH_SSM_SEQ
+# The zero_seq steps' exchanges in a step on rank 0 (input bytes), as
+# ``tools/torch_mesh_tally.py --mode zero_seq`` predicts them on a fake
+# 2x2 group at the plans' shapes (no (B, S, D) ``sequence in`` or
+# ``frames`` gather is left).
+SEQ_PREDICTED = {
+    "rwkv6-3b zero_seq": {"all_to_all seq state": 1_331_200,
+                          "all_to_all seq state grad": 0,
+                          "all_to_all seq halo": 20_480,
+                          "all_to_all seq halo grad": 0},
+    "zamba2-2.7b zero_seq": {"all_to_all seq state": 15_851_520,
+                             "all_to_all seq state grad": 0,
+                             "all_to_all seq halo": 737_280,
+                             "all_to_all seq halo grad": 0},
+    "whisper-large-v3 zero_seq": {}}
+# The same zero_seq steps' peak GiB a rank before the change (each model
+# rank ran the recurrences, and whisper's encoder, on the whole gathered
+# sequence): that package's step in a script of these functions alone on
+# an H100 80GB HBM3 at 700 W (the largest rank's; the same script on the
+# sequence-parallel package read 4.043, 8.075, 2.078).
+SEQ_PEAK_BEFORE = {"rwkv6-3b zero_seq": 4.043, "zamba2-2.7b zero_seq": 12.652,
+                   "whisper-large-v3 zero_seq": 2.449}
+SEQ_GATHERS = ("all_gather sequence in", "all_gather frames")
 # 17d's first gradients against one card's, leaf by leaf (AdamW's m after
 # the step): each leaf within MESH_LM_MARGIN times one card's own spread
 # between one and two microbatches, and at least 2^-4 (relative Frobenius;
@@ -4324,8 +4444,39 @@ def lm_tcfg(cfg_kw: dict, microbatches: int = 1):
 
 def lm_mesh_config(plan: dict):
     from repro_torch.configs.registry import ARCHITECTURES
-    kw = {k: plan[k] for k in ("n_layers", "moe_groups") if k in plan}
+    kw = {k: plan[k] for k in ("n_layers", "moe_groups", "encoder_layers")
+          if k in plan}
     return ARCHITECTURES[plan["arch"]].replace(**kw)
+
+
+def plan_batches(cfg, plan: dict) -> list:
+    """``plan``'s global batches: ``lm_batches``' affine tokens, and for
+    an audio model its frames (normal draws, from the batch's index)."""
+    from repro_torch.data.synthetic import lm_batches
+
+    out = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
+                          plan["steps"], seed=1, kind="affine"))
+    if cfg.family == "audio":
+        for i, b in enumerate(out):
+            b["frames"] = np.random.default_rng(1700 + i).standard_normal(
+                (plan["batch"], cfg.n_frames, cfg.d_model)).astype(
+                    np.float32)
+    return out
+
+
+def plan_mode(plan: dict) -> str:
+    return plan.get("mode", "megatron")
+
+
+def plan_hooks(plan: dict):
+    """A zero mode's activation spec with no mesh, for one card's side of
+    a plan (its blocks then cast to bf16 before use, as on the mesh)."""
+    from repro_torch.models import layers
+    from repro_torch.train import sharding
+    if plan_mode(plan) == "megatron":
+        return contextlib.nullcontext()
+    return layers.mesh_hooks(sharding.activation_spec(
+        {"data": 2, "model": 2}, plan_mode(plan)))
 
 
 def tree_bytes(*trees) -> int:
@@ -4976,8 +5127,10 @@ def sums_update_err(sums: torch.Tensor) -> float:
 
 
 def ssm_name(plan: dict) -> str:
-    """17d's name of a plan: its arch, and its compute dtype if not bf16."""
-    return plan["arch"] + (" float32" if plan.get("float32") else "")
+    """17d's name of a plan: its arch, its compute dtype if not bf16 and
+    its mode if not megatron."""
+    return plan["arch"] + (" float32" if plan.get("float32") else "") + (
+        "" if plan_mode(plan) == "megatron" else " " + plan_mode(plan))
 
 
 @contextlib.contextmanager
@@ -5016,15 +5169,14 @@ def ssm_one_card(dev, plan: dict, root: Path) -> dict:
     microbatches (the one-card run's own spread: the loss, grad_norm and
     parameters as 17b's, and AdamW's m after the step leaf by leaf), their
     metrics, step ms, resident bytes and peak; the one-microbatch run's
-    final parameters and m saved under ``root`` for rank 0."""
-    from repro_torch.data.synthetic import lm_batches
+    final parameters and m saved under ``root`` for rank 0.  A zero mode's
+    plan runs under its activation spec."""
     from repro_torch.models import model
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_train_step
 
     cfg = lm_mesh_config(plan)
-    data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
-                           plan["steps"], seed=1, kind="affine"))
+    data = plan_batches(cfg, plan)
     runs = {}
     for mb in (1, 2):
         torch.cuda.synchronize()
@@ -5032,7 +5184,7 @@ def ssm_one_card(dev, plan: dict, root: Path) -> dict:
         params = model.init_params(cfg, seed=0, device=dev)
         opt = adamw.init(params)
         mets, ms = [], []
-        with plan_dtype(plan):
+        with plan_dtype(plan), plan_hooks(plan):
             step = make_train_step(cfg, lm_tcfg(plan, mb), device=dev)
             for b in data:
                 (params, opt, m), t_ = synced_ms(lambda: step(params, opt,
@@ -5069,8 +5221,8 @@ def ssm_one_card(dev, plan: dict, root: Path) -> dict:
 
 
 def mesh_ssm_rank(mesh, dev, plan: dict, root: str) -> dict:
-    """17d on one rank of the 2x2 gloo mesh: the megatron step(s) of
-    ``plan`` from the seed's weights cut to the rank's blocks; its
+    """17d on one rank of the 2x2 gloo mesh: the step(s) of ``plan`` in
+    its mode from the seed's weights cut to the rank's blocks; its
     metrics, step ms, blocks' shapes against their specs, resident bytes,
     peak memory and collectives by name and group; the parameters and
     AdamW's m against the one-card run's, each rank its blocks against
@@ -5080,26 +5232,25 @@ def mesh_ssm_rank(mesh, dev, plan: dict, root: str) -> dict:
     import torch.distributed as dist
 
     from repro_torch.core import collectives
-    from repro_torch.data.synthetic import lm_batches
     from repro_torch.models import model
     from repro_torch.optim import adamw
     from repro_torch.train import sharding
     from repro_torch.train.train_step import make_train_step, param_layout
 
     cfg = lm_mesh_config(plan)
-    data = list(lm_batches(cfg.vocab_size, plan["batch"], plan["seq"],
-                           plan["steps"], seed=1, kind="affine"))
-    specs = param_layout(cfg, mesh, "megatron")
+    data = plan_batches(cfg, plan)
+    specs = param_layout(cfg, mesh, plan_mode(plan))
     params = sharding.shard_tree(model.init_params(cfg, seed=0, device=dev),
                                  specs, mesh)
     opt = adamw.init(params)
     torch.cuda.synchronize()
+    gc.collect()            # an earlier plan's cycles, so its tensors free
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mets, ms = [], []
     with plan_dtype(plan), collectives.tally(by="group") as counts:
         step = make_train_step(cfg, lm_tcfg(plan), device=dev, mesh=mesh,
-                               mode="megatron")
+                               mode=plan_mode(plan))
         for b in data:
             dist.barrier()
             (params, opt, m), t_ = synced_ms(lambda: step(params, opt, b))
@@ -5191,7 +5342,7 @@ def ssm_check(plan: dict, one: dict, recs: list, card: str) -> dict:
           "microbatches: " + ", ".join(f"{n} {x:.2e}" for x, n in widest),
           flush=True)
     print(f"{label} ({cfg.n_layers} layers, {plan['batch']}x{plan['seq']}, "
-          f"megatron, 2x2 gloo): step {recs[0]['step_ms'][-1]:.1f} ms "
+          f"{plan_mode(plan)}, 2x2 gloo): step {recs[0]['step_ms'][-1]:.1f} ms "
           f"(rank 0; one card {one['step_ms'][-1]:.1f}); loss "
           f"{err['loss']:.2e} (bound {bounds['loss']:.2e}), grad_norm "
           f"{err['grad_norm']:.2e} (bound {bounds['grad_norm']:.2e}), "
@@ -5204,8 +5355,11 @@ def ssm_check(plan: dict, one: dict, recs: list, card: str) -> dict:
           f"{BESIDE['17d']}", flush=True)
     summary["tally"] = tally_lines(label, recs[0]["tally"],
                                    recs[0]["model_group"], "step")
+    if plan_mode(plan) == "zero_seq":
+        summary["exchanges"] = seq_exchanges(label, name, recs, one)
     print(f"{label} {json.dumps(summary)}", flush=True)
-    if summary["tally"]["model_weight_gathers"]:
+    if plan_mode(plan) == "megatron" and \
+            summary["tally"]["model_weight_gathers"]:
         raise AssertionError(f"17d {name}: weights gathered over the "
                              f"model group: {summary['tally']}")
     bad = {k: (err[k], bounds[k]) for k in err if err[k] > bounds[k]}
@@ -5216,6 +5370,33 @@ def ssm_check(plan: dict, one: dict, recs: list, card: str) -> dict:
     if bad:
         raise AssertionError(f"17d {name}: {bad} beyond the bounds")
     return summary
+
+
+def seq_exchanges(label: str, name: str, recs: list, one: dict) -> dict:
+    """A zero_seq step of 17d: its rank-boundary exchanges by name on rank
+    0 against SEQ_PREDICTED (equal to the byte), no ``sequence in`` or
+    ``frames`` gather on any rank, and the peak GiB a rank against the
+    same step's before the change (SEQ_PEAK_BEFORE); a line of each."""
+    by_name: dict = {}
+    for key, c in recs[0]["tally"].items():
+        got = by_name.setdefault(key.rpartition(" @")[0], 0)
+        by_name[key.rpartition(" @")[0]] = got + c["bytes"]
+    gathered = sorted({k.rpartition(" @")[0] for r in recs
+                       for k in r["tally"]} & set(SEQ_GATHERS))
+    want = SEQ_PREDICTED[name]
+    got = {k: by_name.get(k, 0) for k in want}
+    peak = max(r["peak_gib"] for r in recs)
+    out = {"bytes": got, "predicted": want, "sequence_gathers": gathered,
+           "peak_gib": peak, "peak_gib_before": SEQ_PEAK_BEFORE[name]}
+    print(f"{label} rank-boundary exchanges in a step on rank 0: "
+          + (", ".join(f"{k} {v} B (predicted {want[k]})"
+                       for k, v in got.items()) or "none")
+          + f"; sequence gathers: {gathered or 'none'}; peak {peak:.2f} GiB "
+          f"a rank (before the change {SEQ_PEAK_BEFORE[name]} GiB on the "
+          f"same card; one card {one['peak_gib']:.2f})", flush=True)
+    if gathered or got != want:
+        raise AssertionError(f"17d {name}: {out}")
+    return out
 
 
 def mesh_lm_phase(dev, state16: dict, root: Path, card: str, box: dict,
@@ -5518,11 +5699,13 @@ def serve_gloo(dev, card: str, ranks: list) -> dict:
 def serve_ssm_rank(mesh, dev, plan: dict) -> dict:
     """18d on one rank of the 2x2 gloo mesh: the seed's weights in bf16
     cut to the rank's serve blocks and re-laid (``serve_params``); a
-    megatron prefill and ``plan``'s decode steps; each call's logits (the
-    rank's rows), every cache leaf's shape against ``local_shape``, decode
-    ms and collectives."""
+    megatron prefill and ``plan``'s decode steps, then a zero_seq prefill;
+    each call's logits (the rank's rows), every cache leaf's shape against
+    ``local_shape``, decode ms and collectives (the zero_seq prefill's by
+    name)."""
     import torch.distributed as dist
 
+    from repro_torch.core import collectives
     from repro_torch.models import model
     from repro_torch.train import sharding
 
@@ -5551,6 +5734,22 @@ def serve_ssm_rank(mesh, dev, plan: dict) -> dict:
            "prefill_ms": run["prefill_ms"], "decode_ms": run["decode_ms"],
            "collectives": run["collectives"],
            "resident_bytes": tree_bytes(params, run["cache"])}
+    del run
+    torch.cuda.empty_cache()
+    # a zero_seq prefill: each rank's recurrences on its positions, the
+    # carries from the last model rank
+    dist.barrier()
+    with collectives.tally(by="what") as counts:
+        run = serve_run(cfg, params, tokens, s, 0, mesh, "zero_seq", b,
+                        max_len)
+    wrong = []
+    sharding.map_with_path(
+        lambda p, x: None if tuple(x.shape) == sharding.local_shape(
+            model.specs_at(shapes, p).shape, model.specs_at(layout, p), mesh)
+        else wrong.append("/".join(p)), run["cache"])
+    out["zero_seq"] = {"logits": run["logits"][0], "wrong_shapes": wrong,
+                       "prefill_ms": run["prefill_ms"],
+                       "collectives": counts}
     del params, run
     torch.cuda.empty_cache()
     return out
@@ -5634,7 +5833,47 @@ def serve_ssm_check(dev, card: str, plan: dict, ranks: list) -> dict:
         raise AssertionError(f"18d {cfg.name}: {totals['all']['bytes']} B "
                              "a decode step a rank, not the "
                              f"{SERVE_SSM_PREDICTED[cfg.name]} predicted")
+    summary["zero_seq"] = serve_seq_check(cfg, ranks, one, card)
     return summary
+
+
+def serve_seq_check(cfg, ranks: list, one: dict, card: str) -> dict:
+    """18d's zero_seq prefill: the model ranks of a row block bit-equal,
+    the logits against one card's prefill by 16a's decode rule, every
+    cache leaf of ``local_shape``'s shape, no ``sequence in`` gather; a
+    SERVE-MESH line."""
+    rows = [None, None]
+    for r in ranks:
+        got, d = r["zero_seq"]["logits"], r["data"]
+        if rows[d] is not None and not torch.equal(rows[d], got):
+            raise AssertionError(f"18d {cfg.name} zero_seq: the model "
+                                 f"ranks of data {d} differ")
+        rows[d] = got
+        if r["zero_seq"]["wrong_shapes"]:
+            raise AssertionError(f"18d {cfg.name} zero_seq: rank "
+                                 f"{r['rank']}'s cache "
+                                 f"{r['zero_seq']['wrong_shapes']} off "
+                                 "local_shape")
+    check = serve_rows_check(f"18d {cfg.name} zero_seq", torch.cat(rows),
+                             one["logits"][0])
+    coll = ranks[0]["zero_seq"]["collectives"]
+    gathered = sorted(set(coll) & set(SEQ_GATHERS))
+    seq = {k: coll[k]["bytes"] for k in coll if " seq " in k
+           or k.startswith("all_to_all cache ")}
+    out = dict(check, prefill_ms=ranks[0]["zero_seq"]["prefill_ms"],
+               one_card_prefill_ms=one["prefill_ms"], exchanges=seq,
+               sequence_gathers=gathered, card=card)
+    print(f"SERVE-MESH 18d {cfg.name} zero_seq prefill "
+          f"{out['prefill_ms']:.1f} ms (rank 0; one card "
+          f"{one['prefill_ms']:.1f}): logits against one card's prefill: "
+          f"largest gap {check['max_rel_gap']:.2e} of a row's range (bound "
+          f"{DECODE_GAP}), min corr {check['min_corr']:.6f}; rank-boundary "
+          f"exchanges and the carries' moves on rank 0 (B in): {seq}; "
+          f"sequence gathers: {gathered or 'none'}; {json.dumps(out)}",
+          flush=True)
+    if gathered:
+        raise AssertionError(f"18d {cfg.name} zero_seq: {gathered}")
+    return out
 
 
 def serve_dry_run_start():
@@ -5957,19 +6196,22 @@ def main() -> int:
 
     # --------------------------------------------------------- phase 13
     t = time.perf_counter()
-    counts.update(wire(cfg, pcfg, ccfg, tokens, mask, dev,
-                       ROOT / "build" / "phase13"))
+    wire_corpus = (tokens[:WIRE_DOCS], mask[:WIRE_DOCS])
+    counts.update(wire(cfg, pcfg, dataclasses.replace(ccfg, n_docs=WIRE_DOCS),
+                       *wire_corpus, dev, ROOT / "build" / "phase13"))
+    paths_line("13")
     phase("wire", t)
 
     # --------------------------------------------------------- phase 14
     t = time.perf_counter()
     scan_counts, scan_figures = scan(cfg, pcfg, hcfg, tokens, mask, ho,
-                                     ho_hdp, dev)
+                                     ho_hdp, dev, wire_corpus)
     counts.update(scan_counts)
     for entry in report:
         if entry["name"] in ("alias_sample", "mh_accept"):
             entry["scan_grid"] = scan_figures["lda"][entry["name"]]
             entry["scan_grid_pdp"] = scan_figures["pdp"][entry["name"]]
+    paths_line("14")
     phase("scan", t)
 
     # --------------------------------------------------------- phase 15
@@ -5983,6 +6225,7 @@ def main() -> int:
     mesh_counts, _ = mesh_gloo(cfg, tokens, mask, dev,
                                ROOT / "build" / "phase15")
     counts.update(mesh_counts)
+    paths_line("15")
     phase("mesh-gloo", t2)
     phase("mesh", t)
 

@@ -27,7 +27,8 @@ Weight layout notes:
   parameters' storage specs and the mesh.  Every tensor of such a step is
   a rank's local block, so ``constrain`` is the identity; the helpers
   below gather what a computation needs across ranks (a weight at use,
-  an attention's keys and values over the sequence, a token group) with
+  an attention's keys and values over the sequence, a token group; under
+  zero_seq a recurrence's halo, :func:`seq_halo`) with
   the explicit collectives of ``core.collectives``, whose backward sums
   over the ranks that computed distinct slices (the gradient rule of
   ``train/train_step.py``).  Off a mesh every hook is unset and every
@@ -229,24 +230,36 @@ def gather_seq(x: torch.Tensor, what: str, dim: int = 1) -> torch.Tensor:
         [x], [(_MESH.get_group("model"), True, {0: dim})], what=what)[0]
 
 
-def local_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    """The rank's positions of a whole-sequence tensor."""
-    return collectives.local_chunk(x, dim, _MESH.get_group("model"))
+def seq_group():
+    """The model group where zero_seq splits the sequence over more than
+    one rank (contiguous equal ranges in rank order), else None: the
+    recurrences then run on the rank's positions, exchanging only what
+    crosses a rank's boundary (:func:`seq_halo`, the states of
+    ``linear_attn.linear_attention``)."""
+    if not sequence_sharded() or model_size() == 1:
+        return None
+    return model_group()
 
 
-def sequence_whole(fn):
-    """``fn`` of a (B, S, D) tensor run on the whole sequence under
-    zero_seq (the input gathered over ``model``, the rank's slice of the
-    output kept); for blocks whose every position depends on earlier ones
-    beyond attention: recurrences, token shifts, convolutions."""
-    def run(x, *args):
-        if not sequence_sharded():
-            return fn(x, *args)
-        out = fn(gather_seq(x, "sequence in"), *args)
-        if isinstance(out, tuple):
-            return (local_seq(out[0]),) + tuple(out[1:])
-        return local_seq(out)
-    return run
+def seq_halo(x: torch.Tensor, n: int, prev: torch.Tensor | None,
+             what: str = "seq halo") -> torch.Tensor:
+    """The ``n`` positions before the rank's first of a sequence split over
+    ``model`` (``x``: the rank's (B, S_local, ...)), for what looks back a
+    fixed number of positions (a token shift, a causal conv): those of
+    the ranks before it, however many ranks that takes, by one all-to-all
+    (differentiable), and those before the sequence's start from the last
+    rows of ``prev`` (a carry of the model's; zeros where None)."""
+    m, s = model_size(), x.shape[1]
+    own = collectives.one_each([(q * s, (q + 1) * s) for q in range(m)])
+    want = collectives.one_each([(max(0, q * s - n), q * s)
+                                 for q in range(m)])
+    got = collectives.relayout(x, model_group(), (1, own), (1, want), what)
+    short = n - got.shape[1]
+    if short:
+        head = x.new_zeros((x.shape[0], short) + x.shape[2:]) \
+            if prev is None else prev[:, prev.shape[1] - short:].to(x.dtype)
+        got = torch.cat([head, got], dim=1)
+    return got
 
 
 def gather_param(x: torch.Tensor, spec, wire=None,

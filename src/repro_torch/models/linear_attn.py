@@ -20,12 +20,22 @@ so it cannot overflow; the pairwise tensor is blocked over the key
 dimension (``K_BLOCK``) to bound the transient to (B, C, C, H, K_BLOCK).
 A per-step log decay is floored at ``MIN_LOG_W``.
 
+Under zero_seq the sequence is split over the model ranks in contiguous
+ranges (``group=``): each rank runs its chunks from a zero state, the
+ranks' final states and total decays are scanned over the ranks in
+⌈log₂ m⌉ exchanges of one state a rank (``"seq state"``), and each rank
+adds the state entering its range to its output (:func:`_carry_in`).  No
+rank computes another's positions, and no activation is gathered.
+
 ``linear_attention_ref`` is the step-by-step oracle used by tests.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.core import collectives
 
 MIN_LOG_W = -60.0   # per-step floor: e^-60 is already an exact-zero carry in f32
 K_BLOCK = 32        # key-dim blocking for the pairwise intra-chunk tensor
@@ -61,20 +71,41 @@ def linear_attention_ref(r, k, v, log_w, *, inclusive: bool,
 
 
 def linear_attention(r, k, v, log_w, *, chunk: int = 64, inclusive: bool,
-                     u: torch.Tensor | None = None, initial_state=None):
-    """Chunked evaluation; same contract as ``linear_attention_ref``."""
+                     u: torch.Tensor | None = None, initial_state=None,
+                     group=None):
+    """Chunked evaluation; same contract as ``linear_attention_ref``.  A
+    sequence that ``chunk`` does not divide ends on a shorter chunk (the
+    result does not depend on the chunk).
+
+    With ``group`` (zero_seq's model group) the sequence is split over the
+    group's ranks in contiguous ranges, in rank order: each rank passes its
+    positions (``initial_state`` counts on the first rank alone, as the
+    state before the sequence) and gets their output and the state after
+    its last position, on the last rank the sequence's final state
+    (:func:`_carry_in`)."""
     b, s, h, kd = k.shape
     p = v.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} must be a multiple of chunk {chunk}")
     log_w = log_w.clamp(MIN_LOG_W, 0.0).expand(b, s, h, kd).float()
+    split = group is not None and collectives.group_size(group) > 1
+    if split and dist.get_rank(group) > 0:
+        initial_state = None
     state = _state0(b, h, kd, p, initial_state, k.device)
+    out, state = _chunks(r, k, v, log_w, chunk, inclusive, u, state)
+    if split:
+        return _carry_in(r, log_w, out, state, inclusive, group)
+    return out, state
 
+
+def _chunks(r, k, v, log_w, chunk: int, inclusive: bool, u, state):
+    """The chunked recurrence from ``state`` over the clamped, expanded
+    ``log_w``: (out (B,S,H,P), the state after the last position)."""
+    b, s, h, kd = k.shape
+    chunk = max(1, min(chunk, s))
     t_idx = torch.arange(chunk, device=k.device)
     if inclusive:
-        pair_mask = t_idx[:, None] >= t_idx[None, :]   # s ≤ t
+        full_mask = t_idx[:, None] >= t_idx[None, :]   # s ≤ t
     else:
-        pair_mask = t_idx[:, None] > t_idx[None, :]    # s < t
+        full_mask = t_idx[:, None] > t_idx[None, :]    # s < t
 
     n_kb = max(1, kd // K_BLOCK)
     while kd % n_kb:
@@ -83,10 +114,12 @@ def linear_attention(r, k, v, log_w, *, chunk: int = 64, inclusive: bool,
 
     outs = []
     for c0 in range(0, s, chunk):
-        r_i = r[:, c0:c0 + chunk].float()              # (B,C,H,K)
-        k_i = k[:, c0:c0 + chunk].float()
-        v_i = v[:, c0:c0 + chunk].float()              # (B,C,H,P)
-        lw_i = log_w[:, c0:c0 + chunk]
+        c = min(chunk, s - c0)
+        pair_mask = full_mask[:c, :c]
+        r_i = r[:, c0:c0 + c].float()                  # (B,C,H,K)
+        k_i = k[:, c0:c0 + c].float()
+        v_i = v[:, c0:c0 + c].float()                  # (B,C,H,P)
+        lw_i = log_w[:, c0:c0 + c]
         lw_cum = torch.cumsum(lw_i, dim=1)             # inclusive cumsum L_t
         lw_tot = lw_cum[:, -1]                         # (B,H,K)
 
@@ -96,8 +129,7 @@ def linear_attention(r, k, v, log_w, *, chunk: int = 64, inclusive: bool,
         out = torch.einsum("bchk,bhkp->bchp", q_tilde, state)
 
         # Intra-chunk, direct pairwise, blocked over the key dim.
-        att = torch.zeros((b, h, chunk, chunk), dtype=torch.float32,
-                          device=k.device)
+        att = torch.zeros((b, h, c, c), dtype=torch.float32, device=k.device)
         for i in range(n_kb):
             sl = slice(i * kb, (i + 1) * kb)
             d = l_q[..., sl][:, :, None] - lw_cum[..., sl][:, None]
@@ -118,6 +150,55 @@ def linear_attention(r, k, v, log_w, *, chunk: int = 64, inclusive: bool,
                  + torch.einsum("bchk,bchp->bhkp", k_carry, v_i))
         outs.append(out)
     return torch.cat(outs, dim=1), state
+
+
+def _combine(a: tuple, b: tuple) -> tuple:
+    """The (log decay, state) of a range ``a`` followed by a range ``b``:
+    (T_a + T_b, exp(T_b) ⊙ S_a + S_b); associative, every exponent ≤ 0."""
+    return a[0] + b[0], torch.exp(b[0])[..., None] * a[1] + b[1]
+
+
+def _from_rank_before(pair: tuple, d: int, group) -> tuple:
+    """Rank r − d's (log decay, state) on rank r (``"seq state"``: one
+    all-to-all, each rank sending to rank r + d alone); the identity (0, 0)
+    on the first d ranks, kept in the graph so that every rank calls the
+    exchange's backward."""
+    m = collectives.group_size(group)
+    msg = torch.cat([pair[1], pair[0][..., None]], dim=-1)[None]
+    src = (0, collectives.one_each([(q, q + 1) for q in range(m)]))
+    dst = (0, [((q - d, q - d + 1),) if q >= d else ((0, 0),)
+               for q in range(m)])
+    got = collectives.relayout(msg, group, src, dst, "seq state")
+    if got.shape[0] == 0:
+        got = msg.new_zeros(msg.shape) + got.sum()
+    return got[0, ..., -1], got[0, ..., :-1]
+
+
+def _carry_in(r, log_w, out, state, inclusive: bool, group):
+    """The sequence-parallel form's exchange and second pass.  Each rank
+    has run its range from a zero state (``out``, its final ``state`` S_r;
+    its total log decay T_r).  The state entering rank r is
+    S_in_r = Σ_{q<r} exp(Σ_{q<j<r} T_j) ⊙ S_q: an exclusive scan of the
+    ranks' (T, S) pairs under :func:`_combine`, run in ⌈log₂ m⌉ steps, step
+    d taking rank r − d's inclusive pair (Hillis-Steele), so a rank sends
+    one state a step.  Its positions then add r_t ⊙ exp(L_t) · S_in_r, L_t
+    the log decay from the rank's first position to t (inclusive for
+    Mamba-2, exclusive for RWKV-6).  Returns (out, the state after the
+    rank's last position, exp(T_r) ⊙ S_in_r + S_r)."""
+    m = collectives.group_size(group)
+    l_cum = torch.cumsum(log_w, dim=1)                 # (B,S,H,K)
+    mine = (l_cum[:, -1], state)
+    incl = mine                                        # ranks (r - d, r]
+    excl = (torch.zeros_like(mine[0]), torch.zeros_like(state))  # (r - d, r)
+    d = 1
+    while d < m:
+        got = _from_rank_before(incl, d, group)
+        excl, incl = _combine(got, excl), _combine(got, incl)
+        d *= 2
+    l_q = l_cum if inclusive else l_cum - log_w
+    out = out + torch.einsum("bshk,bhkp->bshp", r.float() * torch.exp(l_q),
+                             excl[1])
+    return out, incl[1]
 
 
 def linear_attention_step(r_t, k_t, v_t, log_w_t, state, *, inclusive: bool,

@@ -25,9 +25,11 @@ functions below take the tree itself, as the reference's do.
   over ``model``, each model rank computing its slice of every block
   product (attention by heads, the MLPs by d_ff, the MoE by experts, the
   tables by vocabulary, the SSM mixers by heads and RWKV-6's channel mix
-  by d_ff).  The positions are global; under zero_seq the
-  recurrent blocks run on the gathered sequence and attention gathers its
-  keys and values.
+  by d_ff).  The positions are global; under zero_seq every block runs
+  on the rank's positions: the recurrences exchange their rank-boundary
+  states and halos (``linear_attn.linear_attention``'s ``group``,
+  ``layers.seq_halo``), and attention, whisper's encoder's included,
+  gathers its keys and values.
 - Decode caches are ring buffers when the config has a sliding window
   shorter than the cache (mixtral).  :func:`prefill` and
   :func:`decode_step` run without autograd; ``decode_step`` writes the
@@ -301,7 +303,6 @@ def _dense_block_fn(cfg: ModelConfig, bp: Params, x: torch.Tensor,
     return x + m, aux
 
 
-@layers_mod.sequence_whole
 def _rwkv_block_fn(x, cfg, bp):
     h, _, _ = ssm_mod.rwkv6_time_mix(cfg, bp["tmix"],
                                      rms_norm(x, bp["ln1"], cfg.norm_eps))
@@ -311,7 +312,6 @@ def _rwkv_block_fn(x, cfg, bp):
     return x + c, _zero(x)
 
 
-@layers_mod.sequence_whole
 def _mamba_block_fn(x, cfg, bp):
     h, _, _ = ssm_mod.mamba2_block(cfg, bp["mamba"],
                                    rms_norm(x, bp["ln"], cfg.norm_eps))
@@ -418,14 +418,16 @@ def _hybrid_forward(cfg, params, x, positions, remat):
 def _encode(cfg, enc: Params, frames: torch.Tensor, remat: bool):
     """Whisper's encoder over the stub frame embeddings: the memory.  On a
     mesh its blocks' weights are taken at use (``layers.block_params``),
-    its input projection gathered whole; sequence-sharded frames
-    (zero_seq) are gathered, the encoder runs on all of them, and the rank
-    keeps its slice of the memory."""
+    its input projection gathered whole.  Frames split over ``model``
+    (zero_seq, where ``data_specs`` splits them) stay split: the input
+    projection, the norms and the MLPs run on the rank's frames, with the
+    sinusoidal positions of their global indices, each layer's attention
+    gathers its keys and values over the model group (the rank's queries
+    local), and the rank's slice of the memory is returned."""
     specs = param_spec("encoder") or {}
     sharded = frames.shape[1] < cfg.n_frames
-    if sharded:
-        frames = layers_mod.gather_seq(frames, "frames")
-    fpos = torch.arange(frames.shape[1], device=frames.device)
+    off = layers_mod.seq_offset(frames.shape[1]) if sharded else 0
+    fpos = torch.arange(off, off + frames.shape[1], device=frames.device)
     wire = layers_mod.block_dtype()
     in_proj = gather_param(enc["in_proj"], specs.get("in_proj"), wire,
                            "in_proj weights")
@@ -435,16 +437,15 @@ def _encode(cfg, enc: Params, frames: torch.Tensor, remat: bool):
     def enc_body(bp, h):
         a = attention_block(cfg, bp["attn"],
                             rms_norm(h, bp["ln1"], cfg.norm_eps), fpos,
-                            causal=False, rope=False, seq_sharded=False)
+                            causal=False, rope=False, seq_sharded=sharded)
         h = h + a
         m = mlp_block(bp["mlp"], rms_norm(h, bp["ln2"], cfg.norm_eps))
         return h + m, _zero(h)
 
     mem, _ = _run_blocks(enc_body, enc["blocks"], mem, remat,
                          specs.get("blocks"), cfg)
-    mem = rms_norm(mem, gather_param(enc["norm"], specs.get("norm"), wire),
-                   cfg.norm_eps)
-    return layers_mod.local_seq(mem) if sharded else mem
+    return rms_norm(mem, gather_param(enc["norm"], specs.get("norm"), wire),
+                    cfg.norm_eps)
 
 
 def _cross_kv(bp: Params, mem: torch.Tensor):
@@ -715,9 +716,10 @@ def _ssm_cache_block(x: torch.Tensor, path: tuple, dim: int, heads: int,
     tensor-parallel layout :func:`_cache_block`; under it, computed for
     the rank's heads (of ``heads``, ``unit`` positions of ``dim`` a head),
     one all-to-all over ``model`` to the cache's split, or, the leaf not
-    split over ``model``, one gather of every head."""
+    split over ``model``, one gather of every head; under zero_seq's split
+    sequence :func:`_carry_block`."""
     if not layers_mod.tensor_parallel():
-        return _cache_block(x, path)
+        return _carry_block(x, path)
     spec = layers_mod.cache_spec(*path)
     group = layers_mod.model_group()
     m = layers_mod.model_size()
@@ -735,6 +737,28 @@ def _ssm_cache_block(x: torch.Tensor, path: tuple, dim: int, heads: int,
         return x
     return collectives.relayout(x, group, (dim, parts), (d, split),
                                 "cache " + path[-1])
+
+
+def _carry_block(x: torch.Tensor, path: tuple) -> torch.Tensor:
+    """The cache block, under the serve layout's spec of the leaf at
+    ``path``, of one layer's recurrent carry (an SSM state, a conv window,
+    a token shift) computed on the rank's token rows: under zero_seq's
+    split sequence the last model rank's carry is the sequence's, and one
+    all-to-all over ``model`` sends each rank its slice of it along the
+    dim the spec splits over ``model`` (or the whole); else
+    :func:`_cache_block`."""
+    if layers_mod.seq_group() is None:
+        return _cache_block(x, path)
+    m, r = layers_mod.model_size(), layers_mod.model_rank()
+    dims = layers_mod.model_split(layers_mod.cache_spec(*path))
+    d = dims[0] if dims else 0
+    n = x.shape[d]
+    parts = collectives.one_each(layers_mod.split_ranges(n, m)) if dims \
+        else [((0, n),)] * m
+    held = [((0, 0),)] * (m - 1) + [((0, 1),)]
+    x = x[None] if r == m - 1 else x[None][:0]
+    return collectives.relayout(x, layers_mod.model_group(), (0, held),
+                                (d + 1, parts), "cache " + path[-1])[0]
 
 
 def _gather_heads(cfg: ModelConfig, q, k, v) -> list:
@@ -798,7 +822,6 @@ def _split_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Prefill: full-sequence forward that also materializes the decode cache
 # ===========================================================================
 
-@layers_mod.sequence_whole
 def _rwkv_prefill_block(x, cfg, bp):
     xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
     o, sh1, state = ssm_mod.rwkv6_time_mix(cfg, bp["tmix"], xn)
@@ -808,7 +831,6 @@ def _rwkv_prefill_block(x, cfg, bp):
     return x + c, state, sh1, xn2[:, -1:]
 
 
-@layers_mod.sequence_whole
 def _mamba_prefill_block(x, cfg, bp):
     xn = rms_norm(x, bp["ln"], cfg.norm_eps)
     o, conv, state = ssm_mod.mamba2_block(cfg, bp["mamba"], xn)
@@ -846,7 +868,9 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
     layout (the sequence over ``model``) by one all-to-all.  Under zero_seq
     and zero_batch the weights are gathered whole at use; zero_seq's
     attention gathers its keys and values over the model group, the
-    recurrences run on the gathered sequence, and a rank keeps its own keys
+    recurrences run on the rank's positions (their carries, the
+    sequence's on the last model rank, sent to the cache's layout by
+    :func:`_carry_block`), and a rank keeps its own keys
     and values as its cache block where the cache is the sequence (else
     its slice of the whole sequence's); under zero_batch an all-to-all over
     ``model`` moves each leaf from the rank's rows to the cache's rows over
@@ -932,8 +956,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, max_len: int):
             x, state, sh1, sh2 = _rwkv_prefill_block(x, cfg, bp)
             st.append(_ssm_cache_block(state, ("layers", "state"), 1,
                                        ssm_mod.rwkv_dims(cfg)[0]))
-            s1.append(_cache_block(sh1, ("layers", "shift1")))
-            s2.append(_cache_block(sh2, ("layers", "shift2")))
+            s1.append(_carry_block(sh1, ("layers", "shift1")))
+            s2.append(_carry_block(sh2, ("layers", "shift2")))
         cache["layers"] = {"state": torch.stack(st),
                            "shift1": torch.stack(s1).float(),
                            "shift2": torch.stack(s2).float()}

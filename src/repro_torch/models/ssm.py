@@ -33,6 +33,15 @@ every rank.  A served decode step's state block is the cache's (every
 head's, its value dim P split over ``model``): every head's per-token
 inputs are gathered, the rank steps its block in place, and its output
 moves back to its heads.
+
+Under zero_seq (``layers.seq_group``) the sequence is split over
+``model``: the projections, the decay LoRA, the norms and the gates run
+on the rank's positions; the token shift and the causal conv take the
+rows before the rank's range from the ranks before it
+(``layers.seq_halo``); the linear attention exchanges the ranks'
+boundary states (``linear_attn.linear_attention``'s ``group``).  The
+carries returned are those after the rank's last position: the
+sequence's on the last rank.
 """
 
 from __future__ import annotations
@@ -92,8 +101,12 @@ def init_rwkv6_time_mix(cfg: ModelConfig, gen: torch.Generator, device,
 
 
 def _token_shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
-    """x_{t-1} with x_{-1} = prev (decode carry) or 0, in x's dtype."""
-    if prev is None:
+    """x_{t-1} with x_{-1} = prev (decode carry) or 0, in x's dtype; under
+    zero_seq's split sequence the previous rank's last row
+    (``layers.seq_halo``)."""
+    if layers.seq_group() is not None:
+        prev = layers.seq_halo(x, 1, prev)
+    elif prev is None:
         prev = torch.zeros_like(x[:, :1])
     return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
 
@@ -161,7 +174,8 @@ def rwkv6_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                    state: torch.Tensor | None = None, chunk: int = 64):
     """Returns (out, last_x (B,1,D) shift carry, final state (B,H,K,P);
     under the tensor-parallel layout the rank's heads' (B, its heads, K,
-    P))."""
+    P); under zero_seq's split sequence the carries after the rank's last
+    position, the sequence's on the last rank)."""
     b, s, _ = x.shape
     _, hd = rwkv_dims(cfg)
     r, k, v, g, log_w = _rwkv_projections(cfg, p, x,
@@ -170,8 +184,8 @@ def rwkv6_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     out, new_state = la.linear_attention(
         r.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
         v.reshape(b, s, nh, hd), log_w.reshape(b, s, nh, hd),
-        chunk=min(chunk, s), inclusive=False, u=p["u"].float(),
-        initial_state=state)
+        chunk=chunk, inclusive=False, u=p["u"].float(),
+        initial_state=state, group=layers.seq_group())
     out = out.reshape(b, s, nh * hd).to(x.dtype)
     return _rwkv_out(cfg, p, out, g, x.dtype), x[:, -1:], new_state
 
@@ -270,9 +284,14 @@ def init_mamba2(cfg: ModelConfig, gen: torch.Generator, device,
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  prev: torch.Tensor | None):
     """Depthwise causal conv1d.  x (B,S,C), w (W,C).  ``prev`` is the
-    (B,W-1,C) carry for decode.  Returns (out, new carry)."""
+    (B,W-1,C) carry for decode.  Returns (out, new carry).  Under zero_seq's
+    split sequence the W-1 positions before the rank's first come from
+    the ranks before it (``layers.seq_halo``), and the carry is the last
+    W-1 positions up to the rank's last."""
     width = w.shape[0]
-    if prev is None:
+    if layers.seq_group() is not None:
+        prev = layers.seq_halo(x, width - 1, prev)
+    elif prev is None:
         prev = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
                            device=x.device)
     xp = torch.cat([prev, x], dim=1)
@@ -328,15 +347,16 @@ def _mamba2_out(cfg, p, out, v, z, dtype):
 def mamba2_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                  conv_prev: torch.Tensor | None = None,
                  state: torch.Tensor | None = None, chunk: int = 64):
-    """Returns (out, conv carry, ssm state)."""
-    s = x.shape[1]
+    """Returns (out, conv carry, ssm state); under zero_seq's split
+    sequence the carries after the rank's last position, the sequence's
+    on the last rank."""
     z, xc, bmat, cmat, dt = _mamba2_core(cfg, p, x)
     xc, conv_carry = _causal_conv(xc, p["conv"], p["conv_b"], conv_prev)
     xc = F.silu(xc)
     r, k, v, log_w = _mamba2_ssm_inputs(cfg, p, dt, bmat, cmat, xc)
     out, new_state = la.linear_attention(
-        r, k, v, log_w, chunk=min(chunk, s), inclusive=True,
-        initial_state=state)
+        r, k, v, log_w, chunk=chunk, inclusive=True, initial_state=state,
+        group=layers.seq_group())
     return _mamba2_out(cfg, p, out, v, z, x.dtype), conv_carry, new_state
 
 

@@ -4,13 +4,14 @@ against the port's one-process step and the reference's sharded step, as
 tolerances), for the blocks that reach along the sequence:
 
 * rwkv6-3b in all three modes (under ``zero_seq`` its blocks run on the
-  sequence gathered over the model group, the rank keeping its slice);
-* zamba2-2.7b under ``zero_seq`` (Mamba-2 blocks on the gathered
-  sequence, the shared attention block with its keys and values gathered
-  and global positions);
-* whisper-large-v3 under ``zero_seq`` (the encoder on the gathered frames,
-  the rank keeping its slice of the memory, the cross-attention gathering
-  its keys and values).
+  rank's positions, exchanging the rank-boundary states and token-shift
+  halos over the model group);
+* zamba2-2.7b under ``zero_seq`` (Mamba-2 blocks on the rank's positions,
+  their states and conv halos exchanged, the shared attention block with
+  its keys and values gathered and global positions);
+* whisper-large-v3 under ``zero_seq`` (the encoder on the rank's frames,
+  its attention gathering its keys and values, the rank keeping its slice
+  of the memory, the cross-attention gathering its keys and values).
 
 All at ``reduced()``, vocabulary 512, batch 8 × 32, two steps.
 

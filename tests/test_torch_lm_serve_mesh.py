@@ -17,7 +17,8 @@ float32 (``COMPUTE_DTYPE`` patched), at ``reduced()`` size, vocabulary
   head's per-token inputs are gathered and the rank steps its block of
   the state in place (its value dim), the token shifts and, where its
   block is not the rank's heads' channels, the conv carry gathered at
-  use.
+  use; zamba2's zero_seq prefill runs each rank's Mamba-2 blocks on its
+  positions and takes the carries from the last model rank.
 
 Each rank's cache leaves have the shapes ``local_shape`` gives under
 ``cache_specs``; its blocks equal the one-process cache's blocks (the K/V

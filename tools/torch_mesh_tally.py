@@ -17,7 +17,9 @@ card at the same shapes: 17b ``--arch smollm-360m --layers 8 --batch 8
 --seq 512``, 18b the same with ``--kind decode --seq 516``; 17d
 ``--arch rwkv6-3b --layers 1 --batch 2 --seq 512`` and ``--arch
 zamba2-2.7b --layers 6 --batch 2 --seq 512``, 18d each with ``--kind
-decode --seq 516``.  An all-to-all's input bytes are the rank's whole
+decode --seq 516``; 17d's zero_seq steps the same with ``--mode
+zero_seq``, and ``--arch whisper-large-v3 --layers 1 --encoder-layers 1
+--batch 2 --seq 512 --mode zero_seq``.  An all-to-all's input bytes are the rank's whole
 buffer, the part it keeps included.
 """
 
@@ -37,6 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth (0: the published one)")
+    ap.add_argument("--encoder-layers", type=int, default=0,
+                    help="an encoder's depth (0: the published one)")
     ap.add_argument("--kind", default="train",
                     choices=["train", "prefill", "decode"])
     ap.add_argument("--batch", type=int, default=8)
@@ -50,6 +54,8 @@ def main(argv=None) -> int:
     cfg = ARCHITECTURES[args.arch]
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
+    if args.encoder_layers:
+        cfg = cfg.replace(encoder_layers=args.encoder_layers)
     data, model = (int(n) for n in args.mesh.split(","))
     shape = InputShape(f"{args.kind}-{args.batch}x{args.seq}", args.seq,
                        args.batch, args.kind)
