@@ -238,7 +238,16 @@ phase's final trainer; ``serve_path``):
    6400), one layer, zero_batch with ``moe_groups`` 4 (one group a rank):
    ``_moe_a2a``'s block against the one-process grouped dispatch on the
    same tokens (within MESH_MOE_TOL; the one-process side runs first and
-   is freed), its all_to_all spans present, then one train step.  (d) The
+   is freed), its all_to_all spans present, then one train step; then the
+   same layer under zero_seq (a group a row: each model rank dispatches
+   the row ``layers.seq_groups`` gives it, the rows' tokens and routes
+   moved over ``model`` alone): the block on the four ranks against the
+   same one-process dispatch (MESH_MOE_TOL), then, once they have exited,
+   one train step on a 1x2 gloo mesh of two processes (MOE_SEQ_STEP_MESH;
+   it runs beside phase 18's parts in the smoke's process and is checked
+   after them) whose ``moe seq`` exchanges on rank 0 equal
+   MOE_SEQ_PREDICTED (the tally tool's) to the byte, no token-group
+   gather, the peak a rank beside the tool's.  (d) The
    SSM mixers' tensor-parallel products in the same four processes before
    (c): rwkv6-3b at published widths, one layer, and zamba2-2.7b at 6
    layers (one group of Mamba-2 layers and its shared block), 2 × 512
@@ -4365,6 +4374,28 @@ MESH_LM_FLOOR = {"loss": 2.0 ** -8, "grad_norm": 2.0 ** -8, "params": 0.05}
 MESH_MOE = {"arch": "phi3.5-moe-42b-a6.6b", "n_layers": 1, "moe_groups": 4,
             "batch": 4, "seq": 512}
 MESH_MOE_TOL = 2.0 ** -7   # a2a block against one process, max |d| / max
+# 17c under zero_seq, the same layer, tokens and groups (a group a row): each
+# model rank dispatches the rows ``layers.seq_groups`` gives it, their tokens
+# and routes exchanged over ``model`` alone.  The block runs on the four
+# ranks (2x2: a row a rank); the train step on a 1x2 mesh of two processes
+# started after them (MOE_SEQ_STEP_MESH: each rank of a zero_seq step holds
+# the layer's whole experts, their float32 copy and gradients: four ranks of
+# the 2x2 step ran out of the H100's memory, and the 1x2 step peaks at 19.5
+# GiB a rank there; two rows a rank).
+# Rank 0's exchanges (input bytes) in that step, as ``tools/
+# torch_mesh_tally.py --arch phi3.5-moe-42b-a6.6b --layers 1 --batch 4 --seq
+# 512 --mode zero_seq --mesh 1,2`` counts them on a fake group, and the peak
+# it reads there (MemTracker).
+MOE_SEQ_STEP_MESH = (1, 2)
+MOE_SEQ_PREDICTED = {"all_to_all moe seq": 16_777_216,
+                     "all_to_all moe seq route": 32_768,
+                     "all_to_all moe seq back": 8_388_608,
+                     "all_to_all moe seq grad": 8_388_608,
+                     "all_to_all moe seq route grad": 16_384,
+                     "all_to_all moe seq back grad": 8_388_608}
+MOE_SEQ_PEAK_PREDICTED_GIB = 27_331_485_740 / 2**30
+MOE_GATHERS = ("all_gather moe tokens", "all_gather moe gates",
+               "all_gather moe ids")
 # Phase 17's four ranks start before phase 16 (the time limit): they run
 # 17b, 18b and 18d beside 17b's one-card side and phase 16, 17d once the
 # smoke's process writes PHASE16_DONE (beside 17a and the one-card sides of
@@ -4376,7 +4407,10 @@ BESIDE = {"16": "phase 17's four ranks (their start, 17b, 18b, 18d)",
                  "ranks' start and 17b",
           "17d": "the ranks' steps beside 17a and the one-card sides of 17c "
                  "and 17d, which ran beside them",
-          "18": "the ranks' prefill and decode beside phase 16"}
+          "18": "the ranks' prefill and decode beside phase 16",
+          "17c step": "phase 18's parts in the smoke's process (18a, the "
+                      "one-card sides and checks of 18b and 18d, 18c's "
+                      "wait)"}
 # 17d: the SSM mixers split by heads over ``model``: rwkv6-3b at published
 # widths, 1 layer, and zamba2-2.7b at 6 layers (one group and its shared
 # block), 2 x 512 tokens, one megatron step each (8 x 512 of zamba2 peaks at
@@ -4893,6 +4927,7 @@ def mesh_lm_gloo(dev, root: Path, card: str, box: dict,
     if "error" in box:
         raise box["error"]
     ranks = box["ranks"]
+    box["moe_steps"] = moe_seq_steps_start(dev)
     launched_s = time.perf_counter() - box["t0"]
     shutil.rmtree(root, ignore_errors=True)
     tokens = MESH_LM["batch"] * MESH_LM["seq"]
@@ -5026,10 +5061,111 @@ def mesh_moe_rank(mesh, dev) -> dict:
                            device=dev, mesh=mesh, mode="zero_batch")
     dist.barrier()
     (_, _, met), t_ = synced_ms(lambda: step(params, opt, batch))
-    return {"taken": taken, "out": out.cpu(), "aux": float(aux),
-            "block_profile": prof, "loss": float(met["loss"]),
+    out = {"taken": taken, "out": out.cpu(), "aux": float(aux),
+           "block_profile": prof, "loss": float(met["loss"]),
+           "grad_norm": float(met["grad_norm"]), "step_ms": t_,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    out["seq"] = mesh_moe_seq_rank(mesh, dev, cfg)
+    return out
+
+
+def mesh_moe_seq_rank(mesh, dev, cfg) -> dict:
+    """17c's zero_seq block on one rank of the four: the MoE block of layer
+    0 on the rank's rows and positions of the tokens, its collectives
+    tallied by name."""
+    from repro_torch.core import collectives
+    from repro_torch.models import layers, model, moe
+    from repro_torch.train import sharding
+
+    full = model.init_params(cfg, seed=0, device=dev)
+    # the experts in bf16 (their values at use), the router as it is
+    p = {k: v[0] if k == "router" else v[0].to(torch.bfloat16)
+         for k, v in full["blocks"]["moe"].items()}
+    del full
+    x = sharding.local_shard(moe_block_inputs(cfg, dev),
+                             sharding.P("data", "model"), mesh)
+    act = sharding.activation_spec(sharding.axis_sizes(mesh), "zero_seq")
+    with torch.no_grad(), layers.mesh_hooks(act, None, mesh), \
+            collectives.tally(by="what") as counts:
+        placed = layers.seq_groups(x.shape[0], x.shape[1],
+                                   MESH_MOE["seq"]) is not None
+        (out, aux), ms = synced_ms(lambda: moe.moe_block(cfg, p, x))
+    return {"placed": placed, "out": out.cpu(), "aux": float(aux),
+            "coords": {a: mesh.get_local_rank(a)
+                       for a in mesh.mesh_dim_names},
+            "block_ms": ms, "block_tally": counts}
+
+
+def moe_seq_step_rank(mesh, dev) -> dict:
+    """17c's zero_seq train step on one rank of MOE_SEQ_STEP_MESH (its
+    collectives tallied by name, its peak)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import layers, model
+    from repro_torch.optim import adamw
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import make_train_step, param_layout
+
+    cfg = lm_mesh_config(MESH_MOE)
+    specs = param_layout(cfg, mesh, "zero_seq")
+    params = sharding.shard_tree(model.init_params(cfg, seed=0, device=dev),
+                                 specs, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw.init(params)
+    batch = next(lm_batches(cfg.vocab_size, MESH_MOE["batch"],
+                            MESH_MOE["seq"], 1, seed=3, kind="affine"))
+    rows = MESH_MOE["batch"] // sharding.axis_sizes(mesh)["data"]
+    seq = MESH_MOE["seq"] // sharding.axis_sizes(mesh)["model"]
+    with layers.mesh_hooks(sharding.activation_spec(
+            sharding.axis_sizes(mesh), "zero_seq"), None, mesh):
+        placed = layers.seq_groups(rows, seq, MESH_MOE["seq"]) is not None
+    step = make_train_step(cfg, lm_tcfg({**MESH_MOE, "peak_lr": 1e-4,
+                                         "steps": 1}),
+                           device=dev, mesh=mesh, mode="zero_seq")
+    dist.barrier()
+    with collectives.tally(by="what") as counts:
+        (_, _, met), t_ = synced_ms(lambda: step(params, opt, batch))
+    return {"placed": placed, "tally": counts, "loss": float(met["loss"]),
             "grad_norm": float(met["grad_norm"]), "step_ms": t_,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def moe_seq_steps_start(dev) -> dict:
+    """Start 17c's zero_seq train step on MOE_SEQ_STEP_MESH, gloo on the
+    card, in a thread of this process (once the four ranks have exited:
+    see MOE_SEQ_STEP_MESH); it runs beside phase 18's one-card sides and
+    :func:`moe_seq_step_check` waits for it."""
+    import threading
+
+    from repro_torch.launch.mesh import run_on_mesh
+
+    sbox: dict = {"t0": time.perf_counter()}
+
+    def steps_run():
+        try:
+            sbox["ranks"] = run_on_mesh(
+                moe_seq_step_rank, *MOE_SEQ_STEP_MESH, device=dev,
+                backend="gloo", timeout=MESH_TIMEOUT_S)
+        except BaseException as e:      # re-raised by moe_seq_step_check
+            sbox["error"] = e
+        sbox["seconds"] = time.perf_counter() - sbox["t0"]
+
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        sbox["thread"] = threading.Thread(target=steps_run)
+        sbox["thread"].start()
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    return sbox
 
 
 def moe_one_process(dev) -> dict:
@@ -5092,6 +5228,99 @@ def moe_check(one: dict, ranks: list, card: str) -> dict:
     if not (np.isfinite(ranks[0]["loss"]) and np.isfinite(
             ranks[0]["grad_norm"])):
         raise AssertionError(f"17c: train step {ranks[0]}")
+    summary["zero_seq"] = moe_seq_check(one, [r["seq"] for r in ranks],
+                                        card)
+    return summary
+
+
+def moe_seq_check(one: dict, ranks: list, card: str) -> dict:
+    """17c's zero_seq block: the four ranks' blocks put together against
+    the one-process grouped dispatch (the same groups: a row each), no
+    token-group gather on any rank."""
+    cfg = lm_mesh_config(MESH_MOE)
+    rows, seq = MESH_MOE["batch"], MESH_MOE["seq"]
+    got = torch.empty((rows, seq, cfg.d_model), dtype=one["out"].dtype)
+    for r in ranks:
+        d, m = r["coords"]["data"], r["coords"]["model"]
+        got[d * rows // 2:(d + 1) * rows // 2,
+            m * seq // 2:(m + 1) * seq // 2] = r["out"]
+    want = one["out"]
+    gap = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    gathered = sorted({k for r in ranks for k in r["block_tally"]}
+                      & set(MOE_GATHERS))
+    summary = {"placed_on_every_rank": all(r["placed"] for r in ranks),
+               "max_rel_diff": gap, "bit_equal": bool(torch.equal(got, want)),
+               "aux": [r["aux"] for r in ranks],
+               "one_process_aux": one["aux"],
+               "block_ms_by_rank": [r["block_ms"] for r in ranks],
+               "block_bytes_rank0": {k: c["bytes"] for k, c in
+                                     ranks[0]["block_tally"].items()},
+               "token_gathers": gathered, "card": card}
+    print(f"MESH-LM 17c zero_seq {cfg.name} (a group a row, "
+          f"moe_groups {MESH_MOE['moe_groups']}): the 2x2 block against "
+          f"one process: bit-equal {summary['bit_equal']}, max |diff| / max "
+          f"{gap:.2e} (bound {MESH_MOE_TOL:.2e}); rank 0's exchanges "
+          + ", ".join(f"{k} {v} B" for k, v in
+                      summary["block_bytes_rank0"].items())
+          + f"; token-group gathers: {gathered or 'none'}", flush=True)
+    print(f"MESH-LM 17c zero_seq {json.dumps(summary)}", flush=True)
+    if not summary["placed_on_every_rank"] or gathered:
+        raise AssertionError(f"17c zero_seq: groups not rank-local: "
+                             f"{summary}")
+    if gap > MESH_MOE_TOL:
+        raise AssertionError(f"17c zero_seq: block {gap} from one process")
+    return summary
+
+
+def moe_seq_step_check(sbox: dict, card: str) -> dict:
+    """17c's zero_seq train step (:func:`moe_seq_steps_start`), once it
+    has ended: its ``moe seq`` exchanges on rank 0 against
+    MOE_SEQ_PREDICTED (equal to the byte), no token-group gather on any
+    rank, the loss finite, the peak a rank beside the tool's."""
+    sbox["thread"].join()
+    if "error" in sbox:
+        raise sbox["error"]
+    steps = sbox["ranks"]
+    mine = {k: steps[0]["tally"].get(k, {"bytes": 0})["bytes"]
+            for k in MOE_SEQ_PREDICTED}
+    gathered = sorted({k for r in steps for k in r["tally"]}
+                      & set(MOE_GATHERS))
+    peak = max(r["peak_gib"] for r in steps)
+    summary = {"placed_on_every_rank": all(r["placed"] for r in steps),
+               "step_mesh": MOE_SEQ_STEP_MESH,
+               "step_bytes_rank0": mine, "predicted": MOE_SEQ_PREDICTED,
+               "token_gathers": gathered,
+               "step": {"loss": steps[0]["loss"],
+                        "grad_norm": steps[0]["grad_norm"],
+                        "ms_by_rank": [r["step_ms"] for r in steps]},
+               "step_bytes_in_rank0": sum(
+                   c["bytes"] for c in steps[0]["tally"].values()),
+               "peak_gib_by_rank": [r["peak_gib"] for r in steps],
+               "peak_gib_predicted": MOE_SEQ_PEAK_PREDICTED_GIB,
+               "seconds": sbox["seconds"], "beside": BESIDE["17c step"],
+               "card": card}
+    print(f"MESH-LM 17c zero_seq train step on "
+          f"{MOE_SEQ_STEP_MESH[0]}x{MOE_SEQ_STEP_MESH[1]}: exchanges on "
+          "rank 0: " + ", ".join(f"{k[11:]} {v} B (predicted "
+                                 f"{MOE_SEQ_PREDICTED[k]})"
+                                 for k, v in mine.items())
+          + f"; token-group gathers: {gathered or 'none'}; loss "
+          f"{steps[0]['loss']:.4f} grad_norm {steps[0]['grad_norm']:.3f} "
+          f"{steps[0]['step_ms']:.1f} ms; peak {peak:.2f} GiB a rank on "
+          f"{card} (the tool's MemTracker {MOE_SEQ_PEAK_PREDICTED_GIB:.2f}); "
+          f"{sbox['seconds']:.1f} s with its processes' start, beside "
+          f"{BESIDE['17c step']}", flush=True)
+    print(f"MESH-LM 17c zero_seq step {json.dumps(summary)}", flush=True)
+    if not summary["placed_on_every_rank"] or gathered:
+        raise AssertionError(f"17c zero_seq step: groups not rank-local: "
+                             f"{summary}")
+    if mine != MOE_SEQ_PREDICTED:
+        raise AssertionError(f"17c zero_seq step: exchanges {mine}, "
+                             f"predicted {MOE_SEQ_PREDICTED}")
+    if not (np.isfinite(steps[0]["loss"]) and np.isfinite(
+            steps[0]["grad_norm"])):
+        raise AssertionError(f"17c zero_seq step: {steps[0]}")
     return summary
 
 
@@ -6258,9 +6487,16 @@ def main() -> int:
         t = time.perf_counter()
         torch.cuda.empty_cache()
         serve_mesh_phase(dev, params16, lm17["18 ranks"], dry, card)
-        del params16, lm17
+        del params16
         phase("serve-mesh", t)
+        t = time.perf_counter()
+        lm17["17b"]["17c"]["zero_seq step"] = moe_seq_step_check(
+            box["moe_steps"], card)
+        del lm17
+        phase("mesh-lm 17c zero_seq step (the rest of its wait)", t)
     finally:
+        if "moe_steps" in box:
+            box["moe_steps"]["thread"].join()
         if box["thread"].is_alive():     # never leave the ranks waiting
             root17.mkdir(parents=True, exist_ok=True)
             for name in (PHASE16_DONE, MAIN_IDLE):

@@ -330,6 +330,19 @@ class Trainer:
         return self.server.snapshot(self.pstate)
 
     @property
+    def tables(self):
+        """The alias proposal's tables: the server state's, over tcp the
+        ones this process built from its last pull."""
+        return self._tcp_tables if self.remote is not None \
+            else self.pstate.tables
+
+    @property
+    def stale(self):
+        """The proposal's stale dense term, beside :attr:`tables`."""
+        return self._tcp_stale if self.remote is not None \
+            else self.pstate.stale
+
+    @property
     def clocks(self) -> np.ndarray:
         """Per-client round clocks as the server tracks them."""
         if self.remote is not None:

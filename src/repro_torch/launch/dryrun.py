@@ -92,16 +92,22 @@ def mesh_groups(mesh) -> None:
 
 
 def _peak(step) -> tuple:
-    """(the step's result, the peak bytes MemTracker saw, or None)."""
+    """(the step's result, the peak bytes MemTracker saw, or None, and
+    those bytes by MemTracker's kind of reference: {kind: bytes})."""
     try:
         from torch.distributed._tools.mem_tracker import MemTracker
         tracker = MemTracker()
     except Exception:  # noqa: BLE001 — the peak is optional
-        return step(), None
+        return step(), None, {}
     with tracker:
         out = step()
     snap = tracker.get_tracker_snapshot("peak")
-    return out, int(sum(v["Total"] for v in snap.values()))
+    kinds: dict = {}
+    for v in snap.values():
+        for k, n in v.items():
+            name = str(getattr(k, "value", k))
+            kinds[name] = kinds.get(name, 0) + int(n)
+    return out, int(sum(v["Total"] for v in snap.values())), kinds
 
 
 def run_one(arch: str, shape_name, *, multi_pod: bool = False,
@@ -146,7 +152,7 @@ def run_one(arch: str, shape_name, *, multi_pod: bool = False,
                                                 repeat_second=repeat_second)
             resident = spec.resident_bytes()
             with collectives.tally() as counts:
-                _, peak = _peak(spec.run)
+                _, peak, peak_kinds = _peak(spec.run)
         roof = rl.analyze(counts, cfg=spec.cfg, shape=shape,
                           mesh_name=mesh_name, chips=chips,
                           n_microbatches=spec.microbatches)
@@ -157,6 +163,7 @@ def run_one(arch: str, shape_name, *, multi_pod: bool = False,
                    run_s=round(time.time() - t0, 1),
                    resident_bytes=resident, resident_total_bytes=total,
                    peak_bytes=None if peak is None else total + peak,
+                   peak_by_kind=peak_kinds,
                    collectives=counts, **roof.row())
         if verbose:
             print(f"[ok]   {arch:22s} {shape.name:12s} {mesh_name:10s} "

@@ -28,7 +28,9 @@ Weight layout notes:
   a rank's local block, so ``constrain`` is the identity; the helpers
   below gather what a computation needs across ranks (a weight at use,
   an attention's keys and values over the sequence, a token group; under
-  zero_seq a recurrence's halo, :func:`seq_halo`) with
+  zero_seq a recurrence's halo, :func:`seq_halo`, and an MoE token
+  group's rows, moved to the model rank that dispatches it,
+  :func:`seq_groups`) with
   the explicit collectives of ``core.collectives``, whose backward sums
   over the ranks that computed distinct slices (the gradient rule of
   ``train/train_step.py``).  Off a mesh every hook is unset and every
@@ -283,18 +285,12 @@ def gather_params(tree: Params, specs, wire=None,
     one process rounds the gradient of the cast weight."""
     if _MESH is None or specs is None:
         return tree
-    names, xs, sps = [], [], []
-
-    def walk(t, sp, pre):
-        for k in t:
-            if isinstance(t[k], dict):
-                walk(t[k], sp[k], pre + (k,))
-            else:
-                names.append(pre + (k,))
-                xs.append(t[k])
-                sps.append(sp[k])
-
-    walk(tree, specs, ())
+    # no recursive closure here: one over ``xs`` would keep the gathered
+    # tensors alive in a reference cycle until the garbage collector runs
+    found = list(_leaves_with_paths(tree, specs))
+    names = [path for path, _, _ in found]
+    xs = [x for _, x, _ in found]
+    sps = [sp for _, _, sp in found]
     tok = token_axes()
     stages = []
     for a in _MESH.mesh_dim_names:
@@ -674,6 +670,47 @@ def local_tokens(x: torch.Tensor) -> torch.Tensor:
     """The rank's block of a global (B, S, ...) tensor."""
     spec = token_spec() + (None,) * (x.ndim - 2)
     return sharding.local_shard(x, spec, _MESH)
+
+
+def seq_groups(b: int, s: int, tg: int):
+    """zero_seq's placement of token groups (``tg`` tokens each, contiguous
+    in the global (B, S) row-major order) that each lie within one data
+    rank's rows (``b`` of them, ``s`` positions a model rank): the data
+    rank's groups split over its model ranks in contiguous blocks
+    (:func:`split_ranges`), the reference's G over (data, model) where
+    ``model`` divides them, else some ranks hold none.  Returns (have,
+    want), each model rank's part of the data rank's b·S tokens in that
+    order as :func:`collectives.relayout` takes parts: the positions it
+    holds (a range a row) and the groups it dispatches.  None where the
+    sequence is not split over ``model`` or a group spans data ranks."""
+    if seq_group() is None:
+        return None
+    m = model_size()
+    n = b * s * m
+    if n % tg:
+        return None
+    have = [tuple((i * s * m + q * s, i * s * m + (q + 1) * s)
+                  for i in range(b)) for q in range(m)]
+    want = collectives.one_each([(lo * tg, hi * tg)
+                                 for lo, hi in split_ranges(n // tg, m)])
+    return have, want
+
+
+def to_groups(x: torch.Tensor, parts, what: str) -> torch.Tensor:
+    """The tokens of the groups the rank dispatches, (its groups · tg,
+    ...), from its (B_local, S_local, ...) block: one all-to-all over
+    ``model`` (:func:`seq_groups`' parts; differentiable)."""
+    have, want = parts
+    return collectives.relayout(x.reshape((-1,) + x.shape[2:]),
+                                model_group(), (0, have), (0, want), what)
+
+
+def from_groups(x: torch.Tensor, parts, b: int, what: str) -> torch.Tensor:
+    """:func:`to_groups` the other way: the rank's (b, S_local, ...)
+    block of its groups' tokens ``x``, one all-to-all over ``model``."""
+    have, want = parts
+    out = collectives.relayout(x, model_group(), (0, want), (0, have), what)
+    return out.reshape((b, -1) + tuple(x.shape[1:]))
 
 
 def einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

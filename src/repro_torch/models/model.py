@@ -122,13 +122,15 @@ def leaves(tree: Params) -> list[torch.Tensor]:
 def unflatten(tree: Params, flat) -> Params:
     """A tree of ``tree``'s structure whose leaves are ``flat``, in the
     order of :func:`leaves`."""
-    it = iter(flat)
+    return _build(tree, iter(flat))
 
-    def build(t):
-        return {k: build(t[k]) if isinstance(t[k], dict) else next(it)
-                for k in sorted(t)}
 
-    return build(tree)
+def _build(t: Params, it) -> Params:
+    """:func:`unflatten`'s recursion, at module level: a recursive closure
+    over ``it`` would keep ``flat`` alive in a reference cycle until the
+    garbage collector runs."""
+    return {k: _build(t[k], it) if isinstance(t[k], dict) else next(it)
+            for k in sorted(t)}
 
 
 def to_batch(batch: dict, device) -> dict[str, torch.Tensor]:

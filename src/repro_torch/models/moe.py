@@ -21,7 +21,7 @@ Over a mesh (the hooks of ``models/layers.py``) a rank holds a block of
 the tokens.  The router and the load-balance statistics are computed on
 its own tokens, the statistics summed over the ranks that hold distinct
 tokens before their product (the reference's SPMD program computes them
-over all tokens).  The dispatch then takes one of three forms:
+over all tokens).  The dispatch then takes one of four forms:
 
 * the rank's tokens are whole groups (rows laid out contiguously, the
   group size dividing them): the groups are dispatched locally;
@@ -29,10 +29,18 @@ over all tokens).  The dispatch then takes one of three forms:
   its condition: a model axis, the batch over every axis (zero_batch),
   one group a rank and E divisible by the model axis.  Each model rank
   holds E/m experts (their weights gathered over the other axes only);
-* else a group spans ranks (megatron with ``moe_groups`` unset, zero_seq
-  with a group a row): the token group is gathered before the stable
-  sort, since capacity drops depend on the whole group, every rank
-  dispatches all groups, and keeps its own tokens' outputs.
+* zero_seq, where every group lies within one data rank's rows (the dry
+  run's group a row): each model rank dispatches a contiguous block of
+  its data rank's groups (``layers.seq_groups``, the reference's G over
+  (data, model) where ``model`` divides them), their tokens and routes
+  brought from its model peers by one all-to-all each (``moe seq``,
+  ``moe seq route``) and the outputs sent back by one more (``moe seq
+  back``);
+* else a group spans data ranks (``moe_groups`` unset, or fewer groups
+  than data ranks, under megatron or zero_seq): the token group is
+  gathered before the stable sort, since capacity drops depend on the
+  whole group, every rank dispatches all groups, and keeps its own
+  tokens' outputs (the reference replicates the sort there too).
 
 Under megatron's tensor-parallel layout (``layers.tensor_parallel``) the
 model ranks hold the same tokens and compute the same route and dispatch;
@@ -276,9 +284,18 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
         x = layers.replicated_in(x, "moe in")
         xt = x.reshape(t, d)
         gate_vals = layers.replicated_in(gate_vals, "moe gates in")
+    parts = layers.seq_groups(b, s, tg)
     contiguous = not layers.sequence_sharded() or layers.model_size() == 1
-    spans = ranks > 1 and not (contiguous and t % tg == 0)
-    if spans:
+    spans = parts is None and ranks > 1 and not (contiguous and t % tg == 0)
+    if parts is not None:
+        # zero_seq: the rank's block of its data rank's groups, their
+        # tokens and routes (the ids exact as float32) from its model peers
+        xt = layers.to_groups(x, parts, "moe seq")
+        route = torch.cat([gate_vals, expert_ids.to(gate_vals.dtype)], -1)
+        route = layers.to_groups(route.reshape(b, s, 2 * k), parts,
+                                 "moe seq route")
+        gate_vals, expert_ids = route[:, :k], route[:, k:].long()
+    elif spans:
         # a group spans ranks: gather the token group before the sort
         xg = layers.gather_tokens(x, "moe tokens")
         shape = xg.shape
@@ -297,7 +314,9 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     else:
         out_buf = _experts(p, _constrain_dispatch(buf), x.dtype)
         out = _combine(out_buf, slot, keep, meta, tg, x.dtype)
-    if spans:
+    if parts is not None:
+        out = layers.from_groups(out.reshape(-1, d), parts, b, "moe seq back")
+    elif spans:
         out = layers.local_tokens(out.reshape(shape))
     return out.reshape(b, s, d), aux
 

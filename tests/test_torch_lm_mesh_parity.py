@@ -11,6 +11,10 @@ the dense and MoE architectures.
 * mixtral under ``zero_batch`` with ``moe_groups`` 4 and capacity factor 8:
   one group a rank, the expert-parallel all-to-all (``_moe_a2a``) in both
   packages;
+* mixtral under ``zero_seq`` with ``moe_groups`` 8, a group a row, as the
+  dry run sets it: each model rank dispatches its block of its data rank's
+  groups (``layers.seq_groups``; the reference pins the groups over the
+  whole mesh);
 * internvl2-76b under ``zero_seq`` (the patch embeddings written over the
   global positions that fall in the rank's slice).
 
@@ -35,6 +39,8 @@ JOBS = {"smollm-360m": ("smollm-360m", MODES, 11, {}),
         "mixtral-8x7b": ("mixtral-8x7b", MODES, 13, {}),
         "mixtral-8x7b-a2a": ("mixtral-8x7b", ("zero_batch",), 15,
                              {"moe_groups": 4, "capacity_factor": 8.0}),
+        "mixtral-8x7b-seq": ("mixtral-8x7b", ("zero_seq",), 17,
+                             {"moe_groups": 8}),
         "internvl2-76b": ("internvl2-76b", ("zero_seq",), 27, {})}
 
 

@@ -104,8 +104,9 @@ def _eq(got: torch.Tensor, want, what: str):
                                   err_msg=what)
 
 
-@pytest.mark.parametrize("name", list(SCENARIOS))
-def test_rounds_equal_the_reference_loop(name, corpus):
+def _trainers(name: str, corpus) -> tuple:
+    """The reference's trainer and the port's, from the reference's
+    initial locals and statistics, the port fed its streams."""
     tokens, mask = corpus
     consistency, filt, plan = SCENARIOS[name]
     rcfg = ref_lda.LDAConfig(n_topics=K, vocab_size=V, tile_b=64)
@@ -126,7 +127,23 @@ def test_rounds_equal_the_reference_loop(name, corpus):
                   for loc in ref.locals_]
     tr.pstate = tr.server.init_state(
         bridge.shared_from(_np(ref.shared), device="cpu"), 2)
+    return ref, tr
 
+
+def _proposal_eq(tr, ref, what: str):
+    """``Trainer.tables`` and ``.stale``, the reference's bit for bit."""
+    assert (tr.tables is None) == (ref.tables is None), what
+    if ref.tables is not None:
+        for f in ref.tables._fields:
+            _eq(getattr(tr.tables, f), getattr(ref.tables, f),
+                f"{what} tables.{f}")
+        _eq(tr.stale, ref.stale, f"{what} stale")
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_rounds_equal_the_reference_loop(name, corpus):
+    _, filt, _ = SCENARIOS[name]
+    ref, tr = _trainers(name, corpus)
     ref_z1 = torch.as_tensor(np.asarray(ref.locals_[1].z))
     for r in range(ROUNDS):
         ref.step()
@@ -163,3 +180,16 @@ def test_rounds_equal_the_reference_loop(name, corpus):
         assert tr.rejoins == 1 and tr.consistency_error() > 0.0
     if name == "ssp1-faults":
         assert tr.pull_failures == 1 and tr.rejoins == 1
+
+
+@pytest.mark.parametrize("name", ["ssp1", "faults"])
+def test_proposal_tables_equal_the_reference(name, corpus):
+    """The server state's alias proposal (``Trainer.tables``, ``.stale``)
+    after each of two rounds: SSP's built at round 0 and kept, BSP's
+    rebuilt every round."""
+    ref, tr = _trainers(name, corpus)
+    for r in range(2):
+        ref.step()
+        tr.step()
+        _proposal_eq(tr, ref, f"r{r}")
+    assert tr.tables is not None

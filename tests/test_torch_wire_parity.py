@@ -12,7 +12,10 @@ rows the ``jax.random.randint`` draw under ``fold_in(fold_in(key, 7000 +
 r*131 + c), i)``.  Tolerance: none.  At K ≤ 16 the two packages' alias
 tables and chains are equal and every count is a float32 integer, so z,
 n_dk (and PDP's r), the shared statistics, the clocks and the filter's
-residuals must be equal after every round.  The scan case (``lda-scan``,
+residuals must be equal after every round, and so must LDA's alias
+proposal each process built from its pull (``Trainer.tables``,
+``.stale``; PDP's log factors round apart in their last bits, 4 ulp,
+``ROADMAP.md`` C).  The scan case (``lda-scan``,
 the reference's default layout) feeds each sweep's position draws
 instead, as ``tests/test_torch_scan_trainer.py`` does in process.
 """
@@ -177,6 +180,14 @@ def test_tcp_rounds_equal_the_reference_tcp_trainer(name, corpus,
             np.testing.assert_array_equal(tr.clocks, np.asarray(ref.clocks))
             assert tr.alias_builds == ref.alias_builds, r
             assert tr.rejoins == ref.rejoins, r
+            # the proposal this process built from its pull (PDP's log
+            # factors round apart in the last bits: LDA's only)
+            assert (tr.tables is None) == (ref.tables is None), r
+            if ref.tables is not None and fam_name == "lda":
+                for f in ref.tables._fields:
+                    _eq(getattr(tr.tables, f), getattr(ref.tables, f),
+                        f"r{r} tables.{f}")
+                _eq(tr.stale, ref.stale, f"r{r} stale")
         assert tr.consistency_error() == ref.consistency_error()
         assert float((tr.locals_[1].z != z0).float().mean()) > 0.1, \
             "the chains moved"
