@@ -185,7 +185,13 @@ phase's final trainer; ``serve_path``):
    profiled round's trace, whose ranges ``core.collectives`` names.
 
 16. The LM side (``repro_torch.models``, ``train``, ``optim``; no kernel
-   of its own: the reference's LM path reaches no Pallas kernel).  (a)
+   of its own: the reference's LM path reaches no Pallas kernel).  First
+   the product the reference keeps in float32 (``layers.einsum_f32``: on
+   the card bf16 operands into one GEMM with a float32 result, and its
+   hand-written backward) against the widened float32 product at 16a's
+   MLP gate, its attention scores and that gate over eight experts
+   (the grouped spec), forward and both gradients within the
+   float32 accumulation bound (F32_PRODUCT_REPS), each timed.  (a)
    smollm-360m at full width and depth (32 layers, d 960, vocabulary
    49,152; 0.36 B parameters): 20 AdamW steps of 8 × 512 ``lm_batches``
    tokens with remat, the loss finite at every step and its last five
@@ -195,7 +201,8 @@ phase's final trainer; ``serve_path``):
    steps from the live state, and two microbatches against one within
    5e-2; prefill of 512 tokens and 16 decode steps against the forward
    (``decode_check``); LM lines with tokens/s, step ms, peak GiB and
-   model FLOPs/s (6·N_active·tokens) as a share of the bf16 dense peak.
+   model FLOPs/s (6·N_active·tokens) as a share of the bf16 dense peak,
+   and its step ms, peak and decode gap on one line.
    (b) the other nine at full width, depth cut to 1 layer (zamba2: one
    group of 6 Mamba-2 layers and its shared block; whisper: 1 encoder and
    2 decoder layers), batch 2 × 512, random bf16 patch embeddings and
@@ -4042,6 +4049,16 @@ LM_MULTI_DECODE = ("mixtral-8x7b", "rwkv6-3b", "zamba2-2.7b")
 # within its row's noise, as the gap bounds it).
 ARGMAX_MARGIN, DECODE_CORR, DECODE_GAP = 1e-2, 0.99, 0.1
 MICROBATCH_TOL = 5e-2        # tests/test_arch_smoke.py's bound
+# The f32-kept product (``layers.einsum_f32``; on the card ``_F32Product``,
+# bf16 operands into one GEMM with a float32 result) and its backward
+# against the widened float32 product (TF32 off), at 16a's MLP gate and
+# attention scores and at that gate over eight experts (the experts'
+# grouped spec, whose batch letter is not the output's first).  Both sum
+# the same exact products in other orders: |got - want| <=
+# ``layers.f32_sum_bound`` (2·k·2^-24·(|a|·|b|) elementwise for a sum of
+# k terms), and a gradient, rounded to bf16 once, one bf16 ulp (at most
+# 2^-7 of it) more.
+F32_PRODUCT_REPS = 10
 
 
 def lm_inputs(cfg, b: int, s: int, seed: int, dev) -> dict:
@@ -4117,6 +4134,104 @@ def decode_check(label, cfg, params, batch, s: int, n: int) -> dict:
            "argmax_flips": int(flips.sum()), "min_corr": float(corr)}
     if corr <= DECODE_CORR or out["max_rel_gap"] > DECODE_GAP:
         raise AssertionError(f"{label}: decode against forward {out}")
+    return out
+
+
+def f32_product_check(dev, card: str) -> dict:
+    """Phase 16's check of the f32-kept product on the card (see
+    F32_PRODUCT_REPS): the forward and both gradients of
+    ``layers.einsum_f32`` on bf16 operands against the widened float32
+    product's, each as the largest ratio of its gap to its bound (≤ 1),
+    and the ms of each (CUDA events, the median of F32_PRODUCT_REPS)."""
+    from repro_torch.configs.registry import ARCHITECTURES
+    from repro_torch.models import layers
+
+    cfg = ARCHITECTURES[LM_TRAIN["arch"]]
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    cases = {"mlp gate": ("bsd,df->bsf", (b, s, cfg.d_model),
+                          (cfg.d_model, cfg.d_ff)),
+             "attention scores": ("bqgrh,bkgh->bgrqk",
+                                  (b, s, kv, cfg.n_heads // kv, hd),
+                                  (b, s, kv, hd)),
+             "grouped experts": ("gecd,edf->gecf", (1, 8, s, cfg.d_model),
+                                 (8, cfg.d_model, cfg.d_ff))}
+    print("LM 16 f32 products: tolerance |got - want| <= 2·k·2^-24·(|a|·|b|)"
+          " elementwise (two float32 sums of k exact products), a bf16 "
+          "gradient one bf16 ulp (at most 2^-7 of it) more", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    out = {}
+    for name, (spec, sa, sb) in cases.items():
+        ins, o = spec.split("->")
+        s_x, s_w = ins.split(",")
+        size = dict(zip(s_x, sa)) | dict(zip(s_w, sb))
+        k = math.prod(size[c] for c in set(s_x) & set(s_w) - set(o))
+        x = torch.randn(sa, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(sb, generator=gen, device=dev)
+             / math.sqrt(k)).bfloat16()
+
+        def run(widen: bool):
+            xa = (x.float() if widen else x).requires_grad_()
+            wa = (w.float() if widen else w).requires_grad_()
+            y = torch.einsum(spec, xa, wa) if widen else \
+                layers.einsum_f32(spec, xa, wa)
+            return y, xa, wa
+
+        y, xa, wa = run(False)
+        if type(y.grad_fn).__name__ != "_F32ProductBackward":
+            raise AssertionError(f"16 {name}: einsum_f32 took "
+                                 f"{type(y.grad_fn).__name__}")
+        ct = torch.randn(y.shape, generator=gen, device=dev)
+        got = (y,) + torch.autograd.grad(y, (xa, wa), ct)
+        y32, xw, ww = run(True)
+        want = (y32,) + torch.autograd.grad(y32, (xw, ww), ct)
+        if got[0].dtype != torch.float32 or got[1].dtype != x.dtype or \
+                got[2].dtype != w.dtype:
+            raise AssertionError(f"16 {name}: dtypes "
+                                 f"{[g.dtype for g in got]}")
+        tols = (layers.f32_sum_bound(spec, x, w),
+                layers.f32_sum_bound(f"{o},{s_w}->{s_x}", ct, w)
+                + 2.0 ** -7 * want[1].abs(),
+                layers.f32_sum_bound(f"{s_x},{o}->{s_w}", x, ct)
+                + 2.0 ** -7 * want[2].abs())
+        ratio = [float(((g.detach().float() - v.detach()).abs()
+                        / t.clamp_min(1e-30)).max())
+                 for g, v, t in zip(got, want, tols)]
+        del got, want, tols, y, y32
+
+        def fwd(widen):
+            return lambda: (torch.einsum(spec, x.float(), w.float())
+                            if widen else layers.einsum_f32(spec, x, w))
+
+        def fwd_bwd(widen):
+            def go():
+                y_, xa_, wa_ = run(widen)
+                torch.autograd.grad(y_, (xa_, wa_), ct)
+            return go
+
+        rec = {"spec": spec, "a": list(sa), "b": list(sb),
+               "gap_over_bound": dict(zip(("product", "grad a", "grad b"),
+                                          ratio)),
+               "ms": {"card": time_ms(fwd(False), F32_PRODUCT_REPS),
+                      "widened": time_ms(fwd(True), F32_PRODUCT_REPS),
+                      "card fwd+bwd": time_ms(fwd_bwd(False),
+                                              F32_PRODUCT_REPS),
+                      "widened fwd+bwd": time_ms(fwd_bwd(True),
+                                                 F32_PRODUCT_REPS)},
+               "card": card}
+        print(f"LM 16 f32 product {name} {spec} {list(sa)} x {list(sb)}: "
+              "gap over its bound: product {:.3g}, grad a {:.3g}, grad b "
+              "{:.3g}; ms (median of {}): card {:.3f}, widened {:.3f}, card "
+              "forward+backward {:.3f}, widened {:.3f} on {}".format(
+                  *ratio, F32_PRODUCT_REPS, *rec["ms"].values(), card),
+              flush=True)
+        if max(ratio) > 1:
+            raise AssertionError(f"16 {name}: the card's product off the "
+                                 f"widened one: {ratio}")
+        out[name] = rec
+        del x, w, ct
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4246,6 +4361,9 @@ def lm_smollm(dev, root: Path, card: str, keep: dict | None = None) -> dict:
           f"{flops / 1e12:.1f}T = {summary['bf16_peak_share']:.3f} of the "
           f"bf16 dense peak (989T) on {card}, beside {BESIDE['16']}",
           flush=True)
+    print(f"LM 16a step {min(ms):.1f}-{max(ms):.1f} ms, peak {peak:.2f} "
+          f"GiB, decode's largest gap {summary['decode']['max_rel_gap']:.4f}"
+          " of a row", flush=True)
     print(f"LM 16a {json.dumps(summary)}", flush=True)
     return summary
 
@@ -4340,7 +4458,8 @@ def lm_phase(dev, root: Path, card: str, keep: dict | None = None) -> dict:
     reduced() size); returns their summaries."""
     from repro_torch.configs.registry import ARCHITECTURES
 
-    out = {"16a": lm_smollm(dev, root, card, keep), "16b": {}}
+    out = {"16 f32 products": f32_product_check(dev, card)}
+    out.update({"16a": lm_smollm(dev, root, card, keep), "16b": {}})
     for i, arch in enumerate(sorted(ARCHITECTURES)):
         entry = {} if arch == LM_TRAIN["arch"] else lm_full_width(
             arch, i, dev, card)
@@ -4420,10 +4539,12 @@ MESH_SSM = ({"arch": "rwkv6-3b", "n_layers": 1, "batch": 2, "seq": 512,
             {"arch": "zamba2-2.7b", "n_layers": 6, "batch": 2, "seq": 512,
              "steps": 1, "peak_lr": 1e-3})
 # In bf16 one card's own first gradients of zamba2's Mamba-2 leaves part by
-# 27-49% between one and two microbatches (relative Frobenius, H100), too
-# wide to hold the split by: zamba2's step again at float32 compute, at
-# 2 x 128, where every leaf must be held (``hold_all``) and the floor is
-# 2^-7 (its worst leaf read 1.1e-3 at 2 x 256, H100).
+# 27-49% between one and two microbatches (relative Frobenius, H100;
+# 28-40% with their in-projection in float32 too, which the port still
+# rounds; 17d prints its own; ROADMAP C.5),
+# too wide to hold the split by: zamba2's step again at float32 compute, at 2 x 128,
+# where every leaf must be held (``hold_all``) and the floor is 2^-7 (its
+# worst leaf read 1.1e-3 at 2 x 256, H100).
 MESH_SSM_F32 = {"arch": "zamba2-2.7b", "n_layers": 6, "batch": 2, "seq": 128,
                 "steps": 1, "peak_lr": 1e-3, "float32": True,
                 "hold_all": True, "grad_floor": 2.0 ** -7}
@@ -5556,6 +5677,15 @@ def ssm_check(plan: dict, one: dict, recs: list, card: str) -> dict:
                "grads_by_leaf": grads, "grads_not_held": loose,
                "beside": BESIDE["17d"],
                "params_spread_widest": [[n, x] for x, n in widest]}
+    mamba = {n: g["spread"] for n, g in grads.items() if "/mamba/" in n}
+    if mamba and not plan.get("float32"):
+        print(f"{label} one card's own spread of the Mamba-2 leaves' first "
+              "gradients between 1 and 2 microbatches: "
+              + ", ".join(f"{n} {x:.3g}" for n, x in sorted(mamba.items()))
+              + "; held: "
+              + (", ".join(n for n in sorted(mamba) if n in held) or "none"),
+              flush=True)
+        summary["mamba_spread"] = mamba
     worst = max(held, key=lambda n: held[n]["err"] / held[n]["bound"],
                 default=None)
     print(f"{label} first gradients (AdamW's m) against one card's: "

@@ -12,14 +12,15 @@ Weight layout notes:
   operands accumulates in f32 and is rounded once to ``COMPUTE_DTYPE``
   (:func:`einsum`), as the reference's ``preferred_element_type=f32``
   followed by ``.astype``.  Where the reference keeps the f32 product
-  (attention scores, the MLP's gate and up, the SSM projections) the
-  port widens the rounded product: one bf16 rounding
-  (relative 2^-9) the reference does not make, the usual practice of
-  PyTorch's bf16 models.  The logits and the router's product, which
-  decide an argmax or a route, keep the f32 product exactly
-  (:func:`einsum_f32`).  With ``COMPUTE_DTYPE = torch.float32`` the two
-  packages compute the same products.  A product with one f32 operand runs
-  in f32, as JAX promotes it.
+  (attention scores, the MLP's and the experts' gate and up, RWKV-6's
+  projections, the logits, the router) the port keeps it too
+  (:func:`einsum_f32`: on the card one GEMM of the bf16 operands with a
+  float32 result, elsewhere the operands widened), so the two packages'
+  bf16 products differ only in the order of their f32 sums.  Mamba-2's
+  in-projection is the exception: rounded to bf16, then widened
+  (``ssm._mamba2_core`` says why).  With
+  ``COMPUTE_DTYPE = torch.float32`` they compute the same products.  A
+  product with one f32 operand runs in f32, as JAX promotes it.
 - The mesh hooks (``set_activation_spec``, ``get_activation_spec``,
   ``get_block_specs``, ``get_mesh``, ``constrain``) carry the layout of a
   step over a ``torch.distributed`` (data, model) mesh
@@ -69,6 +70,7 @@ Weight layout notes:
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any
 
@@ -567,10 +569,9 @@ def expand_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
 def row_parallel(spec: str, a: torch.Tensor, w: torch.Tensor, dtype,
                  what: str) -> torch.Tensor:
     """A product whose contracted dim is split over ``model``: the rank's
-    float32 partial sum (``COMPUTE_DTYPE`` operands widened, their
-    products exact), summed over the model group and rounded once to
-    ``dtype``, as the reference's partitioned ``einsum(...,
-    preferred_element_type=f32).astype``."""
+    float32 partial sum (:func:`einsum_f32`), summed over the model group
+    and rounded once to ``dtype``, as the reference's partitioned
+    ``einsum(..., preferred_element_type=f32).astype``."""
     part = einsum_f32(spec, a, cast(w))
     return collectives.all_reduce_value(part, model_group(),
                                         what).to(dtype)
@@ -723,11 +724,122 @@ def einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def einsum_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The reference's f32-kept product exactly: ``COMPUTE_DTYPE``
-    operands widened to f32 (their products are exact there), an f32
-    matmul.  For the logits and the router, whose values decide an argmax
-    or a route."""
+    """The reference's f32-kept product (``preferred_element_type=f32``
+    with no ``.astype`` after it): the operands' exact products,
+    accumulated in float32, a float32 result.  Two bf16 operands take
+    :class:`_F32Product`, whose GEMM is chosen by their device
+    (:func:`_gemm`); where an operand is float32 the operands are widened
+    and multiplied in float32 (their products are exact there)."""
+    if a.dtype == b.dtype == torch.bfloat16:
+        return _F32Product.apply(spec, a, b)
     return torch.einsum(spec, a.float(), b.float())
+
+
+def f32_sum_bound(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2·k·2^-24·(|a|·|b|), elementwise in float64: the widest gap of two
+    float32 sums of ``spec``'s k exact products (k the contracted letters'
+    sizes) taken in any two orders, as :func:`einsum_f32` on the card and
+    the widened product are."""
+    ins, out = spec.split("->")
+    sa, sb = ins.split(",")
+    size = dict(zip(sa, a.shape)) | dict(zip(sb, b.shape))
+    k = math.prod(size[c] for c in set(sa + sb) - set(out))
+    return 2 * k * 2.0 ** -24 * torch.einsum(
+        spec, a.detach().abs().double(), b.detach().abs().double())
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_plan(spec: str) -> tuple:
+    """An einsum of two operands as one (batched) matrix product: the
+    permutations that lay ``a`` out as (batch, m, k) and ``b`` as (batch,
+    k, n), the letters' counts, and the permutation from (batch, m, n) to
+    the output.  Batch, m and n letters are taken in the output's order,
+    so the usual specs need no permutation of the result."""
+    ins, out = spec.split("->")
+    sa, sb = ins.split(",")
+    bat = [c for c in out if c in sa and c in sb]
+    m = [c for c in out if c in sa and c not in sb]
+    n = [c for c in out if c in sb and c not in sa]
+    k = [c for c in sa if c in sb and c not in out]
+    if sorted(sa) != sorted(bat + m + k) or sorted(sb) != sorted(bat + k + n) \
+            or sorted(out) != sorted(bat + m + n):
+        raise ValueError(f"einsum_f32: {spec!r} is not a matrix product")
+    mid = bat + m + n
+    return ([sa.index(c) for c in bat + m + k],
+            [sb.index(c) for c in bat + k + n],
+            [mid.index(c) for c in out], len(bat), len(m), len(k))
+
+
+def _as_3d(x: torch.Tensor, perm, nb: int, n1: int) -> torch.Tensor:
+    """``x`` permuted and flattened to (batch, rows, cols): its first
+    ``nb`` permuted dims, the next ``n1``, the rest."""
+    x = x.permute(perm)
+    s = x.shape
+    return x.reshape(math.prod(s[:nb]), math.prod(s[nb:nb + n1]),
+                     math.prod(s[nb + n1:]))
+
+
+def _inverse(perm) -> list:
+    inv = [0] * len(perm)
+    for i, d in enumerate(perm):
+        inv[d] = i
+    return inv
+
+
+def _from_3d(y: torch.Tensor, shape, perm) -> torch.Tensor:
+    """:func:`_as_3d` undone: ``y`` to the permuted ``shape``, then back
+    to the order before ``perm``."""
+    return y.reshape(shape).permute(_inverse(perm))
+
+
+def _gemm(x: torch.Tensor, y: torch.Tensor, nb: int) -> torch.Tensor:
+    """(batch, m, k) @ (batch, k, n) with a float32 result, ``mm`` where
+    the spec has no batch letter.  bf16 operands on the card go into one
+    GEMM on the tensor cores with ``out_dtype=float32``; elsewhere the
+    operands are widened (a float32 operand already is)."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        kw = {"out_dtype": torch.float32}
+    else:
+        x, y, kw = x.float(), y.float(), {}
+    if nb:
+        return torch.bmm(x, y, **kw)
+    return torch.mm(x[0], y[0], **kw)[None]
+
+
+class _F32Product(torch.autograd.Function):
+    """:func:`einsum_f32` of two bf16 operands: laid out as (batch, m, k)
+    and (batch, k, n) and multiplied by :func:`_gemm` with a float32
+    result.  The card's overload has no derivative, so the backward is
+    written here, the same on every device: the reference's transpose,
+    each operand's gradient the float32 cotangent times the other operand
+    widened, accumulated in float32 and rounded once to the operand's
+    dtype.  The bf16 operands are what is saved for it."""
+
+    @staticmethod
+    def forward(ctx, spec, a, b):
+        pa, pb, po, nb, nm, nk = _mm_plan(spec)
+        ctx.spec = spec
+        ctx.save_for_backward(a, b)
+        a3, b3 = _as_3d(a, pa, nb, nm), _as_3d(b, pb, nb, nk)
+        y = _gemm(a3, b3, nb)
+        mid = [a.shape[d] for d in pa[:nb + nm]] + \
+            [b.shape[d] for d in pb[nb + nk:]]
+        return y.reshape(mid).permute(po)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        pa, pb, po, nb, nm, nk = _mm_plan(ctx.spec)
+        g3 = _as_3d(g.float(), _inverse(po), nb, nm)
+        a3, b3 = _as_3d(a, pa, nb, nm), _as_3d(b, pb, nb, nk)
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = _from_3d(_gemm(g3, b3.float().transpose(1, 2), nb).to(
+                a.dtype), [a.shape[d] for d in pa], pa)
+        if ctx.needs_input_grad[2]:
+            gb = _from_3d(_gemm(a3.float().transpose(1, 2), g3, nb).to(
+                b.dtype), [b.shape[d] for d in pb], pb)
+        return None, ga, gb
 
 
 # ---------------------------------------------------------------------------
@@ -857,7 +969,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
     def attend(q_blk: torch.Tensor, blk_offset: int) -> torch.Tensor:
         c = q_blk.shape[1]
-        scores = einsum("bqgrh,bkgh->bgrqk", q_blk, k).float() * scale
+        scores = einsum_f32("bqgrh,bkgh->bgrqk", q_blk, k) * scale
         qpos = blk_offset + torch.arange(c, device=q.device) + q_offset
         mask = torch.ones((c, sk), dtype=torch.bool, device=q.device)
         if causal:
@@ -957,11 +1069,11 @@ def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     if tp:
         x = replicated_in(x, "mlp in")
     if "w_gate" in p:
-        gate = einsum("bsd,df->bsf", x, cast(p["w_gate"])).float()
-        up = einsum("bsd,df->bsf", x, cast(p["w_up"])).float()
+        gate = einsum_f32("bsd,df->bsf", x, cast(p["w_gate"]))
+        up = einsum_f32("bsd,df->bsf", x, cast(p["w_up"]))
         h = (F.silu(gate) * up).to(x.dtype)
     else:
-        up = einsum("bsd,df->bsf", x, cast(p["w_up"])).float()
+        up = einsum_f32("bsd,df->bsf", x, cast(p["w_up"]))
         h = gelu(up).to(x.dtype)
     if tp:
         return row_parallel("bsf,fd->bsd", h, p["w_down"], out_dtype,

@@ -55,7 +55,8 @@ from repro_torch.models import layers as layers_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (attention_block, block_params, cast,
-                                       cross_attention_block, einsum, embed,
+                                       cross_attention_block, einsum,
+                                       einsum_f32, embed,
                                        gather_param, gather_params, gelu,
                                        get_activation_spec, init_attention,
                                        init_embed, init_mlp, init_rms_norm,
@@ -799,13 +800,13 @@ def _split_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, h // kv, hd)
-    scores = einsum("bqgrh,bkgh->bgrqk", qg, k).float() * scale
+    scores = einsum_f32("bqgrh,bkgh->bgrqk", qg, k) * scale
     if valid is not None:
         scores = torch.where(valid, scores, -1e30)
     mx = scores.amax(-1, keepdim=True)
     e = torch.exp(scores - mx)
     part = torch.cat([mx, e.sum(-1, keepdim=True),
-                      einsum("bgrqk,bkgh->bgrqh", e.to(q.dtype), v).float()],
+                      einsum_f32("bgrqk,bkgh->bgrqh", e.to(q.dtype), v)],
                      dim=-1)
     parts = collectives.all_gather(part, layers_mod.get_mesh().get_group(
         "model"), "decode softmax")
@@ -1070,7 +1071,7 @@ def _ring_sdpa(q, k_cache, v_cache, key_pos, write_at):
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
     qg = q.reshape(b, 1, kv, h // kv, hd)
-    scores = einsum("bqgrh,bkgh->bgrqk", qg, k_cache).float()
+    scores = einsum_f32("bqgrh,bkgh->bgrqk", qg, k_cache)
     scores = scores / math.sqrt(hd)
     slots = torch.arange(k_cache.shape[1], device=q.device)
     valid = (key_pos >= 0) | (slots == write_at)

@@ -145,8 +145,8 @@ def _experts(p: Params, buf: torch.Tensor, dtype,
              partial: bool = False) -> torch.Tensor:
     """The expert MLPs of a (G, E, C, D) buffer; ``partial``: ``p`` holds
     a d_ff slice, and the output is its float32 partial sum."""
-    gate_h = einsum("gecd,edf->gecf", buf, cast(p["w_gate"])).float()
-    up_h = einsum("gecd,edf->gecf", buf, cast(p["w_up"])).float()
+    gate_h = einsum_f32("gecd,edf->gecf", buf, cast(p["w_gate"]))
+    up_h = einsum_f32("gecd,edf->gecf", buf, cast(p["w_up"]))
     h = (F.silu(gate_h) * up_h).to(dtype)
     if partial:
         return einsum_f32("gecf,efd->gecd", h, cast(p["w_down"]))

@@ -6,7 +6,8 @@ reference's weights carried across through ``bridge.lm_params_from``.
 * float32 (both packages' ``COMPUTE_DTYPE`` patched inside the test):
   forward, logits, ``chunked_ce_loss`` and the gradients of ``loss_fn``
   (``test_torch_lm_common.check_float32`` states the tolerances, ~1e-4); at
-  the default bf16, forward, logits and the loss
+  the default bf16, forward, logits, the loss and its gradients leaf by
+  leaf against the reference's own bf16-vs-float32 gap
   (``test_torch_lm_common.check_bf16`` states the measured bounds).
 * Prefill and one decode step against the reference's ``prefill`` and
   ``decode_step``, float32 compute in both packages (the caches stay bf16

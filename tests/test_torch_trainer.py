@@ -136,8 +136,9 @@ def test_trainer_rejects_unported_options(field, value, corpus):
 
 
 def test_fused_alias_build_names_its_roadmap_item():
-    """LDAConfig(fused_alias_build=True), ROADMAP.md queue B.6, bridges and
-    builds through the fused build (kernel 6; its plain version here):
+    """LDAConfig(fused_alias_build=True), kernel 6 of ROADMAP.md's table
+    B (``alias_build_fused``), bridges and builds through the fused build
+    (its plain version here):
     against the reference's build_alias on the same statistics the stale
     matrix, the masses and every alias entry are equal, and prob is within
     4·K·2⁻²⁴ (``tests/test_torch_kernels.py`` says why it is not equal)."""

@@ -10,9 +10,13 @@ After ``WARM`` steps it times ``TIMED`` steps on the host's clock closed
 by ``torch.cuda.synchronize()``, then runs one step and one decode step
 (after a prefill of 512 tokens) under ``torch.profiler``.  For each it
 prints the wall ms, the device's busy ms (the sum of the kernels' device
-time), the count of kernel launches and host ops, and the ops and kernels
-with the most device time; the summary is one ``LMPROFILE`` JSON line,
-also written to chiprun_out/lm_profile.json.
+time), the count of kernel launches and host ops, the casts' device ms
+and calls (``aten::_to_copy``, every ``.to(dtype)``, with the copies it
+launches; and ``aten::copy_``'s own device ms), the GEMMs' device ms
+(``aten::mm``, ``bmm``, ``addmm``, their ``out_dtype`` forms included),
+and the ops and kernels with the most device time; the summary is one
+``LMPROFILE`` JSON line, also written to chiprun_out/lm_profile.json
+(``--out NAME`` for another file name there).
 """
 
 from __future__ import annotations
@@ -52,14 +56,31 @@ def profiled(label: str, fn) -> dict:
     launches = sum(e.count for e in events if e.key in (
         "cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel"))
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:TOP]
+    by_key = {e.key: e for e in ops}
+    casts = by_key.get("aten::_to_copy")
+    copies = by_key.get("aten::copy_")
+    gemms = [by_key[k] for k in ("aten::mm", "aten::bmm", "aten::addmm")
+             if k in by_key]
     out = {"wall_ms": wall, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall),
            "launches": launches, "aten_ops": sum(e.count for e in ops),
            "host_ms_a_launch": wall / max(launches, 1),
+           "casts_device_ms": casts.device_time_total / 1e3 if casts
+           else 0.0,
+           "cast_calls": casts.count if casts else 0,
+           "copy_self_device_ms": copies.self_device_time_total / 1e3
+           if copies else 0.0,
+           "gemm_device_ms": sum(e.self_device_time_total
+                                 for e in gemms) / 1e3,
+           "gemm_calls": sum(e.count for e in gemms),
            "top_ops_device_ms": {e.key: e.self_device_time_total / 1e3
                                  for e in top}}
     print(f"PROFILE {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-          f"{launches} launches, {out['aten_ops']} aten ops", flush=True)
+          f"{launches} launches, {out['aten_ops']} aten ops; casts "
+          f"{out['casts_device_ms']:.1f} ms in {out['cast_calls']} calls "
+          f"(copy_ {out['copy_self_device_ms']:.1f} ms), GEMMs "
+          f"{out['gemm_device_ms']:.1f} ms in {out['gemm_calls']} calls",
+          flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
     return out
@@ -103,7 +124,9 @@ def main() -> int:
     print(f"LMPROFILE {json.dumps(out)}", flush=True)
     dest = HERE / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / "lm_profile.json").write_text(json.dumps(out, indent=1))
+    name = sys.argv[sys.argv.index("--out") + 1] if "--out" in sys.argv \
+        else "lm_profile.json"
+    (dest / name).write_text(json.dumps(out, indent=1))
     return 0
 
 
